@@ -9,16 +9,18 @@ original size, and accumulate the per-pixel and per-region confusion
 matrices when ground truth exists; finally print the timing report and
 the matrices.
 
-This first slice runs the loop sequentially on one CUDA device
-(``--device``, default 0; ANNONET_TPU_TORCH_DEVICE=cpu runs it on the
-CPU). ``--pipeline-depth`` and the reader/writer thread counts are
-accepted and have no effect: reading, inference and writing take turns.
-``--no-compilation-cache`` has nothing to disable (the kernels are built
-once per source hash). Flags whose feature is not ported yet exit with
-code 2 and name the roadmap item: ``--quantize int8``, ``--blend-dtype
-bfloat16``, ``--calibration``, ``--save-calibration``,
-``--calibration-images``, ``--mesh``, ``--coordinator``,
-``--num-processes``, ``--process-id``, ``--plan-autotune``, ``--profile``.
+The loop runs sequentially on one CUDA device (``--device``, default 0;
+ANNONET_TPU_TORCH_DEVICE=cpu runs it on the CPU). ``--pipeline-depth``
+and the reader/writer thread counts are accepted and have no effect:
+reading, inference and writing take turns. ``--no-compilation-cache`` has
+nothing to disable (the kernels are built once per source hash).
+``--quantize int8`` runs the int8 net, with ``--calibration-images``,
+``--calibration`` / ``--save-calibration`` (files either package reads)
+and ``--blend-dtype``; after the loop it prints the calibration overshoot
+of the last image, as the JAX CLI does. Flags whose feature is not ported
+yet exit with code 2 and name the roadmap item: ``--mesh``,
+``--coordinator``, ``--num-processes``, ``--process-id``,
+``--plan-autotune``, ``--profile``.
 """
 
 from __future__ import annotations
@@ -85,7 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Accepted for flag parity; the port keeps no "
                         "compilation cache")
     p.add_argument("--quantize", choices=["none", "int8"], default="none",
-                   help="Quantized inference (int8 is not ported yet)")
+                   help="Quantized inference: int8 runs the int8 net, "
+                        "calibrated on the first --calibration-images "
+                        "images (or loaded with --calibration)")
     p.add_argument("--reference-blend-semantics", action="store_true",
                    help="Compat mode: compare per-class gains (-g) and "
                         "detection levels (-d) against the UNNORMALIZED "
@@ -95,48 +99,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of normalizing first. Identical output "
                         "when all gains and levels are zero (PARITY.md)")
     p.add_argument("--calibration-images", type=int, default=1, metavar="N",
-                   help="int8 calibration images (not ported yet)")
+                   help="int8: images whose activation maxima set the "
+                        "scales; they run the float net before the freeze")
     p.add_argument("--plan-autotune", action="store_true",
                    help="Measured tile-plan selection (not ported yet)")
     p.add_argument("--blend-dtype", choices=["auto", "float32", "bfloat16"],
                    default="auto",
                    help="Accumulation dtype of the tile-blend epilogue: "
-                        "float32 (auto); bfloat16 belongs to the int8 path "
-                        "and is not ported yet")
+                        "auto = bfloat16 with --quantize int8, else float32")
     p.add_argument("--calibration", default=None, metavar="PATH",
-                   help="Load persisted int8 calibration (not ported yet)")
+                   help="Load persisted int8 calibration (int8 from the "
+                        "first image)")
     p.add_argument("--save-calibration", default=None, metavar="PATH",
-                   help="Persist int8 calibration (not ported yet)")
+                   help="Persist the frozen int8 calibration")
     return p
 
 
-_INT8 = 'ROADMAP.md queue 1 item 5, "int8 path"'
 _CLI = 'ROADMAP.md queue 1 item 4, "Inference CLIs and serving"'
 _UNSET = object()
-# (flag, dest, refused(value), roadmap item); dests marked "given" are
-# refused whenever the flag appears on the command line
+# (flag, dest): refused whenever the flag appears on the command line
 _UNPORTED = (
-    ("--quantize int8", "quantize", lambda v: v == "int8", _INT8),
-    ("--blend-dtype bfloat16", "blend_dtype", lambda v: v == "bfloat16", _INT8),
-    ("--calibration", "calibration", "given", _INT8),
-    ("--save-calibration", "save_calibration", "given", _INT8),
-    ("--calibration-images", "calibration_images", "given", _INT8),
-    ("--mesh", "mesh", "given", _CLI),
-    ("--coordinator", "coordinator", "given", _CLI),
-    ("--num-processes", "num_processes", "given", _CLI),
-    ("--process-id", "process_id", "given", _CLI),
-    ("--plan-autotune", "plan_autotune", "given", _CLI),
-    ("--profile", "profile", "given", _CLI),
+    ("--mesh", "mesh"),
+    ("--coordinator", "coordinator"),
+    ("--num-processes", "num_processes"),
+    ("--process-id", "process_id"),
+    ("--plan-autotune", "plan_autotune"),
+    ("--profile", "profile"),
 )
 
 
 def _unported(args):
     """The message for the first unported flag the user passed, or None."""
-    for flag, dest, refused, item in _UNPORTED:
-        value = getattr(args, dest)
-        hit = value is not _UNSET if refused == "given" else refused(value)
-        if hit:
-            return f"annonet_infer: {flag} is not ported to annonet_tpu_torch yet ({item})"
+    for flag, dest in _UNPORTED:
+        if getattr(args, dest) is not _UNSET:
+            return f"annonet_infer: {flag} is not ported to annonet_tpu_torch yet ({_CLI})"
     return None
 
 
@@ -156,7 +152,7 @@ def main(argv=None) -> int:
     # a sentinel default tells "flag given" from "default" for the
     # unported flags; build_parser itself stays the reference's table
     parser.set_defaults(**{
-        dest: _UNSET for _f, dest, refused, _i in _UNPORTED if refused == "given"
+        dest: _UNSET for _flag, dest in _UNPORTED
     })
     try:
         args = parser.parse_args(argv)
@@ -240,8 +236,24 @@ def _run(args, input_directory) -> int:
         overlap_x=min_input_dimension,
         overlap_y=min_input_dimension,
     )
+    if args.calibration_images < 1:
+        raise RuntimeError("--calibration-images must be >= 1")
+    if (args.calibration or args.save_calibration) and args.quantize != "int8":
+        raise RuntimeError(
+            "--calibration/--save-calibration require --quantize int8"
+        )
+    calibration = None
+    if args.calibration:
+        calibration = serialization.load_calibration(
+            args.calibration, model_config, runtime_params
+        )
+        print(f"Loaded int8 calibration from {args.calibration}")
     inferer = TiledInferer(
         runtime_params, model_config, tiling, device=device,
+        quantize=None if args.quantize == "none" else args.quantize,
+        calibration_images=args.calibration_images,
+        calibration=calibration,
+        blend_dtype=None if args.blend_dtype == "auto" else args.blend_dtype,
         reference_blend_semantics=args.reference_blend_semantics,
     )
 
@@ -268,6 +280,7 @@ def _run(args, input_directory) -> int:
 
     t0 = time.monotonic()
     index = 0
+    last_image = None
     pending = None  # a sample read ahead that closed a same-size group
     first_group = True
     while index < len(files):
@@ -300,6 +313,7 @@ def _run(args, input_directory) -> int:
             )
         share = (time.monotonic() - t_start) / len(group)
 
+        last_image = group[-1].input_image
         for j, sample in enumerate(group):
             result = detection_veto(
                 labels_np[j], None if seeds_np is None else seeds_np[j]
@@ -350,6 +364,30 @@ def _run(args, input_directory) -> int:
             f"max = {max_inference_excl_first * 1000.0:.3f} ms"
         )
     print("All result images written!")
+
+    if args.quantize == "int8" and last_image is not None:
+        # clip-saturation telemetry: how far the last image's activations
+        # exceed the frozen calibration range (above ~1.2x the calibration
+        # images were unrepresentative)
+        overshoot = inferer.calibration_overshoot(last_image)
+        if overshoot > 0.0:
+            print(
+                "int8 calibration: "
+                f"{inferer.calibration_images} image(s); activation "
+                f"range overshoot on the last image = {overshoot:.2f}x"
+                + (" (consider raising --calibration-images)"
+                   if overshoot > 1.2 else "")
+            )
+    if args.save_calibration:
+        exported = inferer.export_calibration()
+        if exported is None:
+            print("No int8 net was frozen; nothing to save "
+                  "(fewer images than --calibration-images?)")
+        else:
+            serialization.save_calibration(
+                args.save_calibration, exported, model_config, runtime_params
+            )
+            print(f"Saved int8 calibration to {args.save_calibration}")
 
     if ground_truth_count:
         print("\nConfusion matrix per pixel:")

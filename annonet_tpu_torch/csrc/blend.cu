@@ -23,6 +23,17 @@
 // card's 3.35 TB/s and the kernel takes ~1.2 ms (PERF.md). Looping over
 // only the tiles of the pixel's grid row and column is the next step
 // (PERF.md, Open questions).
+//
+// bf16 mode (the int8 path's default, infer/core.py:403-493): the same
+// gather, with every rounding point of the JAX bf16 chain written out:
+// logit and ramp rounded to bf16, their product rounded, the running sum
+// rounded after each add; then either the argmax fold
+// argmax(acc + (gain * wy) * wx), which needs no 1/wsum pass (the blend
+// weight sum factorises over grid plans, tiling.weight_sum_factors), or
+// argmax(acc * inv_wsum + gain) and the seeds from those normalised
+// values, each product, sum and difference rounded to bf16. The fold also
+// runs in f32 (an int8 net with an f32 blend). The plain version rounds at
+// the same points, so labels and seeds stay bit-identical to it.
 
 #include "common.cuh"
 
@@ -31,13 +42,25 @@ namespace {
 
 constexpr int kBlendThreads = 256;
 
+// rounding to the blend dtype: bf16 in BF16 mode, none in f32
+template <bool BF16>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (BF16)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(kBlendThreads)
 blend_argmax_kernel(const float* __restrict__ logits,
                     const int32_t* __restrict__ tile_yx,
                     const float* __restrict__ ramp,
                     const float* __restrict__ inv_wsum,
                     const float* __restrict__ gains,
-                    const float* __restrict__ det, uint8_t* labels_u8,
+                    const float* __restrict__ det,
+                    const float* __restrict__ wy,
+                    const float* __restrict__ wx, uint8_t* labels_u8,
                     int32_t* labels_i32, uint8_t* seeds, int64_t n_tiles,
                     int64_t m, int64_t img0, int64_t th, int64_t tw,
                     int64_t hp, int64_t wp, int k, int reference_blend) {
@@ -45,7 +68,11 @@ blend_argmax_kernel(const float* __restrict__ logits,
   if (pix >= hp * wp) return;
   const int64_t img = img0 + blockIdx.y;
   const int64_t y = pix / wp, x = pix % wp;
-  const float inv = inv_wsum[pix];
+  const float inv = rnd<BF16>(inv_wsum[pix]);
+  // argmax fold: the gain enters scaled by the weight sum wy(y) * wx(x)
+  const bool fold = wy != nullptr;
+  const float fy = fold ? rnd<BF16>(wy[y]) : 0.f;
+  const float fx = fold ? rnd<BF16>(wx[x]) : 0.f;
 
   int label = 0;
   float best = 0.f, b_label = 0.f, b0 = 0.f;
@@ -54,12 +81,25 @@ blend_argmax_kernel(const float* __restrict__ logits,
     for (int64_t t = 0; t < n_tiles; ++t) {
       const int64_t dy = y - tile_yx[2 * t], dx = x - tile_yx[2 * t + 1];
       if (dy >= 0 && dy < th && dx >= 0 && dx < tw) {
-        const float l = logits[(((t * m + img) * th + dy) * tw + dx) * k + c];
-        acc = __fadd_rn(acc, __fmul_rn(l, ramp[dy * tw + dx]));
+        const float l =
+            rnd<BF16>(logits[(((t * m + img) * th + dy) * tw + dx) * k + c]);
+        const float r = rnd<BF16>(ramp[dy * tw + dx]);
+        acc = rnd<BF16>(__fadd_rn(acc, rnd<BF16>(__fmul_rn(l, r))));
       }
     }
-    const float blended = reference_blend ? acc : __fmul_rn(acc, inv);
-    const float v = __fadd_rn(blended, gains[c]);
+    const float g = rnd<BF16>(gains[c]);
+    float blended, v;
+    if (reference_blend) {
+      blended = acc;
+      v = rnd<BF16>(__fadd_rn(acc, g));
+    } else if (fold) {
+      blended = acc;  // the fold runs without detection: no seeds read it
+      v = rnd<BF16>(
+          __fadd_rn(acc, rnd<BF16>(__fmul_rn(rnd<BF16>(__fmul_rn(g, fy)), fx))));
+    } else {
+      blended = rnd<BF16>(__fmul_rn(acc, inv));
+      v = rnd<BF16>(__fadd_rn(blended, g));
+    }
     // first maximum wins; a NaN counts as the maximum (argmax semantics)
     if (c == 0) {
       best = v;
@@ -77,8 +117,10 @@ blend_argmax_kernel(const float* __restrict__ logits,
   else
     labels_u8[o] = (uint8_t)label;
   if (seeds != nullptr)
-    seeds[o] = (label > 0 && __fsub_rn(b_label, b0) >
-                                 __fsub_rn(det[label], det[0]))
+    seeds[o] = (label > 0 &&
+                rnd<BF16>(__fsub_rn(b_label, b0)) >
+                    rnd<BF16>(__fsub_rn(rnd<BF16>(det[label]),
+                                        rnd<BF16>(det[0]))))
                    ? 1
                    : 0;
 }
@@ -88,24 +130,27 @@ blend_argmax_kernel(const float* __restrict__ logits,
 
 extern "C" int annonet_blend_argmax(
     const void* logits, const void* tile_yx, const void* ramp,
-    const void* inv_wsum, const void* gains, const void* det, void* labels,
-    void* seeds, int64_t n_tiles, int64_t m, int64_t th, int64_t tw,
-    int64_t hp, int64_t wp, int k, int labels_int32, int with_detection,
-    int reference_blend, void* stream) {
+    const void* inv_wsum, const void* gains, const void* det, const void* wy,
+    const void* wx, void* labels, void* seeds, int64_t n_tiles, int64_t m,
+    int64_t th, int64_t tw, int64_t hp, int64_t wp, int k, int labels_int32,
+    int with_detection, int reference_blend, int bf16, void* stream) {
   using namespace annonet;
   cudaGetLastError();  // report this launch's error only
-  if (k <= 0 || n_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (k <= 0 || n_tiles <= 0 || (wy == nullptr) != (wx == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (m == 0 || hp * wp == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t blocks = (hp * wp + kBlendThreads - 1) / kBlendThreads;
+  auto kernel = bf16 ? blend_argmax_kernel<true> : blend_argmax_kernel<false>;
   for (int64_t m0 = 0; m0 < m; m0 += kMaxGridYZ) {
     const int64_t mb = m - m0 < kMaxGridYZ ? m - m0 : kMaxGridYZ;
     dim3 grid((unsigned)blocks, (unsigned)mb, 1);
-    blend_argmax_kernel<<<grid, kBlendThreads, 0, s>>>(
+    kernel<<<grid, kBlendThreads, 0, s>>>(
         static_cast<const float*>(logits),
         static_cast<const int32_t*>(tile_yx), static_cast<const float*>(ramp),
         static_cast<const float*>(inv_wsum), static_cast<const float*>(gains),
-        static_cast<const float*>(det),
+        static_cast<const float*>(det), static_cast<const float*>(wy),
+        static_cast<const float*>(wx),
         labels_int32 ? nullptr : static_cast<uint8_t*>(labels),
         labels_int32 ? static_cast<int32_t*>(labels) : nullptr,
         with_detection ? static_cast<uint8_t*>(seeds) : nullptr, n_tiles, m,

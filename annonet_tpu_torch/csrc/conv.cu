@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of annonet_tpu/ops/int8_conv_mosaic.py
 //   K1 fconv3x3_s1_bias_relu (:359)  3x3 stride 1, zero padding (1, 1)
 //   K2 fconv3x3_s2_bias_relu (:426)  3x3 stride 2, zero padding (0, 1)
-//   K3 fup_bias_relu         (:485)  2x2 stride-2 transpose conv
+//   K3 fup_bias_relu         (:485)  2x2 stride-2 transpose conv, and its
+//                                    requant mode (the int8 net's up)
 // and the XLA convs the default JAX path runs in their place
 // (models/segnet.py _conv / _conv_transpose). The TPU kernels work on a
 // width-folded layout that packs 8 pixels into the 128 MXU lanes and pays
@@ -27,6 +28,13 @@
 // Numerics: f32 accumulation, + f32 bias, ReLU, one rounding to the output
 // dtype. Offsets are 64-bit (a 25-tile batch of 896^2 at 32 channels is
 // close to 2^31 elements).
+//
+// K3 has a requant mode, the int8 net's default ``up`` layer
+// (quantized_runtime.py:480-487): the int8 input times the per-channel
+// scale s_in, rounded to the compute dtype, goes through the same
+// transpose conv with f32 accumulation; the sum is rounded to the compute
+// dtype (as XLA's bf16 conv output is) and requantized to int8 with one
+// fused multiply-add, clip [0, 127] and truncation (see qconv.cu).
 
 #include "common.cuh"
 
@@ -129,10 +137,14 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ x2,
 
 // K3: each thread owns one INPUT pixel and writes the four output pixels
 // (2i+u, 2j+v) it feeds, for 16 output channels: out = x . w[1-u][1-v].
-template <typename T, int GROUPS>
+// REQUANT: x is int8 and is scaled by s_in (rounded to T) on the way into
+// shared memory; ``bias`` is then the requant scale and ``offset`` its
+// offset, and the output is int8.
+template <typename T, bool REQUANT, int GROUPS>
 __global__ void __launch_bounds__(kThreads)
-up2x2_kernel(const T* __restrict__ x, const T* __restrict__ w,
-             const float* __restrict__ bias, T* __restrict__ out,
+up2x2_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
+             const T* __restrict__ w, const float* __restrict__ bias,
+             const float* __restrict__ offset, void* __restrict__ outv,
              int64_t npix, int64_t h, int64_t wd, int cin, int cout) {
   constexpr int kPix = kThreads / GROUPS;
   constexpr int kCob = kCpt * GROUPS;
@@ -157,7 +169,17 @@ up2x2_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int ci = e % kCk, q = e / kCk;
       const int64_t pidx = p0 + q;
       const int c = c0 + ci;
-      xs[ci][q] = (pidx < npix && c < cin) ? to_f32(x[pidx * cin + c]) : 0.f;
+      float v = 0.f;
+      if (pidx < npix && c < cin) {
+        if constexpr (REQUANT) {
+          const int8_t xq = static_cast<const int8_t*>(xv)[pidx * cin + c];
+          const float s = to_f32(from_f32<T>(s_in[c]));
+          v = to_f32(from_f32<T>(__fmul_rn((float)xq, s)));
+        } else {
+          v = to_f32(static_cast<const T*>(xv)[pidx * cin + c]);
+        }
+      }
+      xs[ci][q] = v;
     }
     // ws[s = 2u + v] holds the flipped tap w[1-u][1-v]
     for (int e = tid; e < 4 * kCk * kCob; e += kThreads) {
@@ -192,11 +214,21 @@ up2x2_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const int u = s >> 1, v = s & 1;
-    T* o = out + ((img * 2 * h + 2 * iy + u) * (2 * wd) + 2 * jx + v) * cout;
+    const int64_t o =
+        ((img * 2 * h + 2 * iy + u) * (2 * wd) + 2 * jx + v) * cout;
 #pragma unroll
     for (int j = 0; j < kCpt; ++j) {
       const int co = cob + g * kCpt + j;
-      if (co < cout) o[co] = from_f32<T>(fmaxf(acc[s][j] + bias[co], 0.f));
+      if (co >= cout) continue;
+      if constexpr (REQUANT) {
+        const float r = to_f32(from_f32<T>(acc[s][j]));
+        const float f = __fmaf_rn(r, bias[co], offset[co]);
+        static_cast<int8_t*>(outv)[o + co] =
+            (int8_t)__float2int_rz(fminf(fmaxf(f, 0.f), 127.f));
+      } else {
+        static_cast<T*>(outv)[o + co] =
+            from_f32<T>(fmaxf(acc[s][j] + bias[co], 0.f));
+      }
     }
   }
 }
@@ -239,15 +271,23 @@ void dispatch_conv(const void* x, const void* x2, const void* w,
     launch_conv<T, 2, 1>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
 }
 
-template <typename T, int GROUPS>
-void launch_up(const T* x, const T* w, const float* bias, T* out, int64_t n,
+template <typename T, bool REQUANT>
+void launch_up(const void* x, const float* s_in, const void* w,
+               const float* bias, const float* offset, void* out, int64_t n,
                int64_t h, int64_t wd, int cin, int cout, cudaStream_t stream) {
-  constexpr int kPix = kThreads / GROUPS;
   const int64_t npix = n * h * wd;
-  const int64_t slabs = (cout + kCpt * GROUPS - 1) / (kCpt * GROUPS);
-  dim3 grid((unsigned)((npix + kPix - 1) / kPix), (unsigned)slabs, 1);
-  up2x2_kernel<T, GROUPS><<<grid, kThreads, 0, stream>>>(x, w, bias, out, npix,
-                                                        h, wd, cin, cout);
+  const T* wt = static_cast<const T*>(w);
+  if (cout > kCpt) {
+    constexpr int kPix = kThreads / 2;
+    dim3 grid((unsigned)((npix + kPix - 1) / kPix),
+              (unsigned)((cout + 2 * kCpt - 1) / (2 * kCpt)), 1);
+    up2x2_kernel<T, REQUANT, 2><<<grid, kThreads, 0, stream>>>(
+        x, s_in, wt, bias, offset, out, npix, h, wd, cin, cout);
+  } else {
+    dim3 grid((unsigned)((npix + kThreads - 1) / kThreads), 1, 1);
+    up2x2_kernel<T, REQUANT, 1><<<grid, kThreads, 0, stream>>>(
+        x, s_in, wt, bias, offset, out, npix, h, wd, cin, cout);
+  }
 }
 
 }  // namespace
@@ -283,20 +323,32 @@ extern "C" int annonet_up2x2_bias_relu(const void* x, const void* w,
   if (n * h * wd == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  const bool wide = cout > kCpt;
-  if (bf16) {
-    using T = __nv_bfloat16;
-    const T* xt = static_cast<const T*>(x);
-    const T* wt = static_cast<const T*>(w);
-    T* ot = static_cast<T*>(out);
-    if (wide) launch_up<T, 2>(xt, wt, b, ot, n, h, wd, cin, cout, s);
-    else launch_up<T, 1>(xt, wt, b, ot, n, h, wd, cin, cout, s);
-  } else {
-    const float* xt = static_cast<const float*>(x);
-    const float* wt = static_cast<const float*>(w);
-    float* ot = static_cast<float*>(out);
-    if (wide) launch_up<float, 2>(xt, wt, b, ot, n, h, wd, cin, cout, s);
-    else launch_up<float, 1>(xt, wt, b, ot, n, h, wd, cin, cout, s);
-  }
+  if (bf16)
+    launch_up<__nv_bfloat16, false>(x, nullptr, w, b, nullptr, out, n, h, wd,
+                                    cin, cout, s);
+  else
+    launch_up<float, false>(x, nullptr, w, b, nullptr, out, n, h, wd, cin,
+                            cout, s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int annonet_up2x2_requant(const void* x, const void* s_in,
+                                     const void* w, const void* scale,
+                                     const void* offset, void* out, int64_t n,
+                                     int64_t h, int64_t wd, int cin, int cout,
+                                     int bf16, void* stream) {
+  using namespace annonet;
+  cudaGetLastError();
+  if (cin <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
+  if (n * h * wd == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* si = static_cast<const float*>(s_in);
+  const float* sc = static_cast<const float*>(scale);
+  const float* of = static_cast<const float*>(offset);
+  if (bf16)
+    launch_up<__nv_bfloat16, true>(x, si, w, sc, of, out, n, h, wd, cin, cout,
+                                   s);
+  else
+    launch_up<float, true>(x, si, w, sc, of, out, n, h, wd, cin, cout, s);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,383 @@
+// int8 conv + requant kernels of the quantized segmentation net (Q1-Q3).
+//
+// Replaces the Pallas TPU kernels of annonet_tpu/ops/int8_conv_mosaic.py
+//   Q1 qconv3x3_s1_requant (:673)  3x3 stride 1, zero padding (1, 1)
+//   Q2 qconv3x3_s2_requant (:222)  3x3 stride 2, zero padding (0, 1)
+//   Q3 qup_requant         (:294)  2x2 stride-2 transpose conv
+// and the XLA int8 convs the default JAX path runs in their place
+// (models/quantized_runtime.py apply_folded_int8). The TPU kernels work on
+// the width-folded layout (8 pixels x 16 channels in 128 lanes) as tap
+// GEMMs; these run the plain NHWC geometry.
+//
+// Every layer function is requant(conv_int32(x, w_q)):
+//   q = int8(clip(fma(float(acc), scale[co], offset[co]), 0, 127))
+// with ReLU folded into the clip and the round-half-up carried by the +0.5
+// inside offset (quantized_runtime.py:381-388), so the float -> int8 step
+// truncates (__float2int_rz). The multiply-add is one fused, singly
+// rounded __fmaf_rn: XLA contracts the same expression into an FMA on the
+// CPU, and the plain PyTorch versions emulate that FMA exactly.
+//
+// What bounds them on an H100: int8 activations halve the bytes of the
+// bf16 net, and a layer's 2*9*cin MACs per output channel are far under
+// the int8 tensor cores' ridge, so with tensor cores the layers would be
+// bound by bytes. This first version is direct convolution on the CUDA
+// cores with __dp4a (four int8 products and an int32 add per
+// instruction): its bound is the instruction rate, dp4a and the
+// shared-memory loads that feed it, and its time follows the layer's MACs
+// (on the H100 it takes about a third of K1-K3's time). It keeps the
+// bytes low: each input element is read once per block from device memory
+// into a shared-memory patch of 4-channel words (halo included; the stem's
+// 3 channels are zero-padded to one word there), the weights of a channel
+// chunk are packed into words once per block, and each thread keeps 16
+// output channels of one pixel in int32 registers. Q1 takes the decoder's
+// concat([up, skip]) as two input pointers and never materialises it.
+// wgmma with TMA loads is later work.
+//
+// Offsets are 64-bit: a 25-tile batch of 896^2 at 16 channels is 3.2e8
+// elements, and the deeper layers' products of batch, pixels and channels
+// come near 2^31.
+
+#include "common.cuh"
+
+namespace annonet {
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileW = 32;  // output columns per block: one warp per row
+constexpr int kCpt = 16;    // output channels per thread
+
+// Channel word cw of a pixel of the virtual concat [x (c1), x2 (c2)]:
+// channels 4cw..4cw+3 packed little-endian (byte j = channel 4cw+j), zero
+// past the last channel. ``words`` says both inputs hold whole 4-byte
+// aligned words (c1 and c2 multiples of 4), so one load serves.
+__device__ __forceinline__ int32_t load_word(const int8_t* __restrict__ x,
+                                             const int8_t* __restrict__ x2,
+                                             int64_t pix, int c1, int c2,
+                                             int cw, bool words) {
+  const int c = 4 * cw;
+  if (words)
+    return c < c1 ? *reinterpret_cast<const int32_t*>(x + pix * c1 + c)
+                  : *reinterpret_cast<const int32_t*>(x2 + pix * c2 + c - c1);
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int cj = c + j;
+    int8_t b = 0;
+    if (cj < c1)
+      b = x[pix * c1 + cj];
+    else if (cj < c1 + c2)
+      b = x2[pix * c2 + cj - c1];
+    v |= (uint32_t)(uint8_t)b << (8 * j);
+  }
+  return (int32_t)v;
+}
+
+// The HWIO int8 weights of input channels 4cw..4cw+3 at one tap and output
+// channel, packed like load_word's activations.
+__device__ __forceinline__ int32_t weight_word(const int8_t* __restrict__ w,
+                                               int tap, int cw, int co,
+                                               int cin, int cout) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = 4 * cw + j;
+    if (c < cin)
+      v |= (uint32_t)(uint8_t)w[((int64_t)tap * cin + c) * cout + co]
+           << (8 * j);
+  }
+  return (int32_t)v;
+}
+
+__device__ __forceinline__ int8_t requant(int32_t acc, float scale,
+                                          float offset) {
+  const float f = __fmaf_rn(__int2float_rn(acc), scale, offset);
+  return (int8_t)__float2int_rz(fminf(fmaxf(f, 0.f), 127.f));
+}
+
+// 16 consecutive output channels of one pixel: one 16-byte store when the
+// slab is whole and aligned, bytes otherwise.
+__device__ __forceinline__ void store16(int8_t* o, int co0, int cout,
+                                        const int8_t (&q)[kCpt]) {
+  if (co0 + kCpt <= cout && (cout % kCpt) == 0) {
+    int4 v;
+    int32_t* vw = reinterpret_cast<int32_t*>(&v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      vw[k] = (int32_t)((uint32_t)(uint8_t)q[4 * k] |
+                        (uint32_t)(uint8_t)q[4 * k + 1] << 8 |
+                        (uint32_t)(uint8_t)q[4 * k + 2] << 16 |
+                        (uint32_t)(uint8_t)q[4 * k + 3] << 24);
+    *reinterpret_cast<int4*>(o + co0) = v;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kCpt; ++j)
+    if (co0 + j < cout) o[co0 + j] = q[j];
+}
+
+// Q1 / Q2. groups: output-channel groups of kCpt per block (1 when
+// cout <= 16). The block covers (8 / groups) x 32 output pixels x
+// (16 * groups) channels, like K1.
+template <int STRIDE, int GROUPS>
+__global__ void __launch_bounds__(kThreads)
+qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
+                const int8_t* __restrict__ w, const float* __restrict__ scale,
+                const float* __restrict__ offset, int8_t* __restrict__ out,
+                int64_t h, int64_t wd, int c1, int c2, int cout,
+                int64_t tiles_x, bool words) {
+  constexpr int kTileH = 8 / GROUPS;
+  constexpr int kTilePix = kTileH * kTileW;
+  constexpr int kCob = kCpt * GROUPS;
+  constexpr int kWk = STRIDE == 1 ? 8 : 4;  // channel words per chunk
+  constexpr int kPh = (kTileH - 1) * STRIDE + 3;
+  constexpr int kPw = (kTileW - 1) * STRIDE + 3;
+  constexpr int kPad = STRIDE == 1 ? 1 : 0;  // top/left zero padding
+  static_assert(kTilePix * GROUPS == kThreads, "block shape");
+
+  __shared__ int32_t patch[kWk][kPh][kPw];
+  __shared__ __align__(16) int32_t wsh[9][kWk][kCob];
+
+  const int cin = c1 + c2;
+  const int cinw = (cin + 3) / 4;
+  const int64_t ho = h / STRIDE, wo = wd / STRIDE;
+  const int64_t img = blockIdx.z;
+  const int64_t oy0 = (blockIdx.x / tiles_x) * kTileH;
+  const int64_t ox0 = (blockIdx.x % tiles_x) * kTileW;
+  const int cob = blockIdx.y * kCob;
+  const int tid = threadIdx.x;
+  const int p = tid % kTilePix, g = tid / kTilePix;
+  const int ty = p / kTileW, tx = p % kTileW;
+  const int64_t iy0 = oy0 * STRIDE - kPad, ix0 = ox0 * STRIDE - kPad;
+
+  int32_t acc[kCpt];
+#pragma unroll
+  for (int j = 0; j < kCpt; ++j) acc[j] = 0;
+
+  for (int w0 = 0; w0 < cinw; w0 += kWk) {
+    // input patch, word fastest for coalesced NHWC reads; zero outside the
+    // image (the padding) and past the last channel
+    for (int e = tid; e < kPh * kPw * kWk; e += kThreads) {
+      const int wi = e % kWk, pp = e / kWk;
+      const int py = pp / kPw, px = pp % kPw;
+      const int64_t iy = iy0 + py, ix = ix0 + px;
+      const int cw = w0 + wi;
+      int32_t v = 0;
+      if (iy >= 0 && iy < h && ix >= 0 && ix < wd && cw < cinw)
+        v = load_word(x, x2, (img * h + iy) * wd + ix, c1, c2, cw, words);
+      patch[wi][py][px] = v;
+    }
+    for (int e = tid; e < 9 * kWk * kCob; e += kThreads) {
+      const int col = e % kCob, r = e / kCob;
+      const int wi = r % kWk, tap = r / kWk;
+      const int cw = w0 + wi, co = cob + col;
+      wsh[tap][wi][col] =
+          (cw < cinw && co < cout) ? weight_word(w, tap, cw, co, cin, cout) : 0;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int wi = 0; wi < kWk; ++wi) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int32_t v = patch[wi][ty * STRIDE + dy][tx * STRIDE + dx];
+          const int4* wr =
+              reinterpret_cast<const int4*>(&wsh[dy * 3 + dx][wi][g * kCpt]);
+#pragma unroll
+          for (int k = 0; k < kCpt / 4; ++k) {
+            const int4 ww = wr[k];
+            acc[4 * k] = __dp4a(v, ww.x, acc[4 * k]);
+            acc[4 * k + 1] = __dp4a(v, ww.y, acc[4 * k + 1]);
+            acc[4 * k + 2] = __dp4a(v, ww.z, acc[4 * k + 2]);
+            acc[4 * k + 3] = __dp4a(v, ww.w, acc[4 * k + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int64_t oy = oy0 + ty, ox = ox0 + tx;
+  if (oy < ho && ox < wo) {
+    const int co0 = cob + g * kCpt;
+    int8_t q[kCpt];
+#pragma unroll
+    for (int j = 0; j < kCpt; ++j) {
+      const int co = co0 + j < cout ? co0 + j : cout - 1;
+      q[j] = requant(acc[j], scale[co], offset[co]);
+    }
+    store16(out + ((img * ho + oy) * wo + ox) * cout, co0, cout, q);
+  }
+}
+
+// Q3: each thread owns one INPUT pixel and writes the four output pixels
+// (2i+u, 2j+v) it feeds, for 16 output channels:
+// out = requant(x . w_q[1-u][1-v]) with scale and offset [2][cout] indexed
+// by the output column's parity v (the int8 up's weight scales are per
+// (v, channel): quantized.py quantize_up_layer).
+template <int GROUPS>
+__global__ void __launch_bounds__(kThreads)
+qup2x2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+              const float* __restrict__ scale, const float* __restrict__ offset,
+              int8_t* __restrict__ out, int64_t npix, int64_t h, int64_t wd,
+              int cin, int cout, bool words) {
+  constexpr int kPix = kThreads / GROUPS;
+  constexpr int kCob = kCpt * GROUPS;
+  constexpr int kWk = 8;
+
+  __shared__ int32_t xs[kWk][kPix];
+  __shared__ __align__(16) int32_t ws[4][kWk][kCob];
+
+  const int cinw = (cin + 3) / 4;
+  const int tid = threadIdx.x;
+  const int pl = tid % kPix, g = tid / kPix;
+  const int64_t p0 = (int64_t)blockIdx.x * kPix;
+  const int cob = blockIdx.y * kCob;
+
+  int32_t acc[4][kCpt];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int j = 0; j < kCpt; ++j) acc[s][j] = 0;
+
+  for (int w0 = 0; w0 < cinw; w0 += kWk) {
+    for (int e = tid; e < kPix * kWk; e += kThreads) {
+      const int wi = e % kWk, q = e / kWk;
+      const int64_t pidx = p0 + q;
+      const int cw = w0 + wi;
+      xs[wi][q] = (pidx < npix && cw < cinw)
+                      ? load_word(x, nullptr, pidx, cin, 0, cw, words)
+                      : 0;
+    }
+    // ws[s = 2u + v] holds the flipped tap w_q[1-u][1-v]
+    for (int e = tid; e < 4 * kWk * kCob; e += kThreads) {
+      const int col = e % kCob, r = e / kCob;
+      const int wi = r % kWk, s = r / kWk;
+      const int u = s >> 1, v = s & 1;
+      const int cw = w0 + wi, co = cob + col;
+      ws[s][wi][col] = (cw < cinw && co < cout)
+                           ? weight_word(w, (1 - u) * 2 + (1 - v), cw, co,
+                                         cin, cout)
+                           : 0;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int wi = 0; wi < kWk; ++wi) {
+      const int32_t v = xs[wi][pl];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int4* wr = reinterpret_cast<const int4*>(&ws[s][wi][g * kCpt]);
+#pragma unroll
+        for (int k = 0; k < kCpt / 4; ++k) {
+          const int4 ww = wr[k];
+          acc[s][4 * k] = __dp4a(v, ww.x, acc[s][4 * k]);
+          acc[s][4 * k + 1] = __dp4a(v, ww.y, acc[s][4 * k + 1]);
+          acc[s][4 * k + 2] = __dp4a(v, ww.z, acc[s][4 * k + 2]);
+          acc[s][4 * k + 3] = __dp4a(v, ww.w, acc[s][4 * k + 3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int64_t pidx = p0 + pl;
+  if (pidx >= npix) return;
+  const int64_t jx = pidx % wd, t = pidx / wd;
+  const int64_t iy = t % h, img = t / h;
+  const int co0 = cob + g * kCpt;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int u = s >> 1, v = s & 1;
+    int8_t q[kCpt];
+#pragma unroll
+    for (int j = 0; j < kCpt; ++j) {
+      const int co = co0 + j < cout ? co0 + j : cout - 1;
+      q[j] = requant(acc[s][j], scale[v * cout + co], offset[v * cout + co]);
+    }
+    store16(out + ((img * 2 * h + 2 * iy + u) * (2 * wd) + 2 * jx + v) * cout,
+            co0, cout, q);
+  }
+}
+
+template <int STRIDE, int GROUPS>
+void launch_qconv(const int8_t* x, const int8_t* x2, const int8_t* w,
+                  const float* scale, const float* offset, int8_t* out,
+                  int64_t n, int64_t h, int64_t wd, int c1, int c2, int cout,
+                  bool words, cudaStream_t stream) {
+  constexpr int kTileH = 8 / GROUPS;
+  const int64_t ho = h / STRIDE, wo = wd / STRIDE;
+  const int64_t tiles_x = (wo + kTileW - 1) / kTileW;
+  const int64_t tiles_y = (ho + kTileH - 1) / kTileH;
+  const int64_t slabs = (cout + kCpt * GROUPS - 1) / (kCpt * GROUPS);
+  for (int64_t n0 = 0; n0 < n; n0 += kMaxGridYZ) {
+    const int64_t nb = n - n0 < kMaxGridYZ ? n - n0 : kMaxGridYZ;
+    dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)slabs, (unsigned)nb);
+    qconv3x3_kernel<STRIDE, GROUPS><<<grid, kThreads, 0, stream>>>(
+        x + n0 * h * wd * c1, x2 == nullptr ? nullptr : x2 + n0 * h * wd * c2,
+        w, scale, offset, out + n0 * ho * wo * cout, h, wd, c1, c2, cout,
+        tiles_x, words);
+  }
+}
+
+}  // namespace
+}  // namespace annonet
+
+extern "C" int annonet_qconv3x3_requant(const void* x, const void* x2,
+                                        const void* w, const void* scale,
+                                        const void* offset, void* out,
+                                        int64_t n, int64_t h, int64_t wd,
+                                        int c1, int c2, int cout, int stride,
+                                        int words, void* stream) {
+  using namespace annonet;
+  cudaGetLastError();  // report this launch's error only
+  if ((stride != 1 && stride != 2) || cout <= 0 || c1 <= 0 || c2 < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0 || h / stride == 0 || wd / stride == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* xt = static_cast<const int8_t*>(x);
+  const int8_t* x2t = static_cast<const int8_t*>(x2);
+  const int8_t* wt = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  const float* of = static_cast<const float*>(offset);
+  int8_t* ot = static_cast<int8_t*>(out);
+  const bool wide = cout > kCpt, wo = words != 0;
+  if (stride == 1 && wide)
+    launch_qconv<1, 2>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
+  else if (stride == 1)
+    launch_qconv<1, 1>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
+  else if (wide)
+    launch_qconv<2, 2>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
+  else
+    launch_qconv<2, 1>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int annonet_qup2x2_requant(const void* x, const void* w,
+                                      const void* scale, const void* offset,
+                                      void* out, int64_t n, int64_t h,
+                                      int64_t wd, int cin, int cout, int words,
+                                      void* stream) {
+  using namespace annonet;
+  cudaGetLastError();
+  if (cin <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t npix = n * h * wd;
+  if (npix == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* xt = static_cast<const int8_t*>(x);
+  const int8_t* wt = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  const float* of = static_cast<const float*>(offset);
+  int8_t* ot = static_cast<int8_t*>(out);
+  if (cout > kCpt) {
+    constexpr int kPix = kThreads / 2;
+    dim3 grid((unsigned)((npix + kPix - 1) / kPix),
+              (unsigned)((cout + 2 * kCpt - 1) / (2 * kCpt)), 1);
+    qup2x2_kernel<2><<<grid, kThreads, 0, s>>>(xt, wt, sc, of, ot, npix, h, wd,
+                                               cin, cout, words != 0);
+  } else {
+    dim3 grid((unsigned)((npix + kThreads - 1) / kThreads), 1, 1);
+    qup2x2_kernel<1><<<grid, kThreads, 0, s>>>(xt, wt, sc, of, ot, npix, h, wd,
+                                               cin, cout, words != 0);
+  }
+  return (int)cudaGetLastError();
+}

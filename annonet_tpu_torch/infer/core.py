@@ -1,17 +1,32 @@
 """Tiled inference: tile batch forward, fused blend epilogue, host blob veto.
 
-The float path of ``annonet_tpu/infer/core.py`` as its ``TiledInferer``
-runs with the unfolded net (``use_folded_net=False``), on one device:
+``annonet_tpu/infer/core.py``'s ``TiledInferer`` on one device, float
+and int8 paths:
 
   1. edge-pad the image to the plan's canvas and gather the tiles
      ([T*M, th, tw, C], tile index major, as the JAX gather stacks them);
-  2. forward the tile batch through ``RuntimeSegNet`` (kernels K1-K3),
-     in chunks when the activations would not fit;
+     on the int8 path the padded canvas is quantized once first and the
+     int8 tiles are gathered from it;
+  2. forward the tile batch through ``RuntimeSegNet`` (kernels K1-K3) or
+     the int8 ``QuantizedSegNet`` (Q1, Q2, K3's requant mode), in chunks
+     when the activations would not fit;
   3. K4 (``ops.blend.blend_argmax``): ramp-weighted blend in tile order,
      1/wsum normalisation (or the raw ramp sum under
-     ``reference_blend_semantics``), gains argmax, detection seeds;
+     ``reference_blend_semantics``), gains argmax, detection seeds; in
+     bf16 when ``blend_dtype`` says so (the int8 path's default), with the
+     argmax fold on the int8 net without detection;
   4. crop back to H x W, copy to the host, and there veto seedless
      blobs (``detection_veto``).
+
+int8 (``quantize="int8"``, models/quantized.py): the first
+``calibration_images`` images of each fold key run the float net and
+record per-channel activation maxima; then the int8 net is frozen and
+every later image runs it. A preloaded ``calibration`` freezes it at once.
+As in the JAX package, int8 applies only to plans whose tile width folds
+(``int8_fold``); other plans run the float net, which the inferer says
+once on stderr and counts in ``float_fallbacks``. Blending in bf16 follows
+the same rule as in the JAX package, where the bf16 blend exists only on
+the folded layout: it applies when the plan folds.
 
 Plans come from ``infer/tiling.py`` exactly as the JAX unfolded inferer
 makes them, so both packages tile an image identically. Gains enter the
@@ -19,14 +34,15 @@ argmax in logit space after normalisation; seeds compare gain-free
 blended margins (annonet_infer.cpp:170-212, PARITY.md's documented
 deviation and its compat mode).
 
-Not ported yet: ``quantize="int8"`` (ROADMAP.md queue 1 item 5, "int8
-path") and ``mesh`` tile-parallel inference (queue 1 item 4, "Inference
-CLIs and serving") raise NotImplementedError.
+Not ported yet: ``mesh`` tile-parallel inference (ROADMAP.md queue 1
+item 4, "Inference CLIs and serving") raises NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import contextlib
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +54,15 @@ from annonet_tpu_torch.infer.tiling import (
     inverse_weight_sum,
     plan_tiles,
     ramp_weights,
+    weight_sum_factors,
+)
+from annonet_tpu_torch.models.quantized import (
+    QuantizedSegNet,
+    calibration_layout,
+    collect_calibration,
+    int8_fold,
+    quantize_input,
+    quantize_net,
 )
 from annonet_tpu_torch.models.segnet import (
     RuntimeSegNet,
@@ -51,8 +76,8 @@ from annonet_tpu_torch.ops.blobs import label_connected_blobs
 _CANVAS_BUCKET = 128
 # live-activation budget of one forward; larger tile batches run in chunks
 FORWARD_BUDGET_BYTES = 8 << 30
-_INT8 = 'ROADMAP.md queue 1 item 5, "int8 path"'
 _MULTI = 'ROADMAP.md queue 1 item 4, "Inference CLIs and serving"'
+_BLEND_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
@@ -76,22 +101,34 @@ class TiledInferer:
         tiling: Optional[TilingParameters] = None,
         *,
         device,
-        quantize: Optional[str] = None,
+        quantize: Optional[str] = None,  # "int8" = the quantized net
+        calibration_images: int = 1,
+        calibration=None,  # per-layer maxima (export_calibration / file)
+        blend_dtype=None,  # None = auto: bfloat16 iff int8
         reference_blend_semantics: bool = False,
         mesh=None,
     ):
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: the int8 path is not ported yet "
-                f"({_INT8})"
-            )
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-GPU tile-parallel inference is not ported yet "
                 f"({_MULTI})"
             )
+        self.quantize = quantize
+        if calibration_images < 1:
+            raise ValueError("calibration_images must be >= 1")
+        self.calibration_images = calibration_images
+        if blend_dtype is None:
+            blend_dtype = "bfloat16" if quantize else "float32"
+        if blend_dtype not in _BLEND_DTYPES:
+            raise ValueError(f"unsupported blend_dtype: {blend_dtype!r}")
+        self.blend_dtype = _BLEND_DTYPES[blend_dtype]
+        if calibration is not None and quantize is None:
+            raise ValueError("calibration requires quantize='int8'")
         self.device = torch.device(device)
         self.config = config
+        self.runtime_params = runtime_params
         self.net = RuntimeSegNet(runtime_params, config, device=self.device)
         if tiling is None:
             tile_max = default_tile_max()
@@ -101,7 +138,20 @@ class TiledInferer:
             raise ValueError("tile overlap must be non-negative")
         self.tiling = tiling
         self.reference_blend_semantics = bool(reference_blend_semantics)
-        self._plan_constants: Dict[TilePlan, Tuple[torch.Tensor, ...]] = {}
+        self._plan_constants: Dict[TilePlan, Tuple] = {}
+        # int8 state per fold key, as in the JAX package: calibration
+        # maxima accumulate per key and freeze into an int8 net
+        self._preloaded_calib = (
+            [np.asarray(v, np.float32) for v in calibration]
+            if calibration is not None else None
+        )
+        self._quantized: Dict[int, QuantizedSegNet] = {}
+        self._calib_accum: Dict[int, List[np.ndarray]] = {}
+        self._calib_seen: Dict[int, int] = {}
+        self._calib_frozen: Dict[int, List[np.ndarray]] = {}
+        self._calibration_paused = False
+        # int8 calls that ran the float net because their plan does not fold
+        self.float_fallbacks = 0
 
     def plan(self, image_height: int, image_width: int) -> TilePlan:
         return plan_tiles(
@@ -110,19 +160,20 @@ class TiledInferer:
         )
 
     def _constants(self, plan: TilePlan):
-        """(ramp, inv_wsum, tile_yx) of a plan, on the device, made once."""
+        """(ramp, inv_wsum, tile_yx, wsum factors or None) of a plan, on the
+        device, made once."""
         constants = self._plan_constants.get(plan)
         if constants is None:
             ramp = ramp_weights(
                 plan.tile_height, plan.tile_width, plan.overlap_y, plan.overlap_x
             )
-            constants = tuple(
-                torch.from_numpy(a).to(self.device)
-                for a in (
-                    ramp,
-                    inverse_weight_sum(plan),
-                    np.asarray(plan.tile_yx, np.int32).reshape(-1, 2),
-                )
+            to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+            factors = weight_sum_factors(plan)
+            constants = (
+                to(ramp),
+                to(inverse_weight_sum(plan)),
+                to(np.asarray(plan.tile_yx, np.int32).reshape(-1, 2)),
+                None if factors is None else tuple(to(f) for f in factors),
             )
             self._plan_constants[plan] = constants
         return constants
@@ -136,47 +187,201 @@ class TiledInferer:
         max_tiles = FORWARD_BUDGET_BYTES // (per_px * plan.tile_height * plan.tile_width)
         return max(1, min(n, max_tiles))
 
-    def _tile_batch(self, images, plan: TilePlan) -> torch.Tensor:
-        """[M, H, W, C] uint8 (host array or tensor) -> the tile batch
-        [T*M, th, tw, C] on the device: upload, edge-pad to the canvas,
-        gather the tiles (tile index major, as the JAX gather stacks them)."""
+    def _upload(self, images) -> torch.Tensor:
         if not isinstance(images, torch.Tensor):
             images = np.ascontiguousarray(images)
             if not images.flags.writeable:  # torch wants writable memory
                 images = images.copy()
             images = torch.from_numpy(images)
-        x = images.to(self.device)
+        return images.to(self.device)
+
+    def _tile_batch(self, images, plan: TilePlan, quantized: bool = False) -> torch.Tensor:
+        """[M, H, W, C] uint8 (host array or tensor) -> the tile batch
+        [T*M, th, tw, C] on the device: upload, edge-pad to the canvas,
+        on the int8 path quantize the canvas once, gather the tiles (tile
+        index major, as the JAX gather stacks them)."""
+        x = self._upload(images)
         m, c = x.shape[0], x.shape[3]
         th, tw = plan.tile_height, plan.tile_width
         padded = _edge_pad(x, plan.padded_height, plan.padded_width)
+        if quantized:
+            padded = quantize_input(padded)
         return torch.stack(
             [padded[:, y : y + th, x0 : x0 + tw] for y, x0 in plan.tile_yx]
         ).reshape(plan.tile_count * m, th, tw, c)
 
     def _blend(self, logits, plan: TilePlan, gains, detection_levels,
-               with_detection: bool):
-        """K4 on the tile logits: (labels [M, Hp, Wp], seeds or None)."""
-        ramp, inv_wsum, tile_yx = self._constants(plan)
+               with_detection: bool, quantized: bool = False):
+        """K4 on the tile logits: (labels [M, Hp, Wp], seeds or None).
+
+        As in the JAX package, the bf16 blend and the argmax fold exist
+        only on the folded layout: they apply when the plan folds and its
+        tiles sit on fold-aligned columns."""
+        ramp, inv_wsum, tile_yx, factors = self._constants(plan)
+        fold0 = int8_fold(self.config, plan.tile_width)
+        folded = fold0 > 0 and all(x % fold0 == 0 for _, x in plan.tile_yx)
+        argmax_fold = (
+            folded and quantized and not with_detection
+            and not self.reference_blend_semantics and factors is not None
+        )
         return blend_argmax(
             logits, tile_yx, ramp, inv_wsum,
             torch.from_numpy(gains).to(self.device),
             torch.from_numpy(detection_levels).to(self.device),
             with_detection=with_detection,
             reference_blend=self.reference_blend_semantics,
+            blend_dtype=self.blend_dtype if folded else torch.float32,
+            wsum_factors=factors if argmax_fold else None,
         )
 
-    def _forward(self, tiles: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    def _forward(self, tiles: torch.Tensor, plan: TilePlan, net=None) -> torch.Tensor:
+        net = self.net if net is None else net
         n = tiles.shape[0]
         chunk = self._chunk(plan, n)
         if chunk == n:
-            return self.net(tiles)
+            return net(tiles)
         logits = torch.empty(
             (n, plan.tile_height, plan.tile_width, self.config.class_count),
             dtype=torch.float32, device=self.device,
         )
         for s in range(0, n, chunk):
-            logits[s : s + chunk] = self.net(tiles[s : s + chunk])
+            logits[s : s + chunk] = net(tiles[s : s + chunk])
         return logits
+
+    # ------------------------------------------------------------- int8
+
+    def _collect_calib(self, plan: TilePlan, image) -> List[np.ndarray]:
+        """Per-channel activation maxima of one [H, W, C] image: up to 4
+        tiles spread over the plan (first and last included), through the
+        float net (models/quantized.collect_calibration)."""
+        positions = list(plan.tile_yx)
+        if len(positions) > 4:
+            idx = np.linspace(0, len(positions) - 1, 4).round().astype(int)
+            positions = [positions[i] for i in dict.fromkeys(idx)]
+        x = self._upload(image)[None]
+        padded = _edge_pad(x, plan.padded_height, plan.padded_width)[0]
+        th, tw = plan.tile_height, plan.tile_width
+        tiles = torch.stack([padded[y : y + th, x0 : x0 + tw] for y, x0 in positions])
+        return collect_calibration(self.net, tiles)
+
+    def _freeze(self, fold0: int, calibration) -> None:
+        self._calib_frozen[fold0] = calibration
+        self._quantized[fold0] = QuantizedSegNet(
+            quantize_net(self.runtime_params, self.config, calibration),
+            self.config, device=self.device,
+        )
+
+    def _ensure_quantized(self, fold0: int, plan: TilePlan, image) -> None:
+        """Accumulate one image's calibration maxima; freeze the int8 net
+        once ``calibration_images`` images have contributed (a preloaded
+        calibration freezes it at once)."""
+        if fold0 in self._quantized:
+            return
+        if self._preloaded_calib is not None:
+            self._freeze(fold0, self._preloaded_calib)
+            return
+        calib = self._collect_calib(plan, image)
+        accum = self._calib_accum.get(fold0)
+        if accum is not None:
+            calib = [np.maximum(a, c) for a, c in zip(accum, calib)]
+        self._calib_accum[fold0] = calib
+        self._calib_seen[fold0] = self._calib_seen.get(fold0, 0) + 1
+        if self._calib_seen[fold0] >= self.calibration_images:
+            self._freeze(fold0, calib)
+
+    def export_calibration(self, partial: bool = False):
+        """The frozen per-layer, per-channel activation maxima (merged by
+        element-wise max over fold keys), or None before any freeze.
+        ``partial`` also includes accumulations that have not frozen yet.
+        Save with serialization.save_calibration; pass back as
+        ``calibration=`` to run int8 from the first image."""
+        sources = list(self._calib_frozen.values())
+        if partial:
+            sources.extend(self._calib_accum.values())
+        if not sources:
+            return None
+        merged = None
+        for frozen in sources:
+            vecs = [np.asarray(v, np.float32) for v in frozen]
+            merged = vecs if merged is None else [
+                np.maximum(a, b) for a, b in zip(merged, vecs)
+            ]
+        return merged
+
+    def calibration_layer_shapes(self):
+        """Per-layer lengths of the export_calibration vectors (an
+        architecture property), or None when this config cannot fold, so
+        int8 never applies."""
+        if not (self._calib_accum or self._calib_frozen) and not int8_fold(
+            self.config, 64
+        ):
+            return None
+        return [length for _name, length in calibration_layout(self.config)]
+
+    def pause_calibration(self):
+        """Context manager: images inferred inside neither contribute to
+        nor freeze the int8 calibration (synthetic warm-up traffic must not
+        set the scales); they run the float net until a freeze and int8
+        after it."""
+
+        @contextlib.contextmanager
+        def _pause():
+            prev = self._calibration_paused
+            self._calibration_paused = True
+            try:
+                yield self
+            finally:
+                self._calibration_paused = prev
+
+        return _pause()
+
+    def calibration_overshoot(self, image) -> float:
+        """Clip-saturation telemetry: the max over layers and channels of
+        (this image's activation max) / (calibrated max); 1.0 fits exactly,
+        2.0 means some channel reaches twice its calibrated range and is
+        clipped. 0.0 before any freeze or for a plan without one."""
+        if not self._calib_frozen:
+            return 0.0
+        h, w = image.shape[:2]
+        plan = self.plan(h, w)
+        frozen = self._calib_frozen.get(int8_fold(self.config, plan.tile_width))
+        if frozen is None:
+            return 0.0
+        worst = 0.0
+        for cal, frz in zip(self._collect_calib(plan, image), frozen):
+            if cal.size == 0 or frz.size == 0:
+                continue
+            mask = frz > 0
+            if mask.any():
+                worst = max(worst, float((cal[mask] / frz[mask]).max()))
+        return worst
+
+    def _int8_net(self, images, plan: TilePlan):
+        """The frozen int8 net for this plan (calibrating on this call's
+        images first while the freeze is pending), or None when the call
+        runs the float net."""
+        if not self.quantize:
+            return None
+        fold0 = int8_fold(self.config, plan.tile_width)
+        if not fold0:
+            if not self.float_fallbacks:
+                print(
+                    f"annonet_tpu_torch: int8 does not apply to the "
+                    f"{plan.tile_height}x{plan.tile_width} tile plan (its "
+                    "width does not fold for this net, as in the JAX "
+                    "package); running the float net for such plans",
+                    file=sys.stderr,
+                )
+            self.float_fallbacks += 1
+            return None
+        if fold0 not in self._quantized and not self._calibration_paused:
+            # each call before the freeze contributes one image (or, when
+            # batched, as many of the batch as calibration still needs)
+            for one in images:
+                self._ensure_quantized(fold0, plan, one)
+                if fold0 in self._quantized:
+                    break
+        return self._quantized.get(fold0)
 
     def infer_arrays(
         self,
@@ -226,12 +431,15 @@ class TiledInferer:
         with_detection = bool((det_arr > 0.0).any())
 
         plan = self.plan(h, w)
+        images = image if batched else image[None]
         with torch.inference_mode():
-            tiles = self._tile_batch(image if batched else image[None], plan)
-            logits = self._forward(tiles, plan)
+            qnet = self._int8_net(images, plan)
+            tiles = self._tile_batch(images, plan, quantized=qnet is not None)
+            logits = self._forward(tiles, plan, qnet)
             del tiles
             labels, seeds = self._blend(
-                logits, plan, gains_arr, det_arr, with_detection
+                logits, plan, gains_arr, det_arr, with_detection,
+                quantized=qnet is not None,
             )
         # crop the canvas back to H x W before the copy to the host
         labels = labels[:, :h, :w].cpu().numpy().astype(np.int32)

@@ -214,3 +214,32 @@ def inverse_weight_sum(plan: TilePlan) -> np.ndarray:
     for y, x in plan.tile_yx:
         wsum[y : y + plan.tile_height, x : x + plan.tile_width] += ramp
     return (1.0 / np.maximum(wsum, 1e-12)).astype(np.float32)
+
+
+def weight_sum_factors(plan: TilePlan):
+    """1-D factors of the blend denominator, wsum(y, x) = wy(y) * wx(x).
+
+    The ramp is a separable product and a grid plan's tiles are ys x xs, so
+    the ramp sum factorises exactly. The int8 path's argmax fold
+    (ops/blend.py) adds the gains scaled by these factors instead of
+    normalising the blended canvas. Returns (wy [Hp], wx [Wp]) float32,
+    summed in float64 and floored at 1e-6, or None for a tile layout that
+    is not a grid.
+    """
+    ys = sorted({y for y, _ in plan.tile_yx})
+    xs = sorted({x for _, x in plan.tile_yx})
+    if set(plan.tile_yx) != {(y, x) for y in ys for x in xs}:
+        return None
+
+    wy = np.zeros(plan.padded_height, np.float64)
+    rh = _ramp_1d(plan.tile_height, plan.overlap_y, np.float64)
+    for y in ys:
+        wy[y : y + plan.tile_height] += rh
+    wx = np.zeros(plan.padded_width, np.float64)
+    rw = _ramp_1d(plan.tile_width, plan.overlap_x, np.float64)
+    for x in xs:
+        wx[x : x + plan.tile_width] += rw
+    return (
+        np.maximum(wy, 1e-6).astype(np.float32),
+        np.maximum(wx, 1e-6).astype(np.float32),
+    )

@@ -24,7 +24,7 @@ Topology (``L = level_count``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -254,24 +254,38 @@ class RuntimeSegNet(nn.Module):
         if x.dtype != torch.uint8:
             raise ValueError(f"expected uint8 input, got {x.dtype}")
 
-    def forward(self, x_uint8: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x_uint8: torch.Tensor,
+        tap: Optional[Callable[[str, torch.Tensor], None]] = None,
+    ) -> torch.Tensor:
+        """``tap(name, activation)``, when given, sees each conv and up
+        layer's post-ReLU output ("stem/conv0", ..., "dec1/up", ...): the
+        int8 calibration reads its per-channel maxima there."""
         self.check_input(x_uint8)
         L = self.config.level_count
+
+        def out(name, x):
+            if tap is not None:
+                tap(name, x)
+            return x
+
         x = normalize_input(x_uint8, self.dtype)
-        x = conv3x3_bias_relu(x, *self.weights("stem", "conv0"))
-        x = conv3x3_bias_relu(x, *self.weights("stem", "conv1"))
+        x = out("stem/conv0", conv3x3_bias_relu(x, *self.weights("stem", "conv0")))
+        x = out("stem/conv1", conv3x3_bias_relu(x, *self.weights("stem", "conv1")))
         skips: List[torch.Tensor] = [x]
         for i in range(1, L + 1):
-            x = conv3x3_s2_bias_relu(x, *self.weights(f"enc{i}", "conv0"))
-            x = conv3x3_bias_relu(x, *self.weights(f"enc{i}", "conv1"))
+            x = out(f"enc{i}/conv0",
+                    conv3x3_s2_bias_relu(x, *self.weights(f"enc{i}", "conv0")))
+            x = out(f"enc{i}/conv1",
+                    conv3x3_bias_relu(x, *self.weights(f"enc{i}", "conv1")))
             if i < L:
                 skips.append(x)
         for i in range(L, 0, -1):
-            x = up2x2_bias_relu(x, *self.weights(f"dec{i}", "up"))
+            x = out(f"dec{i}/up", up2x2_bias_relu(x, *self.weights(f"dec{i}", "up")))
             # the decoder's concat([up, skip]) is the kernel's second input
-            x = conv3x3_bias_relu(
+            x = out(f"dec{i}/conv0", conv3x3_bias_relu(
                 x, *self.weights(f"dec{i}", "conv0"), x2=skips.pop()
-            )
+            ))
         # head: compute-dtype product (f32 accumulation inside), then the
         # f32 bias promotes the logits to f32 (segnet.py:459-462)
         return torch.matmul(x, self.head_w).to(torch.float32) + self.head_b

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``annonet_tpu_torch/csrc``).
 
 On first use, ``nvcc`` compiles every ``csrc/*.cu`` file for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ctypes. The library's name carries a hash of the sources (and
+(``sm_90a``), one compiler process per source, all started together, and
+links the objects into one shared library with a plain C interface, which
+is loaded with ctypes. The library's name carries a hash of the sources (and
 of the compiler flags), so an edit rebuilds it; the build directory
 ``annonet_tpu_torch/_build/`` is listed in ``.gitignore``.
 
@@ -29,7 +30,7 @@ CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -47,12 +48,25 @@ _SIGNATURES = {
     "annonet_up2x2_bias_relu": [
         _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
-    # logits, tile_yx, ramp, inv_wsum, gains, det, labels, seeds,
+    # x, s_in, w, scale, offset, out, n, h, w, cin, cout, bf16, stream
+    "annonet_up2x2_requant": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
+    ],
+    # x, x2, w, scale, offset, out, n, h, w, c1, c2, cout, stride, words,
+    # stream
+    "annonet_qconv3x3_requant": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P,
+    ],
+    # x, w, scale, offset, out, n, h, w, cin, cout, words, stream
+    "annonet_qup2x2_requant": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
+    ],
+    # logits, tile_yx, ramp, inv_wsum, gains, det, wy, wx, labels, seeds,
     # n_tiles, m, th, tw, hp, wp, k, labels_int32, with_detection,
-    # reference_blend, stream
+    # reference_blend, bf16, stream
     "annonet_blend_argmax": [
-        _P, _P, _P, _P, _P, _P, _P, _P,
-        _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P,
     ],
 }
 
@@ -89,6 +103,28 @@ def library_path() -> str:
     )
 
 
+def _run(cmds):
+    """Run the compiler commands in parallel; raise with the output of the
+    first that fails."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for cmd in cmds
+    ]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        try:
+            out, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, code, out = failed
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
     """Compile the kernels unless a library of these sources exists;
     returns its path. Raises with the compiler's output on failure."""
@@ -97,20 +133,18 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     sources, _ = _sources()
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objects = [
+            os.path.join(tmpdir, os.path.basename(src) + ".o") for src in sources
+        ]
+        _run([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources, objects)
+        ])
+        tmp = os.path.join(tmpdir, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]])
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return path
 
 

@@ -24,6 +24,12 @@ rounding of the pre-bias sum (relative 2**-8).
                             and W (XLA SAME: output o taps inputs 2o+d)
   K3 up2x2_bias_relu        2x2 stride-2 transpose conv:
                             out[2i+u, 2j+v] = x[i, j] . w[1-u, 1-v]
+     up2x2_requant          K3's requant mode, the int8 net's up layer
+                            (quantized_runtime.py:480-487): int8 x times
+                            s_in, rounded to w's dtype, through the same
+                            transpose conv; the f32 sum rounded to w's
+                            dtype (XLA's bf16 conv output), then
+                            requantized to int8 as ops/qconv.py does
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from annonet_tpu_torch.ops import _build
+from annonet_tpu_torch.ops.qconv import requant_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -61,12 +68,21 @@ def conv3x3_s2_bias_relu_plain(x, w, bias):
     return _epilogue(h, bias, x.dtype)
 
 
-def up2x2_bias_relu_plain(x, w, bias):
+def _up2x2(x, w):
     # conv_transpose2d computes out[2i+u, 2j+v] = x[i, j] . W[:, :, u, v];
     # the net's transpose conv uses the flipped kernel w[1-u, 1-v]
     wt = torch.flip(w, dims=(0, 1)).permute(2, 3, 0, 1)  # [cin, cout, 2, 2]
-    h = F.conv_transpose2d(_nchw(x), wt, stride=2)
-    return _epilogue(h, bias, x.dtype)
+    return F.conv_transpose2d(_nchw(x), wt, stride=2)
+
+
+def up2x2_bias_relu_plain(x, w, bias):
+    return _epilogue(_up2x2(x, w), bias, x.dtype)
+
+
+def up2x2_requant_plain(x_q, s_in, w, scale, offset):
+    xf = x_q.to(w.dtype) * s_in.to(w.dtype)  # one rounding to w's dtype
+    h = _up2x2(xf, w)  # summed in f32, rounded to w's dtype
+    return requant_plain(h.permute(0, 2, 3, 1).to(torch.float32), scale, offset)
 
 
 def _check(x, w, bias, kh, kw, cin, what):
@@ -171,3 +187,42 @@ def up2x2_bias_relu(x, w, bias):
 
 
 up2x2_bias_relu.launches = 0
+
+
+def up2x2_requant(x_q, s_in, w, scale, offset):
+    """K3 in requant mode: requant(up2x2(x_q * s_in, w)), [N,H,W,C] int8 ->
+    [N,2H,2W,C'] int8. ``s_in`` [C], ``scale`` and ``offset`` [C'] f32;
+    ``w`` [2,2,C,C'] in the compute dtype."""
+    what = "up2x2_requant"
+    if x_q.dim() != 4 or x_q.dtype != torch.int8:
+        raise ValueError(f"{what}: x must be int8 [N,H,W,C]")
+    if w.dim() != 4 or w.dtype not in _DTYPES or tuple(w.shape[:3]) != (2, 2, x_q.shape[3]):
+        raise ValueError(
+            f"{what}: w must be [2,2,{x_q.shape[3]},C'] in {_DTYPES}, got "
+            f"{tuple(w.shape)} {w.dtype}"
+        )
+    for t, n in ((s_in, x_q.shape[3]), (scale, w.shape[3]), (offset, w.shape[3])):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n,):
+            raise ValueError(f"{what}: s_in, scale and offset must be float32 vectors")
+    for t in (x_q, s_in, w, scale, offset):
+        if t.device != x_q.device or not t.is_contiguous():
+            raise ValueError(f"{what}: all tensors must be contiguous on {x_q.device}")
+    if x_q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x_q.device}")
+    if x_q.device.type == "cpu":
+        return up2x2_requant_plain(x_q, s_in, w, scale, offset)
+    up2x2_requant.launches += 1
+    n, h, wd, cin = x_q.shape
+    cout = w.shape[3]
+    out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=torch.int8, device=x_q.device)
+    with torch.cuda.device(x_q.device):
+        code = _build.lib().annonet_up2x2_requant(
+            x_q.data_ptr(), s_in.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            offset.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+            int(w.dtype == torch.bfloat16), _stream(x_q.device),
+        )
+    _build.check(code, "annonet_up2x2_requant")
+    return out
+
+
+up2x2_requant.launches = 0

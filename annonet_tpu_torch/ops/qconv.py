@@ -1,0 +1,212 @@
+"""int8 conv + requant: the three int8 kernels of the quantized net.
+
+Each op has a plain PyTorch version (``*_plain``) and a wrapper. The
+wrapper checks its arguments; for tensors on the CPU it returns the plain
+version, for CUDA tensors it launches the hand-written kernel of
+``csrc/qconv.cu`` on the current stream (or raises: there is no fallback
+from a CUDA tensor to the plain version) and adds one to its ``launches``
+count.
+
+Layouts: activations NHWC int8 ([N, H, W, C], contiguous, the post-ReLU
+grid [0, 127] except the input image's [-127, 127]), weights HWIO int8,
+requant scale and offset f32. Output NHWC int8.
+
+Every op is ``requant(acc)`` of an exact int32 conv sum ``acc``:
+
+    q = int8(clip(fma(float32(acc), scale, offset), 0, 127))
+
+the ReLU and the round-half-up ride in the clip and in the +0.5 inside
+``offset`` (quantized_runtime.py:381-388), so the float -> int8 step
+truncates. ``fma`` is one singly rounded multiply-add: XLA contracts
+``acc * scale + offset`` into an FMA on the CPU, and the kernels use
+``__fmaf_rn``; ``fma_f32`` emulates it exactly. The plain versions sum in
+float64, where every int32 sum of int8 products is exact (cuDNN stays off:
+its algorithms need not be).
+
+  Q1 qconv3x3_requant      3x3, stride 1, zero padding (1, 1); optional
+                           second input ``x2`` whose channels follow
+                           ``x``'s (the decoder's concat([up, skip]))
+  Q2 qconv3x3_s2_requant   3x3, stride 2, zero padding (0, 1) on even H, W
+  Q3 qup2x2_requant        2x2 stride-2 transpose conv,
+                           out[2i+u, 2j+v] = requant_v(x[i, j] . w[1-u, 1-v])
+                           with scale and offset [2, C'] indexed by the
+                           output column's parity v
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from annonet_tpu_torch.ops import _build
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding (an FMA), for float32 inputs.
+
+    The float64 product of two float32 values is exact; the float64 sum is
+    made round-to-odd (TwoSum error, then a step away from an even last
+    bit), which makes its rounding to float32 the correct rounding of the
+    exact value."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where(inexact_even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def requant_plain(acc: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor):
+    """int8(clip(fma(float32(acc), scale, offset), 0, 127)), truncating."""
+    f = fma_f32(acc.to(torch.float32), scale, offset)
+    return f.clamp(0.0, 127.0).to(torch.int8)
+
+
+def _exact_f64(fn, *args, **kwargs):
+    # float64 integer sums are exact in any order; keep cuDNN out, whose
+    # algorithms (FFT, Winograd) need not be
+    with torch.backends.cudnn.flags(enabled=False):
+        return fn(*args, **kwargs)
+
+
+def _nchw64(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).to(torch.float64)
+
+
+def _oihw64(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(3, 2, 0, 1).to(torch.float64)
+
+
+def qconv3x3_requant_plain(x, w, scale, offset, x2: Optional[torch.Tensor] = None):
+    if x2 is not None:
+        x = torch.cat([x, x2], dim=-1)
+    acc = _exact_f64(F.conv2d, _nchw64(x), _oihw64(w), padding=1)
+    return requant_plain(acc.permute(0, 2, 3, 1), scale, offset).contiguous()
+
+
+def qconv3x3_s2_requant_plain(x, w, scale, offset):
+    # explicit (0, 1) padding: padding=1 would pad (1, 1)
+    xp = F.pad(_nchw64(x), (0, 1, 0, 1))
+    acc = _exact_f64(F.conv2d, xp, _oihw64(w), stride=2)
+    return requant_plain(acc.permute(0, 2, 3, 1), scale, offset).contiguous()
+
+
+def qup2x2_requant_plain(x, w, scale, offset):
+    # conv_transpose2d computes out[2i+u, 2j+v] = x[i, j] . W[:, :, u, v];
+    # the net's transpose conv uses the flipped kernel w[1-u, 1-v]
+    wt = torch.flip(w, dims=(0, 1)).permute(2, 3, 0, 1).to(torch.float64)
+    acc = _exact_f64(F.conv_transpose2d, _nchw64(x), wt, stride=2)
+    acc = acc.permute(0, 2, 3, 1)  # [N, 2H, 2W, C']
+    parity = torch.arange(acc.shape[2], device=acc.device) % 2
+    return requant_plain(acc, scale[parity], offset[parity]).contiguous()
+
+
+def _check(x, w, scale, offset, kh, kw, cin, scale_shape, what):
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"{what}: expected x [N,H,W,C] and w [kh,kw,cin,cout]")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise ValueError(f"{what}: x and w must be int8 (got {x.dtype}, {w.dtype})")
+    if tuple(w.shape[:3]) != (kh, kw, cin):
+        raise ValueError(
+            f"{what}: weight {tuple(w.shape)} does not match a {kh}x{kw} "
+            f"conv over {cin} input channels"
+        )
+    shape = scale_shape + (w.shape[3],)
+    for t in (scale, offset):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{what}: scale and offset must be float32 {list(shape)}")
+    for t in (x, w, scale, offset):
+        if t.device != x.device:
+            raise ValueError(f"{what}: all tensors must be on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _words(*tensors) -> int:
+    """1 when every activation holds whole aligned 4-channel words."""
+    return int(all(t.shape[3] % 4 == 0 and t.data_ptr() % 4 == 0 for t in tensors))
+
+
+def _launch_qconv(x, x2, w, scale, offset, stride):
+    n, h, wd, c1 = x.shape
+    c2 = 0 if x2 is None else x2.shape[3]
+    cout = w.shape[3]
+    out = torch.empty(
+        (n, h // stride, wd // stride, cout), dtype=torch.int8, device=x.device
+    )
+    with torch.cuda.device(x.device):
+        code = _build.lib().annonet_qconv3x3_requant(
+            x.data_ptr(), 0 if x2 is None else x2.data_ptr(), w.data_ptr(),
+            scale.data_ptr(), offset.data_ptr(), out.data_ptr(), n, h, wd, c1,
+            c2, cout, stride, _words(x) if x2 is None else _words(x, x2),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "annonet_qconv3x3_requant")
+    return out
+
+
+def qconv3x3_requant(x, w, scale, offset, x2: Optional[torch.Tensor] = None):
+    """Q1: requant(conv3x3_same([x, x2])), int8 NHWC in and out."""
+    c2 = 0
+    if x2 is not None:
+        if x2.dim() != 4 or x2.shape[:3] != x.shape[:3] or x2.dtype != torch.int8:
+            raise ValueError("qconv3x3_requant: x2 must be int8 and match x in N, H, W")
+        if x2.device != x.device or not x2.is_contiguous():
+            raise ValueError("qconv3x3_requant: x2 must be contiguous on x's device")
+        c2 = x2.shape[3]
+    _check(x, w, scale, offset, 3, 3, x.shape[3] + c2, (), "qconv3x3_requant")
+    if x.device.type == "cpu":
+        return qconv3x3_requant_plain(x, w, scale, offset, x2)
+    qconv3x3_requant.launches += 1
+    return _launch_qconv(x, x2, w, scale, offset, 1)
+
+
+qconv3x3_requant.launches = 0
+
+
+def qconv3x3_s2_requant(x, w, scale, offset):
+    """Q2: requant(conv3x3 stride 2, padding (0, 1)): [N,H,W,C] ->
+    [N,H/2,W/2,C'] int8 for even H and W."""
+    _check(x, w, scale, offset, 3, 3, x.shape[3], (), "qconv3x3_s2_requant")
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(
+            f"qconv3x3_s2_requant: H and W must be even, got {tuple(x.shape)}"
+        )
+    if x.device.type == "cpu":
+        return qconv3x3_s2_requant_plain(x, w, scale, offset)
+    qconv3x3_s2_requant.launches += 1
+    return _launch_qconv(x, None, w, scale, offset, 2)
+
+
+qconv3x3_s2_requant.launches = 0
+
+
+def qup2x2_requant(x, w, scale, offset):
+    """Q3: the int8 2x2 stride-2 transpose conv + requant: [N,H,W,C] ->
+    [N,2H,2W,C'] int8; scale and offset are [2, C'], row v serving the
+    output columns 2j+v."""
+    _check(x, w, scale, offset, 2, 2, x.shape[3], (2,), "qup2x2_requant")
+    if x.device.type == "cpu":
+        return qup2x2_requant_plain(x, w, scale, offset)
+    qup2x2_requant.launches += 1
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _build.lib().annonet_qup2x2_requant(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, cout, _words(x),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "annonet_qup2x2_requant")
+    return out
+
+
+qup2x2_requant.launches = 0

@@ -1,20 +1,25 @@
-"""The inference artifact (``annonet.dnn``): save and load, without JAX.
+"""The inference artifact (``annonet.dnn``) and the int8 calibration file:
+save and load, without JAX.
 
-The port of the runtime-net half of ``annonet_tpu/serialization.py``: the
-same container (a NumPy .npz with a JSON ``__meta__`` entry and one array
-per parameter leaf under ``params/<block>/<conv>/<leaf>``), the same meta
-fields and the same validation, so each package reads what the other
-writes. The file is untrusted: the container, the meta fields and every
-declared array shape are checked against the declared architecture
+The port of the runtime-net and calibration halves of
+``annonet_tpu/serialization.py``: the same container (a NumPy .npz with a
+JSON ``__meta__`` entry and one array per leaf: ``params/<block>/<conv>/
+<leaf>`` for the model, ``layer/NNN`` for the calibration), the same meta
+fields, the same weights fingerprint and the same validation, so each
+package reads what the other writes. The files are untrusted: the
+container, the meta fields and every declared array shape are checked
 before any array data is decompressed.
 
-Two things differ from the JAX loader: a missing path raises
-FileNotFoundError instead of being reported as a corrupt container, and
-npy headers are read with NumPy's public header readers.
+Three things differ from the JAX loaders: a missing path raises
+FileNotFoundError instead of being reported as a corrupt container, npy
+headers are read with NumPy's public header readers, and a calibration
+file without ``model_config`` is reported as such instead of raising
+KeyError.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
@@ -30,6 +35,8 @@ from annonet_tpu_torch.models.segnet import SegNetConfig, runtime_param_shapes
 _FORMAT = "annonet-tpu-npz-v1"
 _SEP = "/"
 _KIND = "runtime_net"
+_CALIBRATION = "int8_calibration"
+_KIND_NAMES = {_KIND: "model file", _CALIBRATION: "calibration file"}
 _MAX_META_BYTES = 16 << 20  # __meta__ carries anno_classes.json; cap it
 _CONFIG_FIELDS = {
     "class_count", "level_count", "width_scaler", "min_filter_count",
@@ -78,49 +85,67 @@ def _atomic_savez(path: str, **arrays) -> None:
         raise
 
 
-def _corrupt(path, why: str) -> RuntimeError:
-    return RuntimeError(f"{path} is not a valid annonet-tpu model file: {why}")
+def _corrupt(path, why: str, kind: str = _KIND) -> RuntimeError:
+    return RuntimeError(
+        f"{_describe(path)} is not a valid annonet-tpu {_KIND_NAMES[kind]}: {why}"
+    )
 
 
-def _scan_npz(path: str):
+def _describe(path) -> str:
+    """The path, or a tag for a file-like input."""
+    return path if isinstance(path, (str, os.PathLike)) else "<in-memory file>"
+
+
+def _rewound(path):
+    """A file-like input is read twice (headers, then arrays): rewind it."""
+    if hasattr(path, "seek"):
+        path.seek(0)
+    return path
+
+
+def _scan_npz(path, kind: str = _KIND):
     """Parse the zip directory and every member's npy header (shape,
     dtype) without decompressing array data; return (meta, headers)."""
     headers: Dict[str, Tuple[tuple, np.dtype]] = {}
+
+    def corrupt(why):
+        return _corrupt(path, why, kind)
+
     try:
-        with zipfile.ZipFile(path) as zf:
+        with zipfile.ZipFile(_rewound(path)) as zf:
             names = zf.namelist()
             if "__meta__.npy" not in names:
-                raise _corrupt(path, "missing __meta__ entry")
+                raise corrupt("missing __meta__ entry")
             if zf.getinfo("__meta__.npy").file_size > _MAX_META_BYTES:
-                raise _corrupt(path, f"__meta__ is larger than {_MAX_META_BYTES} bytes")
+                raise corrupt(f"__meta__ is larger than {_MAX_META_BYTES} bytes")
             for name in names:
                 if not name.endswith(".npy"):
-                    raise _corrupt(path, f"unexpected member {name!r}")
+                    raise corrupt(f"unexpected member {name!r}")
                 with zf.open(name) as f:
                     version = npformat.read_magic(f)
                     reader = _HEADER_READERS.get(version)
                     if reader is None:
-                        raise _corrupt(
-                            path, f"member {name!r} has npy version {version}"
-                        )
+                        raise corrupt(f"member {name!r} has npy version {version}")
                     shape, _fortran, dtype = reader(f)
                 if dtype.hasobject:
-                    raise _corrupt(path, f"member {name!r} has object dtype")
+                    raise corrupt(f"member {name!r} has object dtype")
                 headers[name[: -len(".npy")]] = (tuple(shape), dtype)
             meta_bytes = zf.read("__meta__.npy")
     except (RuntimeError, FileNotFoundError):
         raise
     except Exception as e:  # zipfile/format/header errors: corrupt container
-        raise _corrupt(path, f"unreadable npz container ({e})") from e
+        raise corrupt(f"unreadable npz container ({e})") from e
     try:
         meta_arr = np.load(io.BytesIO(meta_bytes), allow_pickle=False)
         meta = json.loads(bytes(meta_arr).decode("utf-8"))
     except Exception as e:
-        raise _corrupt(path, f"unreadable __meta__ ({e})") from e
+        raise corrupt(f"unreadable __meta__ ({e})") from e
     if not isinstance(meta, dict):
-        raise _corrupt(path, "__meta__ is not a JSON object")
-    if meta.get("format") != _FORMAT or meta.get("kind") != _KIND:
-        raise RuntimeError(f"{path} is not an annonet-tpu model file")
+        raise corrupt("__meta__ is not a JSON object")
+    if meta.get("format") != _FORMAT or meta.get("kind") != kind:
+        raise RuntimeError(
+            f"{_describe(path)} is not an annonet-tpu {_KIND_NAMES[kind]}"
+        )
     return meta, headers
 
 
@@ -238,3 +263,103 @@ def load_model(path: str) -> Tuple[Any, SegNetConfig, str, float]:
             if k.startswith("params" + _SEP)
         }
     return unflatten_tree(flat), config, anno_classes_json, float(downscaling)
+
+
+# --------------------------------------------------------------------------
+# int8 calibration (per-layer activation maxima)
+# --------------------------------------------------------------------------
+
+
+def weights_fingerprint(runtime_params: Any) -> str:
+    """sha256 over the flattened parameter tree (paths, dtypes, shapes and
+    raw bytes): identifies the exact trained weights, as the JAX package's
+    fingerprint does, byte for byte."""
+    h = hashlib.sha256()
+    for key, arr in sorted(flatten_tree(runtime_params).items()):
+        h.update(key.encode("utf-8"))
+        a = np.ascontiguousarray(np.asarray(arr))
+        h.update(str(a.dtype).encode("utf-8"))
+        h.update(str(a.shape).encode("utf-8"))
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _calibration_arrays(calibration, config: SegNetConfig, runtime_params):
+    if not calibration:
+        raise ValueError("empty calibration (no frozen int8 net to export)")
+    meta = {
+        "format": _FORMAT,
+        "kind": _CALIBRATION,
+        "model_config": config.to_dict(),
+        "layer_count": len(calibration),
+    }
+    if runtime_params is not None:
+        meta["weights_sha256"] = weights_fingerprint(runtime_params)
+    arrays = {
+        f"layer{_SEP}{i:03d}": np.asarray(v, np.float32)
+        for i, v in enumerate(calibration)
+    }
+    arrays["__meta__"] = np.frombuffer(
+        json.dumps(meta).encode("utf-8"), dtype=np.uint8
+    )
+    return arrays
+
+
+def save_calibration(path: str, calibration, config: SegNetConfig,
+                     runtime_params: Any = None) -> None:
+    """Persist int8 calibration maxima (``TiledInferer.export_calibration``)
+    with the model config and, when ``runtime_params`` is given, the
+    weights fingerprint, which the loader verifies."""
+    _atomic_savez(path, **_calibration_arrays(calibration, config, runtime_params))
+
+
+def calibration_npz_bytes(calibration, config: SegNetConfig,
+                          runtime_params: Any = None) -> bytes:
+    """The ``save_calibration`` file as bytes (``load_calibration`` reads
+    them back from a file-like object)."""
+    buf = io.BytesIO()
+    np.savez(buf, **_calibration_arrays(calibration, config, runtime_params))
+    return buf.getvalue()
+
+
+def load_calibration(path, config: SegNetConfig, runtime_params: Any = None):
+    """Read back a calibration file: a list of f32 vectors. Raises if it
+    was made for another model config or, when both sides carry a
+    fingerprint, for other trained weights; validates the container and
+    the layer vectors' declared shapes before decompressing them."""
+    meta, headers = _scan_npz(path, _CALIBRATION)
+
+    def corrupt(why):
+        return _corrupt(path, why, _CALIBRATION)
+
+    layer_count = meta.get("layer_count")
+    if not isinstance(layer_count, int) or isinstance(layer_count, bool) or (
+        not 1 <= layer_count <= 4096
+    ):
+        raise corrupt(f"layer_count={layer_count!r}")
+    names = [f"layer{_SEP}{i:03d}" for i in range(layer_count)]
+    if set(headers) - {"__meta__"} != set(names):
+        raise corrupt(f"layer members do not match layer_count={layer_count}")
+    for name in names:
+        shape, dtype = headers[name]
+        if len(shape) != 1 or shape[0] > (1 << 20) or dtype.kind != "f":
+            raise corrupt(
+                f"member {name!r} has shape {shape} dtype {dtype} "
+                "(expected a small 1-D float vector)"
+            )
+    if "model_config" not in meta:
+        raise corrupt("no model_config in __meta__")
+    if meta["model_config"] != config.to_dict():
+        raise RuntimeError(
+            f"{_describe(path)} was calibrated for a different model config "
+            f"({meta['model_config']} != {config.to_dict()})"
+        )
+    if runtime_params is not None and "weights_sha256" in meta:
+        if meta["weights_sha256"] != weights_fingerprint(runtime_params):
+            raise RuntimeError(
+                f"{_describe(path)} was calibrated for different trained "
+                "weights (same architecture, different model; recalibrate "
+                "with --save-calibration)"
+            )
+    with np.load(_rewound(path), allow_pickle=False) as z:
+        return [z[name] for name in names]

@@ -6,7 +6,8 @@
 Phases (any failure raises, and the exit code is then nonzero):
 
   1. device   needs CUDA; prints the card's name and power limit
-  2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc
+  2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc, one
+              compiler process per source, in parallel
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes: each conv layer of the flagship net
               (SegNetConfig(class_count=3, level_count=3, base_width=16),
@@ -14,7 +15,13 @@ Phases (any failure raises, and the exit code is then nonzero):
               4096x4096 image plans to, in bf16, plus the f32 kernels on
               one tile; the blend epilogue on the 4096x4096 canvas with
               K=3, with and without detection and under the reference
-              blend semantics. Times come from CUDA events.
+              blend semantics. Then the int8 kernels on the same batch,
+              with weights from quantize_net and calibration from one
+              flagship forward, each layer fed the int8 net's own
+              activations: Q1 on the 8 stride-1 layers, Q2 on the 3
+              stride-2 ones, K3's requant mode and Q3 on the 3 up layers;
+              and the bf16 blend on the canvas (detection, the argmax
+              fold, the normalised argmax). Times come from CUDA events.
   4. accuracy the tiled inferer on the card against the same inferer on
               the CPU (plain versions) on a small image
   5. main     writes a random-weight flagship artifact (init_runtime_params,
@@ -23,10 +30,19 @@ Phases (any failure raises, and the exit code is then nonzero):
               in-process with -d 1:0.5 (seeds and blob veto), checks the
               result PNGs and the confusion matrices, and that every
               kernel was launched during that run
-  6. breakdown where the 4096x4096 image's time goes: infer_arrays's
+  6. int8     annonet_infer --quantize int8 -d 1:0.5 --calibration-images 2
+              --save-calibration, then again with --calibration, so both
+              images run int8:
+              Q1, Q2, K3's requant mode and K4 launched in that run, no
+              plan fell back to the float net, the label maps agree with
+              the float run's
+  7. breakdown where the 4096x4096 image's time goes: infer_arrays's
               steady-state wall (the headline Mpx/s), its first call and
               its plan constants apart, the device stages of one call,
-              and the host stages of the CLI loop
+              and the host stages of the CLI loop; then the int8
+              infer_arrays's steady state and device stages
+  8. quantize_up one forward of the int8 net with int8 up layers (Q3) on
+              the 25-tile batch
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}. Scratch files go to a
@@ -60,6 +76,14 @@ CANVAS = 4096
 BF16_TOL = 2.0**-6
 F32_TOL = 1e-4
 SMALL_LABEL_AGREEMENT = 0.995
+# int8 against float label maps of the random-weight flagship net: the JAX
+# package's own int8 path agrees with its float path on 98.2-98.6% of the
+# pixels of such images (CPU, 300x200 and 700x600; a random net's logits
+# are near ties everywhere), and the port's int8 labels agree with the JAX
+# package's int8 labels on 99.5% of them (tests/test_torch_quant.py)
+INT8_LABEL_AGREEMENT = 0.97
+# int8 up layers (Q3) against the bf16 ones: int8 weights in three more layers
+QUANTIZE_UP_AGREEMENT = 0.95
 
 _REPO = os.path.dirname(os.path.abspath(__file__))
 _TPU_KERNELS = {
@@ -67,12 +91,18 @@ _TPU_KERNELS = {
     "conv3x3_s2_bias_relu": "annonet_tpu/ops/int8_conv_mosaic.py:426",
     "up2x2_bias_relu": "annonet_tpu/ops/int8_conv_mosaic.py:485",
     "blend_argmax": "annonet_tpu/ops/pallas_blend.py:94",
+    "qconv3x3_requant": "annonet_tpu/ops/int8_conv_mosaic.py:673",
+    "qconv3x3_s2_requant": "annonet_tpu/ops/int8_conv_mosaic.py:222",
+    "qup2x2_requant": "annonet_tpu/ops/int8_conv_mosaic.py:294",
 }
 _SOURCES = {
     "conv3x3_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
     "conv3x3_s2_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
     "up2x2_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
     "blend_argmax": "annonet_tpu_torch/csrc/blend.cu",
+    "qconv3x3_requant": "annonet_tpu_torch/csrc/qconv.cu",
+    "qconv3x3_s2_requant": "annonet_tpu_torch/csrc/qconv.cu",
+    "qup2x2_requant": "annonet_tpu_torch/csrc/qconv.cu",
 }
 
 
@@ -269,6 +299,144 @@ def check_blend(config, device, reps: int, generator):
     return timing
 
 
+def int8_setup(params_np, config, device, generator, n: int = 25, side: int = 896):
+    """Calibration from one flagship forward (4 tiles of a random image),
+    the int8 net (bf16 up layers) and its quantize_up twin, and each int8
+    layer's inputs on the 25-tile 896x896 batch from one forward of the
+    int8 net: {layer: (x,) or (x, skip)}."""
+    from annonet_tpu_torch.models.quantized import (
+        QuantizedSegNet, collect_calibration, quantize_input, quantize_net,
+    )
+    from annonet_tpu_torch.models.segnet import RuntimeSegNet
+
+    tiles = torch.randint(0, 256, (n, side, side, config.in_channels),
+                          generator=generator, device=device, dtype=torch.uint8)
+    calibration = collect_calibration(
+        RuntimeSegNet(params_np, config, device=device), tiles[:4])
+    qp = quantize_net(params_np, config, calibration)
+    qp_up = quantize_net(params_np, config, calibration, quantize_up=True)
+    net = QuantizedSegNet(qp, config, device=device)
+    x_q = quantize_input(tiles)
+    outs = {}
+    with torch.inference_mode():
+        net(x_q, tap=lambda name, a: outs.__setitem__(name, a))
+    inputs = {"stem/conv0": (x_q,), "stem/conv1": (outs["stem/conv0"],)}
+    prev, skips = "stem/conv1", ["stem/conv1"]
+    for i in range(1, config.level_count + 1):
+        inputs[f"enc{i}/conv0"] = (outs[prev],)
+        inputs[f"enc{i}/conv1"] = (outs[f"enc{i}/conv0"],)
+        prev = f"enc{i}/conv1"
+        if i < config.level_count:
+            skips.append(prev)
+    for i in range(config.level_count, 0, -1):
+        inputs[f"dec{i}/up"] = (outs[prev],)
+        inputs[f"dec{i}/conv0"] = (outs[f"dec{i}/up"], outs[skips.pop()])
+        prev = f"dec{i}/conv0"
+    return calibration, qp, qp_up, x_q, inputs
+
+
+def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
+    """Q1, Q2, Q3 (bit-identical) and K3's requant mode (within one requant
+    step) against their plain versions on each layer's real inputs;
+    returns {kernel: (max_abs_err, summed ms, summed plain ms)} and the
+    share of K3-requant outputs that differ from the plain version's."""
+    from annonet_tpu_torch.models.segnet import conv_layers
+    from annonet_tpu_torch.ops import conv, qconv
+
+    to = lambda e: {k: torch.from_numpy(v).to(device).contiguous()  # noqa: E731
+                    for k, v in e.items()}
+    results: dict = {}
+    differing = [0, 0]
+    for block, name, _shape in conv_layers(config):
+        layer = f"{block}/{name}"
+        xs = inputs[layer]
+        if name == "up":
+            e, eu = to(qp[layer]), to(qp_up[layer])
+            w = e["w"].to(torch.bfloat16)
+            cases = [
+                ("up2x2_requant",
+                 lambda: conv.up2x2_requant(xs[0], e["s_in"], w, e["scale"], e["offset"]),
+                 lambda: conv.up2x2_requant_plain(xs[0], e["s_in"], w, e["scale"], e["offset"])),
+                ("qup2x2_requant",
+                 lambda: qconv.qup2x2_requant(xs[0], eu["w_q"], eu["scale"], eu["offset"]),
+                 lambda: qconv.qup2x2_requant_plain(xs[0], eu["w_q"], eu["scale"], eu["offset"])),
+            ]
+        else:
+            e = to(qp[layer])
+            args = (e["w_q"], e["scale"], e["offset"])
+            extra = {"x2": xs[1]} if len(xs) > 1 else {}
+            kernel = "qconv3x3_s2_requant" if (block.startswith("enc") and name == "conv0") \
+                else "qconv3x3_requant"
+            fn, plain = getattr(qconv, kernel), getattr(qconv, kernel + "_plain")
+            cases = [(kernel, lambda: fn(xs[0], *args, **extra),
+                      lambda: plain(xs[0], *args, **extra))]
+        for kernel, run, run_plain in cases:
+            got, want = run(), run_plain()
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{kernel} {layer}: {tuple(got.shape)} {got.dtype} vs "
+                                     f"{tuple(want.shape)} {want.dtype}")
+            d = (got.int() - want.int()).abs()
+            err = d.max().item()
+            share = (d > 0).float().mean().item()
+            k_ms = p_ms = float("nan")
+            if reps:
+                k_ms, p_ms = timed_pair(run, run_plain, reps)
+            print(f"  {kernel:20s} {layer:12s} x{list(xs[0].shape)}"
+                  + (f"+{xs[1].shape[-1]}" if len(xs) > 1 else "")
+                  + f" -> {list(got.shape)}: max|err| {err} (share differing {share:.2e})"
+                  f" kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+            limit = 1 if kernel == "up2x2_requant" else 0
+            if err > limit:
+                raise AssertionError(f"{kernel} {layer}: max|err| {err} > {limit}")
+            if kernel == "up2x2_requant":
+                differing[0] += int((d > 0).sum().item())
+                differing[1] += d.numel()
+            prev = results.get(kernel, (0.0, 0.0, 0.0))
+            results[kernel] = (max(prev[0], float(err)), prev[1] + k_ms, prev[2] + p_ms)
+            del got, want, d
+    share = differing[0] / max(1, differing[1])
+    print(f"  up2x2_requant: {differing[0]} of {differing[1]} outputs ({share:.3e}) one "
+          f"requant step from the plain version", flush=True)
+    return results, share
+
+
+def check_blend_bf16(config, device, reps: int, generator):
+    """K4 in bf16 on the 4096x4096 canvas against its plain version: with
+    detection (normalised), without detection with the argmax fold and
+    normalised; labels and seeds bit-identical. Returns {variant:
+    (max_abs_err, kernel ms, plain ms)}."""
+    from annonet_tpu_torch.infer.tiling import weight_sum_factors
+    from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
+
+    plan, a = blend_inputs(config, device, generator)
+    factors = tuple(torch.from_numpy(f).to(device) for f in weight_sum_factors(plan))
+    args = (a["logits"], a["tile_yx"], a["ramp"], a["inv_wsum"], a["gains"], a["det_levels"])
+    timings = {}
+    for variant, detection, fold in (("detection", True, False), ("fold", False, True),
+                                     ("normalised", False, False)):
+        kw = dict(with_detection=detection, reference_blend=False,
+                  blend_dtype=torch.bfloat16, wsum_factors=factors if fold else None)
+        labels, seeds = blend_argmax(*args, **kw)
+        want_labels, want_seeds = blend_argmax_plain(*args, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(labels, want_labels) and (
+            not detection or torch.equal(seeds, want_seeds))
+        err = (labels.int() - want_labels.int()).abs().max().item()
+        k_ms = p_ms = float("nan")
+        if reps:
+            k_ms, p_ms = timed_pair(lambda: blend_argmax(*args, **kw),
+                                    lambda: blend_argmax_plain(*args, **kw), reps)
+        counts = torch.bincount(labels.flatten().long(), minlength=3).tolist()
+        print(f"  blend_argmax bf16 {variant}: class counts {counts}, seeds "
+              f"{None if seeds is None else int(seeds.sum().item())}; bit-identical to "
+              f"plain: {same}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+        if not same:
+            raise AssertionError(f"bf16 blend_argmax ({variant}) differs from its plain version")
+        timings[variant] = (float(err), k_ms, p_ms)
+    return timings
+
+
 def check_small_image(params_np, config, device):
     """Tiled inference on the card against the same inferer on the CPU
     (plain versions): f32 logits of one tile within 1e-3, and bf16 label
@@ -404,6 +572,180 @@ def run_main_path(work: str, config, seed: int, sizes, device_note: str):
     if missing:
         raise AssertionError(f"the main path launched no {missing}")
     return launches, per_image, text
+
+
+def read_results(data: str, sizes):
+    """{image name: RGBA result PNG as an array}: the label maps of a run."""
+    from PIL import Image
+
+    out = {}
+    for name, _h, _w in sizes:
+        with Image.open(os.path.join(data, name + ".png_result.png")) as im:
+            out[name] = np.asarray(im.convert("RGBA"))
+    return out
+
+
+def run_int8_path(work: str, sizes, float_results):
+    """annonet_infer --quantize int8 -d 1:0.5 --save-calibration, then with
+    --calibration so that both images run int8. Returns (launch counts of
+    the calibrated run, its per-image report, the calibration path)."""
+    from annonet_tpu_torch.cli import infer as cli
+    from annonet_tpu_torch.ops import blend, conv, qconv
+
+    data, model = os.path.join(work, "data"), os.path.join(work, "annonet.dnn")
+    calib = os.path.join(work, "calibration.npz")
+    report = os.path.join(work, "report_int8.json")
+    common = [data, "--model", model, "--quantize", "int8", "-d", "1:0.5"]
+
+    def run(argv):
+        out, err = io.StringIO(), io.StringIO()
+        t = time.monotonic()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        text = out.getvalue()
+        print("  | " + text.replace("\r", "\n").strip().replace("\n", "\n  | "))
+        print(f"  exit code {rc}, {time.monotonic() - t:.2f} s wall", flush=True)
+        if rc != 0:
+            raise AssertionError(f"annonet_infer {' '.join(argv[1:])} exited with {rc}")
+        if "does not fold" in err.getvalue():
+            raise AssertionError("an int8 plan fell back to the float net: " + err.getvalue())
+        return text
+
+    # calibrated on both images, so neither is clipped beyond its range
+    print("  calibrating run (--calibration-images 2 --save-calibration):", flush=True)
+    if "Saved int8 calibration" not in run(common + ["--calibration-images", "2",
+                                                    "--save-calibration", calib]):
+        raise AssertionError("the calibrating run saved no calibration")
+    wrappers = {
+        "qconv3x3_requant": qconv.qconv3x3_requant,
+        "qconv3x3_s2_requant": qconv.qconv3x3_s2_requant,
+        "up2x2_requant": conv.up2x2_requant,
+        "blend_argmax": blend.blend_argmax,
+        "qup2x2_requant": qconv.qup2x2_requant,
+    }
+    print("  calibrated run (--calibration): both images int8", flush=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    run(common + ["--calibration", calib, "--report-json", report])
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"  launches in the calibrated run: {launches}", flush=True)
+    images = len(sizes)
+    # every image through the whole int8 stack: 8 Q1, 3 Q2, 3 up layers
+    for name, per_image in (("qconv3x3_requant", 8), ("qconv3x3_s2_requant", 3),
+                            ("up2x2_requant", 3), ("blend_argmax", 1)):
+        if launches[name] < per_image * images:
+            raise AssertionError(f"the int8 path launched {name} {launches[name]} times, "
+                                 f"fewer than {per_image} per image")
+    int8_results = read_results(data, sizes)
+    for name, _h, _w in sizes:
+        agree = float((int8_results[name] == float_results[name]).all(-1).mean())
+        print(f"  {name}: int8 and float label maps agree on {agree:.5f} of pixels",
+              flush=True)
+        if agree < INT8_LABEL_AGREEMENT:
+            raise AssertionError(f"int8 and float labels agree on {agree} < "
+                                 f"{INT8_LABEL_AGREEMENT}")
+    with open(report, encoding="utf-8") as f:
+        per_image = json.load(f)["per_image"]
+    return launches, per_image, calib
+
+
+def time_infer_arrays(inferer, image, gains, levels, reps: int):
+    """(steady-state walls of ``reps`` infer_arrays calls after a warm-up,
+    device stage ms of one call from CUDA events around its steps)."""
+    inferer.infer_arrays(image, gains, levels)
+    walls = []
+    for _ in range(reps):
+        t = time.monotonic()
+        inferer.infer_arrays(image, gains, levels)
+        walls.append(time.monotonic() - t)
+    h, w = image.shape[:2]
+    plan = inferer.plan(h, w)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.inference_mode():
+        ev[0].record()
+        qnet = inferer._int8_net(image[None], plan)
+        tiles = inferer._tile_batch(image[None], plan, quantized=qnet is not None)
+        ev[1].record()
+        logits = inferer._forward(tiles, plan, qnet)
+        ev[2].record()
+        del tiles
+        labels, seeds = inferer._blend(logits, plan, gains, levels, True,
+                                       quantized=qnet is not None)
+        ev[3].record()
+        labels[:, :h, :w].cpu().numpy().astype(np.int32)
+        seeds[:, :h, :w].cpu().numpy()
+        ev[4].record()
+    ev[4].synchronize()
+    return walls, [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def breakdown_int8(params_np, config, device, data: str, name: str, calib: str,
+                   reps: int = 5):
+    """The int8 infer_arrays at steady state on the 4096x4096 image, with
+    the CLI's saved calibration, and its device stages."""
+    from annonet_tpu_torch import serialization
+    from annonet_tpu_torch.data import default_anno_classes
+    from annonet_tpu_torch.data.dataset import ImageFilenames
+    from annonet_tpu_torch.data.sample import read_sample
+    from annonet_tpu_torch.infer.core import TiledInferer
+
+    path = os.path.join(data, name + ".png")
+    image = read_sample(ImageFilenames(path, path + "_mask.png"),
+                        default_anno_classes(), False, 1.0).input_image
+    h, w = image.shape[:2]
+    inferer = TiledInferer(
+        params_np, config, device=device, quantize="int8",
+        calibration=serialization.load_calibration(calib, config, params_np),
+    )
+    gains = np.zeros(config.class_count, np.float32)
+    levels = np.asarray([0.0, 0.5, 0.0], np.float32)
+    walls, device_ms = time_infer_arrays(inferer, image, gains, levels, reps)
+    if inferer.float_fallbacks or not inferer._quantized:
+        raise AssertionError("the int8 breakdown did not run the int8 net")
+    wall = sum(walls) / reps
+    plan = inferer.plan(h, w)
+    print(f"  {name} int8: plan {plan.tile_count} tiles of {plan.tile_height}x"
+          f"{plan.tile_width}; infer_arrays steady state {wall * 1e3:.3f} ms host wall, "
+          f"mean of {reps} calls after a warm-up ({h * w / 1e6 / wall:.2f} Mpx/s; calls "
+          + ", ".join(f"{x * 1e3:.3f}" for x in walls) + " ms)", flush=True)
+    print("  device stages of one int8 call (CUDA events):", flush=True)
+    for stage, ms in zip(("upload + pad + quantize + tile gather",
+                          "int8 net forward (Q1, Q2, K3-requant + head)",
+                          "blend epilogue (K4, bf16)", "crop + labels and seeds to host"),
+                         device_ms):
+        print(f"    {stage:44s} {ms:9.3f} ms", flush=True)
+    return inferer, image, plan
+
+
+def quantize_up_forward(params_np, config, device, inferer, image, plan):
+    """One forward of the 25-tile batch through the int8 net with int8 up
+    layers (Q3), against the default int8 net on the same tiles."""
+    from annonet_tpu_torch.models.quantized import QuantizedSegNet, quantize_net
+    from annonet_tpu_torch.ops import qconv
+
+    calibration = inferer.export_calibration()
+    net_up = QuantizedSegNet(quantize_net(params_np, config, calibration, quantize_up=True),
+                             config, device=device)
+    with torch.inference_mode():
+        qnet = inferer._int8_net(image[None], plan)
+        tiles = inferer._tile_batch(image[None], plan, quantized=True)
+        qconv.qup2x2_requant.launches = 0
+        logits = net_up(tiles)
+        torch.cuda.synchronize()
+        launches = qconv.qup2x2_requant.launches
+        reference = qnet(tiles)
+        agree = (logits.argmax(-1) == reference.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(logits).all().item())
+    print(f"  quantize_up forward of {list(tiles.shape)} int8 tiles: logits "
+          f"{list(logits.shape)} {logits.dtype}, finite {finite}; qup2x2_requant "
+          f"launches {launches}; argmax agrees with the bf16-up int8 net on {agree:.5f}",
+          flush=True)
+    want_shape = (plan.tile_count, plan.tile_height, plan.tile_width, config.class_count)
+    if not finite or tuple(logits.shape) != want_shape or launches < config.level_count:
+        raise AssertionError("the quantize_up forward failed")
+    if agree < QUANTIZE_UP_AGREEMENT:
+        raise AssertionError(f"quantize_up labels agree on {agree} < {QUANTIZE_UP_AGREEMENT}")
+    return launches
 
 
 def breakdown(params_np, config, device, data: str, name: str, reps: int = 5):
@@ -548,6 +890,15 @@ def main() -> int:
     print("[kernels] blend epilogue, 4096x4096 canvas, K=3", flush=True)
     blend_result = check_blend(config, device, 5, gen)
     torch.cuda.empty_cache()
+    print("[kernels] int8, the 25-tile 896x896 batch, each layer on the int8 net's "
+          "own activations", flush=True)
+    _calibration, qp, qp_up, _x_q, inputs = int8_setup(params_np, config, device, gen)
+    int8_results, requant_share = check_int8_kernels(config, device, qp, qp_up, inputs, 3)
+    del inputs, _x_q
+    torch.cuda.empty_cache()
+    print("[kernels] blend epilogue in bf16, 4096x4096 canvas, K=3", flush=True)
+    blend_bf16 = check_blend_bf16(config, device, 5, gen)
+    torch.cuda.empty_cache()
 
     print("[accuracy] card vs CPU on a small image", flush=True)
     check_small_image(params_np, config, device)
@@ -558,29 +909,57 @@ def main() -> int:
         launches, per_image, text = run_main_path(
             work, config, SEED, IMAGE_SIZES, str(device)
         )
+        float_results = read_results(os.path.join(work, "data"), IMAGE_SIZES)
+        print("[int8] annonet_infer --quantize int8 on the same images", flush=True)
+        int8_launches, int8_per_image, calib = run_int8_path(
+            work, IMAGE_SIZES, float_results)
+        del float_results
         print("[breakdown] one 4096x4096 image, stage by stage", flush=True)
         breakdown(params_np, config, device, os.path.join(work, "data"),
                   IMAGE_SIZES[-1][0])
+        inferer, image, plan = breakdown_int8(
+            params_np, config, device, os.path.join(work, "data"), IMAGE_SIZES[-1][0],
+            calib)
+        print("[quantize_up] int8 up layers (Q3) on the 25-tile batch", flush=True)
+        up_launches = quantize_up_forward(params_np, config, device, inferer, image, plan)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for rec in per_image:
-        mpx = rec["width"] * rec["height"] / 1e6
-        print(f"  {os.path.basename(rec['image'])}: {rec['milliseconds']:.3f} ms"
-              f" inference, {mpx / (rec['milliseconds'] / 1e3):.2f} Mpx/s"
-              + (" (first image: one-time costs included)"
-                 if rec["first_group"] else ""), flush=True)
+    for label, records in (("float", per_image), ("int8", int8_per_image)):
+        for rec in records:
+            mpx = rec["width"] * rec["height"] / 1e6
+            print(f"  {label} {os.path.basename(rec['image'])}: {rec['milliseconds']:.3f} ms"
+                  f" inference, {mpx / (rec['milliseconds'] / 1e3):.2f} Mpx/s"
+                  + (" (first image: one-time costs included)"
+                     if rec["first_group"] else ""), flush=True)
     m = re.search(r"processed in ([0-9.]+) seconds", text)
     if m:
         total_px = sum(h * w for _n, h, w in IMAGE_SIZES)
-        print(f"  whole run incl. reading, veto, PNG writing, confusion "
+        print(f"  whole float run incl. reading, veto, PNG writing, confusion "
               f"matrices: {total_px / 1e6 / float(m.group(1)):.2f} Mpx/s", flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     results = dict(conv_results)
     results["blend_argmax"] = blend_result
-    kernels = [
-        {
+    results.update(int8_results)
+    launches.update({k: int8_launches[k] for k in ("qconv3x3_requant", "qconv3x3_s2_requant")})
+    launches["qup2x2_requant"] = up_launches
+    modes = {
+        "up2x2_bias_relu": {"requant": {
+            "launches": int8_launches["up2x2_requant"],
+            "max_abs_err": int8_results["up2x2_requant"][0],
+            "share_differing": requant_share,
+            "ms": int8_results["up2x2_requant"][1],
+            "plain_ms": int8_results["up2x2_requant"][2],
+        }},
+        "blend_argmax": {f"bfloat16_{variant}": {
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        } for variant, (err, k_ms, p_ms) in blend_bf16.items()},
+    }
+    modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
+    kernels = []
+    for name in _TPU_KERNELS:
+        entry = {
             "name": name,
             "route": "cuda",
             "source": _SOURCES[name],
@@ -590,8 +969,9 @@ def main() -> int:
             "ms": results[name][1],
             "plain_ms": results[name][2],
         }
-        for name in _TPU_KERNELS
-    ]
+        if name in modes:
+            entry["modes"] = modes[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

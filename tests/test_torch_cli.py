@@ -1,8 +1,10 @@
 """``annonet_infer`` of the port (annonet_tpu_torch/cli/infer.py) against
 the JAX package's CLI: the same flags, the same result PNGs (>= 99.9% of
 pixels; identical is expected) and the same confusion matrices on a
-synthetic anno dataset, an exit code of 2 for each flag whose feature is
-not ported yet, no silent CPU run, and a package that imports without jax.
+synthetic anno dataset, the int8 flags with calibration files either
+package reads, an exit code of 2 for each flag whose feature is not ported
+yet, no silent CPU run, and a package that imports and runs both paths
+without jax.
 """
 
 import os
@@ -94,6 +96,12 @@ def test_parser_has_the_jax_flags():
     assert table(cli.build_parser()) == table(jax_cli.build_parser())
 
 
+# the int8 flags are ported; they stay in the list to show they are no
+# longer refused (no model in the directory: the run fails with 1, not 2)
+_PORTED = ("--quantize", "--blend-dtype", "--calibration", "--save-calibration",
+           "--calibration-images")
+
+
 @pytest.mark.parametrize(
     "flag",
     [["--quantize", "int8"], ["--blend-dtype", "bfloat16"], ["--calibration", "c.npz"],
@@ -101,10 +109,37 @@ def test_parser_has_the_jax_flags():
      ["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"],
      ["--plan-autotune"], ["--profile", "trace"]],
 )
-def test_unported_flags_exit_2(tmp_path, capsys, flag):
-    assert cli.main([str(tmp_path), *flag]) == 2
+def test_unported_flags_exit_2(tmp_path, capsys, flag, monkeypatch):
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    code = cli.main([str(tmp_path), *flag])
     err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP.md" in err
+    if flag[0] in _PORTED:
+        assert code == 1 and "not ported" not in err
+    else:
+        assert code == 2 and flag[0] in err and "ROADMAP.md" in err
+
+
+def test_int8_flags_and_calibration_files(dataset, capsys, monkeypatch):
+    root, model = dataset
+    runtime, config, _anno, _ds = jax_serialization.load_model(model)
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    calib = str(root / "calib.npz")
+    port = str(root / "port")
+    assert cli.main([port, "--model", model, "--quantize", "int8", "-d", "1:0.1",
+                     "--calibration-images", "2", "--save-calibration", calib]) == 0
+    out = capsys.readouterr().out
+    assert "int8 calibration: 2 image(s); activation range overshoot" in out
+    assert f"Saved int8 calibration to {calib}" in out
+    # the JAX loader reads the port's file, fingerprint checked
+    assert len(jax_serialization.load_calibration(calib, config, runtime)) == 9
+    assert cli.main([port, "--model", model, "--quantize", "int8", "--calibration", calib,
+                     "--blend-dtype", "float32"]) == 0
+    assert f"Loaded int8 calibration from {calib}" in capsys.readouterr().out
+    assert cli.main([port, "--model", model, "--calibration", calib]) == 1
+    assert "require --quantize int8" in capsys.readouterr().out
+    assert cli.main([port, "--model", model, "--quantize", "int8",
+                     "--calibration-images", "0"]) == 1
+    assert "--calibration-images must be >= 1" in capsys.readouterr().out
 
 
 def test_usage_and_parse_errors(capsys):
@@ -136,8 +171,12 @@ from annonet_tpu_torch.infer.core import TiledInferer, annonet_infer
 from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
 config = SegNetConfig(class_count=3, level_count=2, base_width=4)
 image = np.random.default_rng(0).integers(0, 256, (70, 90, 3), dtype=np.uint8)
-out = annonet_infer(TiledInferer(init_runtime_params(config, 0), config, device="cpu"), image)
-assert out.shape == (70, 90) and out.dtype == np.uint16
+params = init_runtime_params(config, 0)
+for quantize in (None, "int8"):
+    inferer = TiledInferer(params, config, device="cpu", quantize=quantize)
+    out = annonet_infer(inferer, image)
+    assert out.shape == (70, 90) and out.dtype == np.uint16
+assert inferer._quantized and inferer.float_fallbacks == 0  # the int8 net ran
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
 print("imported", len(names), "modules without jax")
 """

@@ -13,7 +13,11 @@ conftest):
 Tolerances: f32 kernels only reorder f32 sums (1e-4 of the output scale,
 TF32 off in the plain versions); bf16 kernels round once after the bias
 where the plain versions round before it too (two bf16 steps, 2**-6, of
-the output scale); the blend's labels and seeds are bit-identical.
+the output scale); the blend's labels and seeds are bit-identical, in f32
+and in bf16, with and without the argmax fold; the int8 kernels Q1-Q3 sum
+integers exactly and requantize with one FMA, as their plain versions do,
+so they are bit-identical; K3's requant mode sums floats in another order
+than cuDNN, so it is held within one requant step.
 """
 
 import numpy as np
@@ -126,3 +130,120 @@ def test_tiled_inference_on_the_card_matches_the_cpu(device):
     cpu = TiledInferer(params, config, tiling, device="cpu").infer_arrays(image, gains, levels)
     assert (card[0] == cpu[0]).mean() >= 0.999
     assert (card[1] == cpu[1]).mean() >= 0.999
+
+
+def _int8(shape, device, seed, lo=0, hi=128):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int8)
+
+
+def _requant_args(shape, device, seed):
+    # pre-round values spread over [-20, 150]: clip, truncation and
+    # near-integer values all occur
+    return (_rand(shape, device, seed, 0.05, 2e-3), _rand(shape, device, seed + 1, -0.3, 30.0))
+
+
+@pytest.mark.parametrize(
+    "kind,n,h,w,c1,c2,cout",
+    [("s1", 1, 17, 45, 3, 0, 20), ("s1", 2, 8, 40, 5, 7, 9), ("s1", 1, 33, 70, 40, 24, 48),
+     ("s1", 2, 16, 64, 16, 16, 16), ("s2", 1, 18, 66, 6, 0, 40), ("s2", 3, 10, 34, 16, 0, 8),
+     ("up", 2, 9, 13, 24, 0, 36), ("up", 1, 5, 40, 3, 0, 4), ("up", 1, 8, 16, 32, 0, 16)],
+)
+def test_int8_kernels_are_bit_identical_to_plain(device, kind, n, h, w, c1, c2, cout):
+    from annonet_tpu_torch.ops import qconv
+
+    k = 2 if kind == "up" else 3
+    x = _int8((n, h, w, c1), device, 1, -127 if c1 == 3 else 0)
+    x2 = _int8((n, h, w, c2), device, 2) if c2 else None
+    wgt = _int8((k, k, c1 + c2, cout), device, 3, -127)
+    scale, offset = _requant_args((2, cout) if kind == "up" else (cout,), device, 4)
+    fn, plain = {
+        "s1": (qconv.qconv3x3_requant, qconv.qconv3x3_requant_plain),
+        "s2": (qconv.qconv3x3_s2_requant, qconv.qconv3x3_s2_requant_plain),
+        "up": (qconv.qup2x2_requant, qconv.qup2x2_requant_plain),
+    }[kind]
+    extra = {"x2": x2} if c2 else {}
+    before = fn.launches
+    got = fn(x, wgt, scale, offset, **extra)
+    assert fn.launches == before + 1
+    want = plain(x, wgt, scale, offset, **extra)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert (want == 0).any() and (want > 0).any()  # the clip and the grid both occur
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 13, 24, 36), (1, 5, 40, 3, 4), (1, 16, 16, 64, 32)])
+def test_up2x2_requant_within_one_step_of_plain(device, dtype, n, h, w, cin, cout):
+    from annonet_tpu_torch.ops import conv
+
+    x = _int8((n, h, w, cin), device, 5)
+    s_in = _rand((cin,), device, 6, 0.5, 0.02)
+    wgt = _rand((2, 2, cin, cout), device, 7, -0.5, (2.0 / cin) ** 0.5).to(dtype)
+    # the float sums reach a few units: scale them over the int8 range
+    scale, offset = _rand((cout,), device, 8, 0.5, 20.0), _rand((cout,), device, 9, -0.3, 30.0)
+    before = conv.up2x2_requant.launches
+    got = conv.up2x2_requant(x, s_in, wgt, scale, offset)
+    assert conv.up2x2_requant.launches == before + 1
+    want = conv.up2x2_requant_plain(x, s_in, wgt, scale, offset)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.int8
+    d = (got.int() - want.int()).abs()
+    assert d.max().item() <= 1 and d.float().mean().item() <= 0.05
+
+
+@pytest.mark.parametrize("m,k", [(1, 3), (2, 5), (1, 300)])
+@pytest.mark.parametrize("blend_dtype", [torch.bfloat16, torch.float32])
+def test_blend_modes_are_bit_identical_to_plain(device, m, k, blend_dtype):
+    from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
+
+    rng = np.random.default_rng(m * 1000 + k)
+    th, tw, hp, wp = 40, 56, 100, 130
+    ys, xs = [0, 30, 60], [0, 37, 74]  # a grid plan: the fold needs one
+    yx = np.array([(y, x) for y in ys for x in xs], np.int32)
+    n = len(yx)
+    wy = torch.from_numpy(rng.random(hp).astype(np.float32) + 0.5).to(device)
+    wx = torch.from_numpy(rng.random(wp).astype(np.float32) + 0.5).to(device)
+    args = (
+        torch.randn((n * m, th, tw, k), device=device),
+        torch.from_numpy(yx).to(device),
+        _rand((th, tw), device, 5),
+        _rand((hp, wp), device, 6, 0.5),
+        torch.from_numpy(rng.normal(0, 0.2, k).astype(np.float32)).to(device),
+        torch.from_numpy(np.abs(rng.normal(0, 0.5, k)).astype(np.float32)).to(device),
+    )
+    for detection, reference, fold in ((True, False, False), (False, False, False),
+                                       (True, True, False), (False, False, True)):
+        kw = dict(with_detection=detection, reference_blend=reference,
+                  blend_dtype=blend_dtype, wsum_factors=(wy, wx) if fold else None)
+        labels, seeds = blend_argmax(*args, **kw)
+        want_labels, want_seeds = blend_argmax_plain(*args, **kw)
+        assert torch.equal(labels, want_labels)
+        if detection:
+            assert torch.equal(seeds, want_seeds)
+
+
+def test_int8_tiled_inference_on_the_card_matches_the_cpu(device):
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.infer.tiling import TilingParameters
+    from annonet_tpu_torch.models.segnet import (
+        SegNetConfig, init_runtime_params, required_input_dimension,
+    )
+
+    config = SegNetConfig(class_count=3, level_count=2, base_width=16)
+    params = init_runtime_params(config, seed=5)
+    rf = required_input_dimension(config)
+    tiling = TilingParameters(128, 128, rf, rf)
+    image = np.random.default_rng(6).integers(0, 256, (200, 260, 3), dtype=np.uint8)
+    cpu = TiledInferer(params, config, tiling, device="cpu", quantize="int8")
+    want = cpu.infer_arrays(image)
+    card = TiledInferer(params, config, tiling, device=device, quantize="int8",
+                        calibration=cpu.export_calibration())
+    got = card.infer_arrays(image)
+    levels = [0.0, 0.3, 0.1]
+    assert card.float_fallbacks == 0 and card._quantized
+    assert (got[0] == want[0]).mean() >= 0.99
+    got, want = card.infer_arrays(image, None, levels), cpu.infer_arrays(image, None, levels)
+    assert (got[0] == want[0]).mean() >= 0.99 and (got[1] == want[1]).mean() >= 0.99

@@ -162,5 +162,10 @@ def test_detection_veto_matches_jax():
 
 @pytest.mark.parametrize("kwargs", [{"quantize": "int8"}, {"mesh": object()}])
 def test_unported_options_raise(tree, kwargs):
+    if "quantize" in kwargs:  # ported: int8 constructs, other modes are refused
+        assert core.TiledInferer(tree, CONFIG, TILING, device="cpu", **kwargs).quantize == "int8"
+        with pytest.raises(ValueError, match="unsupported quantize mode"):
+            core.TiledInferer(tree, CONFIG, TILING, device="cpu", quantize="int4")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         core.TiledInferer(tree, CONFIG, TILING, device="cpu", **kwargs)
