@@ -5,17 +5,22 @@ The JAX package ``annonet_tpu`` stays the reference; this package keeps its
 structure and names so each module's counterpart is easy to find:
 
   models/segnet.py     SegNetConfig, the BN-folded runtime net
+  models/quantized.py  the int8 net (Q1-Q3, csrc/qconv.cu)
+  models/folded_runtime.py  the folded net of use_pallas_conv (G1)
   serialization.py     the annonet.dnn npz artifact (same keys and checks)
   ops/conv.py          K1-K3: fused conv + bias + ReLU (CUDA, csrc/conv.cu)
+  ops/gemm_conv.py     G1: the folded 3x3 conv as three GEMMs
+                       (CUDA, csrc/gemm_conv.cu)
   ops/blend.py         K4: blend + normalise + gains argmax + seeds
                        (CUDA, csrc/blend.cu)
   infer/               tile planning, TiledInferer, confusion matrices
   data/                dataset scan, image/mask reading, label codec
+  classes.py, native.py  the class palette codec and the native host module
   cli/infer.py         annonet_infer
 
-Only ``annonet_tpu.classes`` and ``annonet_tpu.native`` are shared with the
-JAX package (their import chains are JAX-free); this package never imports
-``jax``. Every kernel has a plain PyTorch version beside it, which its
+This package imports neither ``jax`` nor anything of ``annonet_tpu``; it
+keeps its own copies of what it needs from the JAX package's jax-free
+modules. Every kernel has a plain PyTorch version beside it, which its
 wrapper runs for CPU tensors; CUDA tensors always go through the kernel.
 """
 

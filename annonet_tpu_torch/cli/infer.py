@@ -181,7 +181,7 @@ def _run(args, input_directory) -> int:
 
     import numpy as np
 
-    from annonet_tpu.classes import parse_anno_classes
+    from annonet_tpu_torch.classes import parse_anno_classes
     from annonet_tpu_torch import serialization
     from annonet_tpu_torch.cli.common import (
         parse_class_specific_values,

@@ -1,8 +1,8 @@
 """Data layer of the inference slice: dataset scanning, sample reading and
 the RGBA label codec (copies of the annonet_tpu.data modules it needs),
-plus the jax-free class palette of annonet_tpu.classes, re-exported."""
+plus the class palette of annonet_tpu_torch.classes, re-exported."""
 
-from annonet_tpu.classes import (
+from annonet_tpu_torch.classes import (
     IGNORE_LABEL,
     RGBA_IGNORE,
     AnnoClass,

@@ -20,7 +20,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
-from annonet_tpu.classes import AnnoClass, IGNORE_LABEL, RGBA_IGNORE
+from annonet_tpu_torch.classes import AnnoClass, IGNORE_LABEL, RGBA_IGNORE
 
 
 def _pack_rgba(r, g, b, a):

@@ -2,7 +2,7 @@
 
 A copy of the parts of annonet_tpu/data/sample.py that annonet_infer uses
 (that package's data layer imports JAX). Decoding and encoding go through
-annonet_tpu.native (libpng/libjpeg) where it builds, else through PIL.
+annonet_tpu_torch.native (libpng/libjpeg) where it builds, else through PIL.
 
 Reference behavior reproduced from:
   * annonet.cpp:131-176 (read_sample: original-size recording,
@@ -66,7 +66,7 @@ def resize_image_bilinear(image: np.ndarray, target_w: int, target_h: int) -> np
         return image.copy()
 
     if image.dtype == np.uint8:
-        from annonet_tpu.native import resize_bilinear_native
+        from annonet_tpu_torch.native import resize_bilinear_native
 
         native = resize_bilinear_native(image, target_w, target_h)
         if native is not None:
@@ -154,7 +154,7 @@ def _decode_with_fallback(path: str, channels: int):
     files): libpng/libjpeg reject some slightly malformed files that PIL
     still reads, and the native module must not make loading stricter than
     the pure-Python path."""
-    from annonet_tpu.native import decode_image_native
+    from annonet_tpu_torch.native import decode_image_native
 
     try:
         return decode_image_native(path, channels)
@@ -180,7 +180,7 @@ def save_png_rgba(path: str, rgba: np.ndarray) -> None:
     """Write (H, W, 4) RGBA uint8 as PNG (native encode, PIL fallback).
 
     Replaces dlib::save_png (annonet_infer_main.cpp:415)."""
-    from annonet_tpu.native import encode_png_rgba_native
+    from annonet_tpu_torch.native import encode_png_rgba_native
 
     if encode_png_rgba_native(path, rgba):
         return

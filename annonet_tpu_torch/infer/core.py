@@ -7,9 +7,10 @@ and int8 paths:
      ([T*M, th, tw, C], tile index major, as the JAX gather stacks them);
      on the int8 path the padded canvas is quantized once first and the
      int8 tiles are gathered from it;
-  2. forward the tile batch through ``RuntimeSegNet`` (kernels K1-K3) or
-     the int8 ``QuantizedSegNet`` (Q1, Q2, K3's requant mode), in chunks
-     when the activations would not fit;
+  2. forward the tile batch through ``RuntimeSegNet`` (kernels K1-K3), the
+     int8 ``QuantizedSegNet`` (Q1, Q2, K3's requant mode) or, with
+     ``use_pallas_conv`` on a plan that folds, the folded ``FoldedSegNet``
+     (G1, K1-K3), in chunks when the activations would not fit;
   3. K4 (``ops.blend.blend_argmax``): ramp-weighted blend in tile order,
      1/wsum normalisation (or the raw ramp sum under
      ``reference_blend_semantics``), gains argmax, detection seeds; in
@@ -23,13 +24,20 @@ int8 (``quantize="int8"``, models/quantized.py): the first
 record per-channel activation maxima; then the int8 net is frozen and
 every later image runs it. A preloaded ``calibration`` freezes it at once.
 As in the JAX package, int8 applies only to plans whose tile width folds
-(``int8_fold``); other plans run the float net, which the inferer says
+(``folding_supported``); other plans run the float net, which the inferer says
 once on stderr and counts in ``float_fallbacks``. Blending in bf16 follows
 the same rule as in the JAX package, where the bf16 blend exists only on
 the folded layout: it applies when the plan folds.
 
+``use_pallas_conv`` (float only, as in the JAX package) runs the folded
+net of ``models/folded_runtime.py`` on every plan whose tile width folds
+(``folding_supported``), one net per base fold, and the unfolded net on
+the others, as the JAX inferer falls back to ``apply_runtime``.
+
 Plans come from ``infer/tiling.py`` exactly as the JAX unfolded inferer
-makes them, so both packages tile an image identically. Gains enter the
+makes them, so both packages tile an image identically. The JAX folded
+inferer's count-cliff bump (``core.py:816-833``, a plan heuristic measured
+on the TPU's XLA conv emitters) is not ported. Gains enter the
 argmax in logit space after normalisation; seeds compare gain-free
 blended margins (annonet_infer.cpp:170-212, PARITY.md's documented
 deviation and its compat mode).
@@ -56,11 +64,11 @@ from annonet_tpu_torch.infer.tiling import (
     ramp_weights,
     weight_sum_factors,
 )
+from annonet_tpu_torch.models.folded_runtime import FoldedSegNet, folding_supported
 from annonet_tpu_torch.models.quantized import (
     QuantizedSegNet,
     calibration_layout,
     collect_calibration,
-    int8_fold,
     quantize_input,
     quantize_net,
 )
@@ -107,9 +115,14 @@ class TiledInferer:
         blend_dtype=None,  # None = auto: bfloat16 iff int8
         reference_blend_semantics: bool = False,
         mesh=None,
+        use_pallas_conv: Optional[bool] = None,  # None = False: the folded net (G1)
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
+        if quantize and use_pallas_conv:
+            raise ValueError("quantize is incompatible with use_pallas_conv")
+        self.use_pallas_conv = bool(use_pallas_conv)
+        self._folded: Dict[int, FoldedSegNet] = {}
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-GPU tile-parallel inference is not ported yet "
@@ -218,7 +231,7 @@ class TiledInferer:
         only on the folded layout: they apply when the plan folds and its
         tiles sit on fold-aligned columns."""
         ramp, inv_wsum, tile_yx, factors = self._constants(plan)
-        fold0 = int8_fold(self.config, plan.tile_width)
+        fold0 = folding_supported(self.config, plan.tile_width)
         folded = fold0 > 0 and all(x % fold0 == 0 for _, x in plan.tile_yx)
         argmax_fold = (
             folded and quantized and not with_detection
@@ -234,8 +247,20 @@ class TiledInferer:
             wsum_factors=factors if argmax_fold else None,
         )
 
+    def _float_net(self, plan: TilePlan):
+        """The float net for a plan: the folded net of its base fold under
+        ``use_pallas_conv`` when the plan folds, else the unfolded net."""
+        fold0 = folding_supported(self.config, plan.tile_width) if self.use_pallas_conv else 0
+        if not fold0:
+            return self.net
+        if fold0 not in self._folded:
+            self._folded[fold0] = FoldedSegNet(
+                self.runtime_params, self.config, fold0, device=self.device
+            )
+        return self._folded[fold0]
+
     def _forward(self, tiles: torch.Tensor, plan: TilePlan, net=None) -> torch.Tensor:
-        net = self.net if net is None else net
+        net = self._float_net(plan) if net is None else net
         n = tiles.shape[0]
         chunk = self._chunk(plan, n)
         if chunk == n:
@@ -312,7 +337,7 @@ class TiledInferer:
         """Per-layer lengths of the export_calibration vectors (an
         architecture property), or None when this config cannot fold, so
         int8 never applies."""
-        if not (self._calib_accum or self._calib_frozen) and not int8_fold(
+        if not (self._calib_accum or self._calib_frozen) and not folding_supported(
             self.config, 64
         ):
             return None
@@ -344,7 +369,7 @@ class TiledInferer:
             return 0.0
         h, w = image.shape[:2]
         plan = self.plan(h, w)
-        frozen = self._calib_frozen.get(int8_fold(self.config, plan.tile_width))
+        frozen = self._calib_frozen.get(folding_supported(self.config, plan.tile_width))
         if frozen is None:
             return 0.0
         worst = 0.0
@@ -362,7 +387,7 @@ class TiledInferer:
         runs the float net."""
         if not self.quantize:
             return None
-        fold0 = int8_fold(self.config, plan.tile_width)
+        fold0 = folding_supported(self.config, plan.tile_width)
         if not fold0:
             if not self.float_fallbacks:
                 print(

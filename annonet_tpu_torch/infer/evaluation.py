@@ -19,7 +19,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from annonet_tpu.classes import AnnoClass, IGNORE_LABEL
+from annonet_tpu_torch.classes import AnnoClass, IGNORE_LABEL
 from annonet_tpu_torch.ops.blobs import label_connected_blobs
 
 ConfusionMatrix = np.ndarray  # [K, K] int64, [ground_truth, predicted]

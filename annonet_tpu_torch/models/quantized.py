@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from annonet_tpu_torch.models.folded_runtime import folding_supported
 from annonet_tpu_torch.models.segnet import (
     RuntimeSegNet,
     SegNetConfig,
@@ -52,18 +53,10 @@ from annonet_tpu_torch.ops.qconv import (
 INPUT_SCALE = 1.0 / 254.0
 
 
-def int8_fold(config: SegNetConfig, tile_width: int) -> int:
-    """The JAX package's ``folding_supported`` (folded_runtime.py:458-478):
-    the base fold of a plan, or 0 when its tile width does not fold. The
-    JAX package runs int8 only on plans that fold and the float net on the
-    others; the port keeps that rule, so the same images run int8 in both.
-    """
-    fold = 8
-    while fold > 1 and (tile_width % fold or fold * config.width(0) > 128):
-        fold //= 2
-    if fold < (1 << config.level_count):
-        return 0
-    return fold if fold > 1 else 0
+# the base fold of a plan, or 0 when its tile width does not fold: the JAX
+# package runs int8 only on plans that fold and the float net on the
+# others; the port keeps that rule, so the same images run int8 in both
+int8_fold = folding_supported
 
 
 def calibration_layout(config: SegNetConfig) -> List[Tuple[str, int]]:

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "annonet_qup2x2_requant": [
         _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
+    # x, wc, wl, wr, bias, out, n, h, wb, k1, nc, cout, bf16, stream
+    "annonet_conv3x3_gemm": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P,
+    ],
     # logits, tile_yx, ramp, inv_wsum, gains, det, wy, wx, labels, seeds,
     # n_tiles, m, th, tw, hp, wp, k, labels_int32, with_detection,
     # reference_blend, bf16, stream

@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 from scipy import ndimage
 
-from annonet_tpu.classes import IGNORE_LABEL
+from annonet_tpu_torch.classes import IGNORE_LABEL
 
 _STRUCTURE_8 = np.ones((3, 3), dtype=bool)
 
@@ -46,7 +46,7 @@ def label_connected_blobs(
     labels = np.asarray(label_image)
 
     if labels.dtype == np.uint16:
-        from annonet_tpu.native import label_connected_blobs_native
+        from annonet_tpu_torch.native import label_connected_blobs_native
 
         native_result = label_connected_blobs_native(
             labels, zero_is_background, ignore_is_background

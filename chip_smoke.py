@@ -9,7 +9,11 @@ Phases (any failure raises, and the exit code is then nonzero):
   2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc, one
               compiler process per source, in parallel
   3. kernels  every kernel against its plain PyTorch version at the main
-              path's shapes: each conv layer of the flagship net
+              path's shapes, with its bound (the larger of its bytes at the
+              HBM rate and its operations at the tensor-core peak) and,
+              where one PyTorch call computes the same function, that
+              call's time (cuDNN F.conv2d / conv_transpose2d with bias):
+              each conv layer of the flagship net
               (SegNetConfig(class_count=3, level_count=3, base_width=16),
               widths 16/32/64/128) on the 25-tile 896x896 batch that a
               4096x4096 image plans to, in bf16, plus the f32 kernels on
@@ -21,7 +25,11 @@ Phases (any failure raises, and the exit code is then nonzero):
               activations: Q1 on the 8 stride-1 layers, Q2 on the 3
               stride-2 ones, K3's requant mode and Q3 on the 3 up layers;
               and the bf16 blend on the canvas (detection, the argmax
-              fold, the normalised argmax). Times come from CUDA events.
+              fold, the normalised argmax). Then G1 on the 7 stride-1
+              layers that the folded net (use_pallas_conv) runs at folds
+              above 1, on the folded net's own activations of the 25-tile
+              batch in bf16 and of one tile in f32, beside the three
+              cuBLAS GEMMs of the same shapes. Times come from CUDA events.
   4. accuracy the tiled inferer on the card against the same inferer on
               the CPU (plain versions) on a small image
   5. main     writes a random-weight flagship artifact (init_runtime_params,
@@ -43,15 +51,22 @@ Phases (any failure raises, and the exit code is then nonzero):
               infer_arrays's steady state and device stages
   8. quantize_up one forward of the int8 net with int8 up layers (Q3) on
               the 25-tile batch
+  9. pallas_conv TiledInferer(use_pallas_conv=True) on the 4096x4096 image
+              with detection: G1 launched 7 times (and K1 once, K2 and K3
+              three times each, K4 once) in one call, labels agreeing with
+              the default float path's, and both paths' infer_arrays walls
+              and device stages in turns
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}. Scratch files go to a
-directory under the checkout, removed at the end.
+directory under the checkout, removed at the end. Nothing of jax or of the
+JAX package may be imported: the script checks sys.modules at the end.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -84,6 +99,13 @@ SMALL_LABEL_AGREEMENT = 0.995
 INT8_LABEL_AGREEMENT = 0.97
 # int8 up layers (Q3) against the bf16 ones: int8 weights in three more layers
 QUANTIZE_UP_AGREEMENT = 0.95
+# the folded net (G1 sums each layer in another order and rounds once, after
+# the bias) against the unfolded one, on the 4096x4096 image
+PALLAS_CONV_AGREEMENT = 0.995
+# one NVIDIA H100 SXM: dense tensor-core peaks and the HBM rate (NVIDIA's
+# data sheet), and the f32 rate outside the tensor cores
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 _REPO = os.path.dirname(os.path.abspath(__file__))
 _TPU_KERNELS = {
@@ -94,6 +116,7 @@ _TPU_KERNELS = {
     "qconv3x3_requant": "annonet_tpu/ops/int8_conv_mosaic.py:673",
     "qconv3x3_s2_requant": "annonet_tpu/ops/int8_conv_mosaic.py:222",
     "qup2x2_requant": "annonet_tpu/ops/int8_conv_mosaic.py:294",
+    "conv3x3_gemm_aligned": "annonet_tpu/ops/pallas_conv.py:137",
 }
 _SOURCES = {
     "conv3x3_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
@@ -103,6 +126,7 @@ _SOURCES = {
     "qconv3x3_requant": "annonet_tpu_torch/csrc/qconv.cu",
     "qconv3x3_s2_requant": "annonet_tpu_torch/csrc/qconv.cu",
     "qup2x2_requant": "annonet_tpu_torch/csrc/qconv.cu",
+    "conv3x3_gemm_aligned": "annonet_tpu_torch/csrc/gemm_conv.cu",
 }
 
 
@@ -137,6 +161,48 @@ def timed_pair(kernel, plain, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(ops: float, kind: str, moved: int):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for ``ops`` operations at the peak rate of ``kind`` and ``moved`` bytes
+    (each input read once, each output written once) at the HBM rate."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bf16_step(value: float) -> float:
+    """The spacing of bf16 values at ``value`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(value)) - 7)
+
+
+def tally(results: dict, name: str, err, k_ms, p_ms, lib_ms, bnd) -> None:
+    """Add one layer's (or variant's) numbers to ``results[name]``: the
+    largest error, summed times (library None where no call computes the
+    function) and the summed bound, split by what binds each layer."""
+    r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                  "library_ms": 0.0, "bound_ms": 0.0,
+                                  "by": {"bytes": 0.0, "operations": 0.0}})
+    r["max_abs_err"] = max(r["max_abs_err"], float(err))
+    r["ms"] += k_ms
+    r["plain_ms"] += p_ms
+    r["library_ms"] = None if lib_ms is None or r["library_ms"] is None \
+        else r["library_ms"] + lib_ms
+    r["bound_ms"] += bnd[0]
+    r["by"][bnd[1]] += bnd[0]
+
+
+def numbers(r: dict) -> dict:
+    """A tally as the kernel line's keys: bound_by is what binds the
+    layers that make up most of the bound."""
+    return {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": max(r["by"], key=r["by"].get),
+            "library_ms": r["library_ms"]}
+
+
 def flagship_config():
     from annonet_tpu_torch.models.segnet import SegNetConfig
 
@@ -168,10 +234,44 @@ def conv_calls(config, n: int, side: int):
     return calls
 
 
+def library_conv(kernel: str, x, w, b, x2=None):
+    """One cuDNN call computing the layer's function (without the ReLU) on
+    the same inputs, laid out channels-last: F.conv2d with bias (on the
+    concat [x, x2]; for stride 2 on the input padded (0, 1) beforehand),
+    or F.conv_transpose2d with bias and the flipped kernel."""
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    if x2 is not None:
+        x = torch.cat([x, x2], dim=-1)
+    xn = x.permute(0, 3, 1, 2)
+    bb = b.to(x.dtype)
+    if kernel == "up2x2_bias_relu":
+        wt = torch.flip(w, dims=(0, 1)).permute(2, 3, 0, 1).contiguous(memory_format=cl)
+        return lambda: F.conv_transpose2d(xn, wt, bb, stride=2)
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    if kernel == "conv3x3_s2_bias_relu":
+        xp = F.pad(xn, (0, 1, 0, 1)).contiguous(memory_format=cl)
+        return lambda: F.conv2d(xp, wn, bb, stride=2)
+    return lambda: F.conv2d(xn, wn, bb, padding=1)
+
+
+def conv_bound(kernel: str, x, w, b, out, x2=None, kind: str = "bf16"):
+    """The bound of one conv layer: 2 * MACs (9 taps of every input
+    channel per output pixel and channel; 4 outputs per input pixel for
+    the up layer) and the bytes of its inputs and output."""
+    taps = w.shape[0] * w.shape[1]
+    cin = w.shape[2]
+    pixels = (x.shape[0] * x.shape[1] * x.shape[2] if kernel.startswith("up")
+              or kernel.startswith("qup") else out.shape[0] * out.shape[1] * out.shape[2])
+    return bound(2.0 * pixels * taps * cin * w.shape[3], kind, nbytes(x, x2, w, b, out))
+
+
 def check_convs(params, config, device, n: int, side: int, dtype, tol: float,
                 reps: int, generator):
-    """Each conv kernel against its plain version on the layer's shapes;
-    returns {kernel: (max_abs_err, summed kernel ms, summed plain ms)}."""
+    """Each conv kernel against its plain version on the layer's shapes,
+    timed beside its plain version and cuDNN's call; returns {kernel:
+    tally} (see ``tally``)."""
     from annonet_tpu_torch.ops import conv as ops
 
     plain = {
@@ -202,23 +302,25 @@ def check_convs(params, config, device, n: int, side: int, dtype, tol: float,
         err = (got.float() - want.float()).abs().max().item()
         scale = max(1.0, want.float().abs().max().item())
         ok = err <= tol * scale
-        k_ms = p_ms = float("nan")
+        bnd = conv_bound(kernel, x, w, b, got, extra.get("x2"))
+        k_ms = p_ms = lib_ms = float("nan")
         if reps:
             k_ms, p_ms = timed_pair(
                 lambda: fn(x, w, b, **extra), lambda: plain[kernel](x, w, b, **extra),
                 reps,
             )
+            lib_ms = cuda_ms(library_conv(kernel, x, w, b, extra.get("x2")), reps)
         print(
             f"  {kernel:22s} {layer:12s} x{list(shape)}"
             + (f"+{c2}" if c2 else "")
             + f" -> {list(got.shape)} {str(dtype)[6:]}: max|err| {err:.3e}"
-            f" (limit {tol * scale:.3e}) kernel {k_ms:.3f} ms plain {p_ms:.3f} ms",
+            f" (limit {tol * scale:.3e}) kernel {k_ms:.3f} ms plain {p_ms:.3f} ms"
+            f" cuDNN {lib_ms:.3f} ms bound {bnd[0]:.3f} ms ({bnd[1]})",
             flush=True,
         )
         if not ok:
             raise AssertionError(f"{kernel} {layer}: max|err| {err} > {tol * scale}")
-        prev = results.get(kernel, (0.0, 0.0, 0.0))
-        results[kernel] = (max(prev[0], err), prev[1] + k_ms, prev[2] + p_ms)
+        tally(results, kernel, err, k_ms, p_ms, lib_ms, bnd)
         del x, extra, got, want
     return results
 
@@ -253,17 +355,27 @@ def blend_inputs(config, device, generator):
     )
 
 
+def blend_bound(args, labels, seeds, extra=()):
+    """K4's bound: its inputs and outputs once, against a multiply and
+    an add per logit and per canvas pixel and class three more operations
+    (normalise, gain, compare) at the f32 rate."""
+    logits = args[0]
+    pixels = labels.numel() * logits.shape[-1]
+    ops = 2.0 * logits.numel() + 3.0 * pixels
+    return bound(ops, "f32", nbytes(*args, *extra, labels, seeds))
+
+
 def check_blend(config, device, reps: int, generator):
     """K4 against its plain version on the 4096x4096 canvas: labels and
-    seeds bit-identical. Returns (max_abs_err, kernel ms, plain ms) of the
-    detection variant (the one the main path runs)."""
+    seeds bit-identical. Returns the tally of the detection variant (the
+    one the main path runs)."""
     from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
 
     plan, a = blend_inputs(config, device, generator)
     print(f"  blend plan: {plan.tile_count} tiles of {plan.tile_height}x"
           f"{plan.tile_width}, canvas {plan.padded_height}x{plan.padded_width},"
           f" overlap {plan.overlap_y}", flush=True)
-    timing = (0.0, float("nan"), float("nan"))
+    timing: dict = {}
     for detection, reference in ((True, False), (False, False), (True, True)):
         kw = dict(with_detection=detection, reference_blend=reference)
         args = (a["logits"], a["tile_yx"], a["ramp"], a["inv_wsum"], a["gains"],
@@ -295,8 +407,9 @@ def check_blend(config, device, reps: int, generator):
                 f"{reference}) differs from its plain version"
             )
         if detection and not reference:
-            timing = (float(err), k_ms, p_ms)
-    return timing
+            tally(timing, "blend_argmax", err, k_ms, p_ms, None,
+                  blend_bound(args, labels, seeds))
+    return timing["blend_argmax"]
 
 
 def int8_setup(params_np, config, device, generator, n: int = 25, side: int = 896):
@@ -338,8 +451,9 @@ def int8_setup(params_np, config, device, generator, n: int = 25, side: int = 89
 def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
     """Q1, Q2, Q3 (bit-identical) and K3's requant mode (within one requant
     step) against their plain versions on each layer's real inputs;
-    returns {kernel: (max_abs_err, summed ms, summed plain ms)} and the
-    share of K3-requant outputs that differ from the plain version's."""
+    returns {kernel: tally} (no PyTorch call computes an int8 conv with a
+    requant, so no library time) and the share of K3-requant outputs that
+    differ from the plain version's."""
     from annonet_tpu_torch.models.segnet import conv_layers
     from annonet_tpu_torch.ops import conv, qconv
 
@@ -356,10 +470,12 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
             cases = [
                 ("up2x2_requant",
                  lambda: conv.up2x2_requant(xs[0], e["s_in"], w, e["scale"], e["offset"]),
-                 lambda: conv.up2x2_requant_plain(xs[0], e["s_in"], w, e["scale"], e["offset"])),
+                 lambda: conv.up2x2_requant_plain(xs[0], e["s_in"], w, e["scale"], e["offset"]),
+                 w, (e["s_in"], e["scale"], e["offset"]), "bf16"),
                 ("qup2x2_requant",
                  lambda: qconv.qup2x2_requant(xs[0], eu["w_q"], eu["scale"], eu["offset"]),
-                 lambda: qconv.qup2x2_requant_plain(xs[0], eu["w_q"], eu["scale"], eu["offset"])),
+                 lambda: qconv.qup2x2_requant_plain(xs[0], eu["w_q"], eu["scale"], eu["offset"]),
+                 eu["w_q"], (eu["scale"], eu["offset"]), "int8"),
             ]
         else:
             e = to(qp[layer])
@@ -369,8 +485,9 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
                 else "qconv3x3_requant"
             fn, plain = getattr(qconv, kernel), getattr(qconv, kernel + "_plain")
             cases = [(kernel, lambda: fn(xs[0], *args, **extra),
-                      lambda: plain(xs[0], *args, **extra))]
-        for kernel, run, run_plain in cases:
+                      lambda: plain(xs[0], *args, **extra), e["w_q"],
+                      (e["scale"], e["offset"]), "int8")]
+        for kernel, run, run_plain, w_k, vectors, kind in cases:
             got, want = run(), run_plain()
             torch.cuda.synchronize()
             if got.shape != want.shape or got.dtype != want.dtype:
@@ -382,18 +499,21 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
             k_ms = p_ms = float("nan")
             if reps:
                 k_ms, p_ms = timed_pair(run, run_plain, reps)
+            bnd = conv_bound(kernel, xs[0], w_k, None, got, xs[1] if len(xs) > 1 else None,
+                             kind)
+            bnd = (bnd[0] + nbytes(*vectors) / HBM_BYTES_PER_S * 1e3, bnd[1])
             print(f"  {kernel:20s} {layer:12s} x{list(xs[0].shape)}"
                   + (f"+{xs[1].shape[-1]}" if len(xs) > 1 else "")
                   + f" -> {list(got.shape)}: max|err| {err} (share differing {share:.2e})"
-                  f" kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
+                  f" kernel {k_ms:.3f} ms plain {p_ms:.3f} ms bound {bnd[0]:.3f} ms"
+                  f" ({bnd[1]})", flush=True)
             limit = 1 if kernel == "up2x2_requant" else 0
             if err > limit:
                 raise AssertionError(f"{kernel} {layer}: max|err| {err} > {limit}")
             if kernel == "up2x2_requant":
                 differing[0] += int((d > 0).sum().item())
                 differing[1] += d.numel()
-            prev = results.get(kernel, (0.0, 0.0, 0.0))
-            results[kernel] = (max(prev[0], float(err)), prev[1] + k_ms, prev[2] + p_ms)
+            tally(results, kernel, err, k_ms, p_ms, None, bnd)
             del got, want, d
     share = differing[0] / max(1, differing[1])
     print(f"  up2x2_requant: {differing[0]} of {differing[1]} outputs ({share:.3e}) one "
@@ -404,8 +524,7 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
 def check_blend_bf16(config, device, reps: int, generator):
     """K4 in bf16 on the 4096x4096 canvas against its plain version: with
     detection (normalised), without detection with the argmax fold and
-    normalised; labels and seeds bit-identical. Returns {variant:
-    (max_abs_err, kernel ms, plain ms)}."""
+    normalised; labels and seeds bit-identical. Returns {variant: tally}."""
     from annonet_tpu_torch.infer.tiling import weight_sum_factors
     from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
 
@@ -427,22 +546,101 @@ def check_blend_bf16(config, device, reps: int, generator):
         if reps:
             k_ms, p_ms = timed_pair(lambda: blend_argmax(*args, **kw),
                                     lambda: blend_argmax_plain(*args, **kw), reps)
+        tally(timings, variant, err, k_ms, p_ms, None,
+              blend_bound(args, labels, seeds, factors if fold else ()))
         counts = torch.bincount(labels.flatten().long(), minlength=3).tolist()
         print(f"  blend_argmax bf16 {variant}: class counts {counts}, seeds "
               f"{None if seeds is None else int(seeds.sum().item())}; bit-identical to "
               f"plain: {same}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
         if not same:
             raise AssertionError(f"bf16 blend_argmax ({variant}) differs from its plain version")
-        timings[variant] = (float(err), k_ms, p_ms)
     return timings
+
+
+def g1_calls(net, tiles):
+    """[(layer, G1's arguments)] of one forward of the folded net: its
+    calls of conv3x3_gemm_aligned, recorded as the net makes them."""
+    from annonet_tpu_torch.models import folded_runtime
+
+    calls = []
+    launch = folded_runtime.conv3x3_gemm_aligned
+    folded_runtime.conv3x3_gemm_aligned = lambda *args: calls.append(args) or launch(*args)
+    try:
+        with torch.inference_mode():
+            net(tiles)
+    finally:
+        folded_runtime.conv3x3_gemm_aligned = launch
+    names = [name for kind, name, _f in net.entries if kind.startswith("s1p:")]
+    if len(names) != len(calls):
+        raise AssertionError(f"the folded net made {len(calls)} G1 calls for {names}")
+    return list(zip(names, calls))
+
+
+def check_g1(params_np, config, device, n: int, side: int, reps: int, generator):
+    """G1 against its plain version on each layer's own input from one
+    forward of the folded net (use_pallas_conv) on an [n, side, side]
+    batch: bf16 within one bf16 step at the layer's largest output (both
+    sum in f32 and round once), f32 within F32_TOL of the scale. Timed
+    beside its plain version, cuDNN's F.conv2d with bias on the NHWC view
+    with the unfolded weight (the same function), and the three cuBLAS
+    GEMMs of G1's shapes. Returns {"conv3x3_gemm_aligned": tally}."""
+    from annonet_tpu_torch.models.folded_runtime import FoldedSegNet, folding_supported
+    from annonet_tpu_torch.ops import gemm_conv
+
+    fold0 = folding_supported(config, side)
+    net = FoldedSegNet(params_np, config, fold0, device=device)
+    tiles = torch.randint(0, 256, (n, side, side, config.in_channels),
+                          generator=generator, device=device, dtype=torch.uint8)
+    bf16 = net.dtype == torch.bfloat16
+    results: dict = {}
+    for name, args in g1_calls(net, tiles):
+        xf, wc, wl, wr, b, f, cin = args
+        run = lambda: gemm_conv.conv3x3_gemm_aligned(*args)  # noqa: E731
+        run_plain = lambda: gemm_conv.conv3x3_gemm_aligned_plain(*args)  # noqa: E731
+        got, want = run(), run_plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"G1 {name}: {tuple(got.shape)} {got.dtype} vs "
+                                 f"{tuple(want.shape)} {want.dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        limit = bf16_step(top) if bf16 else F32_TOL * max(1.0, top)
+        k1, nc = xf.shape[3], wc.shape[1]
+        rows = xf.numel() // k1
+        gemm_ops = 2.0 * rows * nc * 9 * k1
+        bnd = bound(gemm_ops, "bf16" if bf16 else "f32", nbytes(xf, wc, wl, wr, b, got))
+        k_ms = p_ms = lib_ms = gemm_ms = float("nan")
+        if reps:
+            k_ms, p_ms = timed_pair(run, run_plain, reps)
+            nb, h, wb, _ = xf.shape
+            c = cin // 2 if name.startswith("dec") else cin
+            parts = [xf[..., i * f * c : (i + 1) * f * c].reshape(nb, h, wb * f, c)
+                     for i in range(cin // c)]  # the decoder's [up, skip], unfolded
+            block, conv = name.split("/")
+            w = params_np[block][conv]["w"]
+            w = torch.from_numpy(np.ascontiguousarray(w)).to(device, xf.dtype)
+            lib_ms = cuda_ms(library_conv("conv3x3_bias_relu", parts[0], w, b,
+                                          parts[1] if len(parts) > 1 else None), reps)
+            del parts
+            a = torch.randn((rows, 3 * k1), generator=generator, device=device).to(xf.dtype)
+            gemm_ms = cuda_ms(lambda: [torch.matmul(a, m) for m in (wc, wl, wr)], reps)
+            del a
+        print(f"  conv3x3_gemm_aligned {name:12s} x{list(xf.shape)} fold {f} cin {cin} -> "
+              f"{list(got.shape)} {str(xf.dtype)[6:]}: max|err| {err:.3e} (limit {limit:.3e}) "
+              f"G1 {k_ms:.3f} ms plain {p_ms:.3f} ms cuDNN conv {lib_ms:.3f} ms cuBLAS 3 GEMMs "
+              f"{gemm_ms:.3f} ms; GEMM {gemm_ops / 1e12:.4f} TFLOP (conv's "
+              f"{gemm_ops / f / 1e12:.4f}), bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+        if not err <= limit:
+            raise AssertionError(f"G1 {name}: max|err| {err} > {limit}")
+        tally(results, "conv3x3_gemm_aligned", err, k_ms, p_ms, lib_ms, bnd)
+        del got, want
+    return results
 
 
 def check_small_image(params_np, config, device):
     """Tiled inference on the card against the same inferer on the CPU
     (plain versions): f32 logits of one tile within 1e-3, and bf16 label
     maps agreeing on >= 99.5% of pixels."""
-    import dataclasses
-
     from annonet_tpu_torch.infer.core import TiledInferer
     from annonet_tpu_torch.infer.tiling import TilingParameters
     from annonet_tpu_torch.models.segnet import required_input_dimension
@@ -748,6 +946,79 @@ def quantize_up_forward(params_np, config, device, inferer, image, plan):
     return launches
 
 
+def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int = 5):
+    """TiledInferer(use_pallas_conv=True) on the image ``name`` with
+    detection: launch counts of one call (G1 at every s1p layer of the
+    folded spec, none on the default path), labels against the default
+    float path's, then both paths' infer_arrays walls and device stages.
+    Returns the launch counts of the use_pallas_conv call."""
+    from annonet_tpu_torch.data import default_anno_classes
+    from annonet_tpu_torch.data.dataset import ImageFilenames
+    from annonet_tpu_torch.data.sample import read_sample
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.models.folded_runtime import folded_spec, folding_supported
+    from annonet_tpu_torch.ops import blend, conv, gemm_conv
+
+    path = os.path.join(data, name + ".png")
+    image = read_sample(ImageFilenames(path, path + "_mask.png"),
+                        default_anno_classes(), False, 1.0).input_image
+    h, w = image.shape[:2]
+    default = TiledInferer(params_np, config, device=device)
+    pallas = TiledInferer(params_np, config, device=device, use_pallas_conv=True)
+    plan = pallas.plan(h, w)
+    fold0 = folding_supported(config, plan.tile_width)
+    spec = folded_spec(config, fold0)[1] if fold0 else ()
+    gains = np.zeros(config.class_count, np.float32)
+    levels = np.asarray([0.0, 0.5, 0.0], np.float32)
+    wrappers = {
+        "conv3x3_gemm_aligned": gemm_conv.conv3x3_gemm_aligned,
+        "conv3x3_bias_relu": conv.conv3x3_bias_relu,
+        "conv3x3_s2_bias_relu": conv.conv3x3_s2_bias_relu,
+        "up2x2_bias_relu": conv.up2x2_bias_relu,
+        "blend_argmax": blend.blend_argmax,
+    }
+    counts = {}
+    for label, inferer in (("default", default), ("use_pallas_conv", pallas)):
+        for fn in wrappers.values():
+            fn.launches = 0
+        labels, seeds = inferer.infer_arrays(image, gains, levels)
+        counts[label] = {k: fn.launches for k, fn in wrappers.items()}
+        counts[label + " labels"] = (labels, seeds)
+    want = {
+        "conv3x3_gemm_aligned": sum(k.startswith("s1p:") for k in spec),
+        "conv3x3_bias_relu": sum(k == "s1_plain" for k in spec),
+        "conv3x3_s2_bias_relu": config.level_count,
+        "up2x2_bias_relu": config.level_count,
+        "blend_argmax": 1,
+    }
+    print(f"  plan {plan.tile_count} tiles of {plan.tile_height}x{plan.tile_width}, base fold "
+          f"{fold0}; launches in one call: use_pallas_conv {counts['use_pallas_conv']} "
+          f"(expected {want}), default {counts['default']}", flush=True)
+    if counts["use_pallas_conv"] != want or want["conv3x3_gemm_aligned"] != 7:
+        raise AssertionError("the use_pallas_conv call did not launch G1 at its 7 layers")
+    if counts["default"]["conv3x3_gemm_aligned"] != 0:
+        raise AssertionError("the default float path launched G1")
+    (l_d, s_d), (l_p, s_p) = counts["default labels"], counts["use_pallas_conv labels"]
+    agree, seeds_agree = float((l_p == l_d).mean()), float((s_p == s_d).mean())
+    print(f"  {name}: use_pallas_conv labels agree with the default float path's on "
+          f"{agree:.5f} of pixels, seeds on {seeds_agree:.5f}", flush=True)
+    if agree < PALLAS_CONV_AGREEMENT:
+        raise AssertionError(f"use_pallas_conv labels agree on {agree} < {PALLAS_CONV_AGREEMENT}")
+    stages = ("upload + pad + tile gather", "net forward", "blend epilogue (K4)",
+              "crop + labels and seeds to host")
+    # in turns, so that the two paths share the machine's state
+    for label, inferer in (("use_pallas_conv", pallas), ("default", default),
+                           ("use_pallas_conv", pallas)):
+        walls, device_ms = time_infer_arrays(inferer, image, gains, levels, reps)
+        wall = sum(walls) / reps
+        print(f"  {label:16s} infer_arrays {wall * 1e3:.3f} ms host wall, mean of {reps} "
+              f"calls after a warm-up ({h * w / 1e6 / wall:.2f} Mpx/s; calls "
+              + ", ".join(f"{x * 1e3:.3f}" for x in walls) + " ms); device stages (CUDA "
+              "events): " + ", ".join(f"{st} {ms:.3f} ms" for st, ms in zip(stages, device_ms)),
+              flush=True)
+    return counts["use_pallas_conv"]
+
+
 def breakdown(params_np, config, device, data: str, name: str, reps: int = 5):
     """Where one image's time goes. The headline is ``infer_arrays`` itself:
     the host wall of ``reps`` calls after a warm-up, each ending in the copy
@@ -899,6 +1170,14 @@ def main() -> int:
     print("[kernels] blend epilogue in bf16, 4096x4096 canvas, K=3", flush=True)
     blend_bf16 = check_blend_bf16(config, device, 5, gen)
     torch.cuda.empty_cache()
+    print("[kernels] G1, f32, the folded net's 7 stride-1 layers on one 896x896 tile",
+          flush=True)
+    check_g1(params_np, dataclasses.replace(config, compute_dtype="float32"), device,
+             1, 896, 0, gen)
+    print("[kernels] G1, bf16, the folded net's 7 stride-1 layers on the 25-tile batch",
+          flush=True)
+    g1_results = check_g1(params_np, config, device, 25, 896, 3, gen)
+    torch.cuda.empty_cache()
 
     print("[accuracy] card vs CPU on a small image", flush=True)
     check_small_image(params_np, config, device)
@@ -922,6 +1201,12 @@ def main() -> int:
             calib)
         print("[quantize_up] int8 up layers (Q3) on the 25-tile batch", flush=True)
         up_launches = quantize_up_forward(params_np, config, device, inferer, image, plan)
+        del inferer, image
+        torch.cuda.empty_cache()
+        print("[pallas_conv] TiledInferer(use_pallas_conv=True), the 4096x4096 image",
+              flush=True)
+        pallas_launches = pallas_conv_path(params_np, config, device,
+                                           os.path.join(work, "data"), IMAGE_SIZES[-1][0])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for label, records in (("float", per_image), ("int8", int8_per_image)):
@@ -936,25 +1221,24 @@ def main() -> int:
         total_px = sum(h * w for _n, h, w in IMAGE_SIZES)
         print(f"  whole float run incl. reading, veto, PNG writing, confusion "
               f"matrices: {total_px / 1e6 / float(m.group(1)):.2f} Mpx/s", flush=True)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    imported = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "annonet_tpu"})
+    if imported:
+        raise AssertionError(f"the port imported {imported}")
 
     results = dict(conv_results)
     results["blend_argmax"] = blend_result
     results.update(int8_results)
+    results.update(g1_results)
     launches.update({k: int8_launches[k] for k in ("qconv3x3_requant", "qconv3x3_s2_requant")})
     launches["qup2x2_requant"] = up_launches
+    launches["conv3x3_gemm_aligned"] = pallas_launches["conv3x3_gemm_aligned"]
     modes = {
         "up2x2_bias_relu": {"requant": {
             "launches": int8_launches["up2x2_requant"],
-            "max_abs_err": int8_results["up2x2_requant"][0],
             "share_differing": requant_share,
-            "ms": int8_results["up2x2_requant"][1],
-            "plain_ms": int8_results["up2x2_requant"][2],
+            **numbers(int8_results["up2x2_requant"]),
         }},
-        "blend_argmax": {f"bfloat16_{variant}": {
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-        } for variant, (err, k_ms, p_ms) in blend_bf16.items()},
+        "blend_argmax": {f"bfloat16_{variant}": numbers(r) for variant, r in blend_bf16.items()},
     }
     modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
     kernels = []
@@ -965,9 +1249,7 @@ def main() -> int:
             "source": _SOURCES[name],
             "replaces": _TPU_KERNELS[name],
             "launches": launches[name],
-            "max_abs_err": results[name][0],
-            "ms": results[name][1],
-            "plain_ms": results[name][2],
+            **numbers(results[name]),
         }
         if name in modes:
             entry["modes"] = modes[name]

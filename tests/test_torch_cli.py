@@ -160,7 +160,8 @@ def test_no_silent_cpu_run(dataset, capsys, monkeypatch):
 
 _NO_JAX = """
 import sys
-sys.modules["jax"] = None  # any import of jax now raises
+sys.modules["jax"] = None  # any import of jax, or of the JAX package, now raises
+sys.modules["annonet_tpu"] = None
 import importlib, pkgutil
 import numpy as np
 import annonet_tpu_torch
@@ -172,20 +173,30 @@ from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
 config = SegNetConfig(class_count=3, level_count=2, base_width=4)
 image = np.random.default_rng(0).integers(0, 256, (70, 90, 3), dtype=np.uint8)
 params = init_runtime_params(config, 0)
-for quantize in (None, "int8"):
-    inferer = TiledInferer(params, config, device="cpu", quantize=quantize)
+for kwargs in ({}, {"quantize": "int8"}, {"use_pallas_conv": True}):
+    inferer = TiledInferer(params, config, device="cpu", **kwargs)
     out = annonet_infer(inferer, image)
     assert out.shape == (70, 90) and out.dtype == np.uint16
-assert inferer._quantized and inferer.float_fallbacks == 0  # the int8 net ran
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
-print("imported", len(names), "modules without jax")
+    if kwargs.get("quantize"):
+        assert inferer._quantized and inferer.float_fallbacks == 0  # the int8 net ran
+assert list(inferer._folded) == [8]  # the folded net (G1's plain version) ran
+from annonet_tpu_torch.cli import infer as cli
+data, model = sys.argv[1:3]
+for flags in ([], ["--quantize", "int8"]):  # the CLI: classes, decode, encode, blobs
+    assert cli.main([data, "--model", model, "-d", "1:0.1", *flags]) == 0
+loaded = [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m.split(".")[0] in ("jax", "annonet_tpu") for m in loaded)
+print("imported", len(names), "modules without jax and annonet_tpu")
 """
 
 
-def test_the_port_imports_and_runs_without_jax():
+def test_the_port_imports_and_runs_without_jax(dataset):
+    root, model = dataset
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [REPO, env.get("PYTHONPATH")]))
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    env[DEVICE_ENV] = "cpu"
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, str(root / "port"), model], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "without jax" in proc.stdout
+    assert "without jax and annonet_tpu" in proc.stdout
+    assert (root / "port" / "img0.png_result.png").exists()

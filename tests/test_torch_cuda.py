@@ -17,7 +17,10 @@ the output scale); the blend's labels and seeds are bit-identical, in f32
 and in bf16, with and without the argmax fold; the int8 kernels Q1-Q3 sum
 integers exactly and requantize with one FMA, as their plain versions do,
 so they are bit-identical; K3's requant mode sums floats in another order
-than cuDNN, so it is held within one requant step.
+than cuDNN, so it is held within one requant step. G1 and its plain version
+both sum in f32 and round once: bf16 within one bf16 step at the largest
+output, f32 within 1e-4 of the output scale; on the decoder's two-part input G1 is held to
+K1's plain version (two steps, as K1).
 """
 
 import numpy as np
@@ -247,3 +250,108 @@ def test_int8_tiled_inference_on_the_card_matches_the_cpu(device):
     assert (got[0] == want[0]).mean() >= 0.99
     got, want = card.infer_arrays(image, None, levels), cpu.infer_arrays(image, None, levels)
     assert (got[0] == want[0]).mean() >= 0.99 and (got[1] == want[1]).mean() >= 0.99
+
+
+def bf16_step(value: float) -> float:
+    """The spacing of bf16 values at ``value`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(value)) - 7)
+
+
+def _g1_case(device, dtype, n, h, wb, fold, cin, cout, seed):
+    from annonet_tpu_torch.ops import gemm_conv
+
+    k1, nc = fold * cin, fold * cout
+    x = _rand((n, h, wb, k1), device, seed, -0.3).to(dtype)
+    mats = [_rand((3 * k1, nc), device, seed + i, -0.5, (2.0 / (9 * cin)) ** 0.5).to(dtype)
+            for i in (1, 2, 3)]
+    bias = _rand((cout,), device, seed + 4, -0.5, 0.2)
+    return gemm_conv, x, mats, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "n,h,wb,fold,cin,cout",
+    [(2, 9, 13, 8, 3, 16),  # K = 72: the RGB stem, zero-padded in each K chunk
+     (1, 17, 7, 4, 3, 5),  # K1 = 12: not a multiple of 8 (unvectorised loads)
+     (3, 5, 1, 2, 64, 64),  # one block per row: both neighbour terms vanish
+     (1, 33, 50, 8, 16, 16), (2, 6, 3, 2, 128, 96), (1, 4, 9, 1, 40, 136)],
+)
+def test_g1_matches_plain(device, dtype, n, h, wb, fold, cin, cout):
+    gemm_conv, x, mats, bias = _g1_case(device, dtype, n, h, wb, fold, cin, cout, 11)
+    before = gemm_conv.conv3x3_gemm_aligned.launches
+    got = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin)
+    assert gemm_conv.conv3x3_gemm_aligned.launches == before + 1
+    want = gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, bias, fold, cin)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, h, wb, fold * cout) and got.dtype == dtype
+    top = want.float().abs().max().item()
+    # both sum in f32 and round once: bf16 within one step at the largest
+    # output (its unit in the last place), f32 within 1e-4 of the scale
+    limit = 1e-4 * max(1.0, top) if dtype == torch.float32 else bf16_step(top)
+    assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_g1_on_the_decoders_two_part_input(device, dtype):
+    """cat([up, skip]) in folded layout with the concat-permuted weights
+    computes K1 on the NHWC concat."""
+    from annonet_tpu_torch.models.folded_runtime import _concat_perm
+    from annonet_tpu_torch.ops import conv, gemm_conv
+
+    n, h, w, fold, c = 2, 12, 64, 4, 32
+    up = _rand((n, h, w, c), device, 1).to(dtype)
+    skip = _rand((n, h, w, c), device, 2).to(dtype)
+    k = np.random.default_rng(3).normal(0, (1.0 / (9 * c)) ** 0.5, (3, 3, 2 * c, c))
+    wc, wl, wr = gemm_conv.build_gemm_kernels_aligned(k.astype(np.float32), fold)
+    perm = np.concatenate([_concat_perm(fold, c, c) + dy * fold * 2 * c for dy in range(3)])
+    mats = [torch.from_numpy(m[perm]).to(device, dtype) for m in (wc, wl, wr)]
+    bias = _rand((c,), device, 4, -0.5, 0.2)
+    xf = torch.cat([up.view(n, h, w // fold, -1), skip.view(n, h, w // fold, -1)], -1)
+    got = gemm_conv.conv3x3_gemm_aligned(xf, *mats, bias, fold, 2 * c).view(n, h, w, c)
+    want = conv.conv3x3_bias_relu_plain(up, torch.from_numpy(k).to(device, dtype), bias, skip)
+    torch.cuda.synchronize()
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype] * scale
+
+
+def test_pallas_conv_inference_on_the_card_matches_the_cpu(device):
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.infer.tiling import TilingParameters
+    from annonet_tpu_torch.models.segnet import (
+        SegNetConfig, init_runtime_params, required_input_dimension,
+    )
+
+    config = SegNetConfig(class_count=3, level_count=3, base_width=16)
+    params = init_runtime_params(config, seed=7)
+    rf = required_input_dimension(config)
+    tiling = TilingParameters(256, 256, rf, rf)
+    image = np.random.default_rng(8).integers(0, 256, (300, 420, 3), dtype=np.uint8)
+    levels = [0.0, 0.5, 0.2]
+    card = TiledInferer(params, config, tiling, device=device, use_pallas_conv=True)
+    cpu = TiledInferer(params, config, tiling, device="cpu", use_pallas_conv=True)
+    got, want = card.infer_arrays(image, None, levels), cpu.infer_arrays(image, None, levels)
+    assert list(card._folded) == [8]
+    assert (got[0] == want[0]).mean() >= 0.995 and (got[1] == want[1]).mean() >= 0.995
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(device, monkeypatch):
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
+    from annonet_tpu_torch.ops import blend, conv, gemm_conv
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for module, name in ((gemm_conv, "conv3x3_gemm_aligned_plain"),
+                         (conv, "conv3x3_bias_relu_plain"), (conv, "conv3x3_s2_bias_relu_plain"),
+                         (conv, "up2x2_bias_relu_plain"), (blend, "blend_argmax_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    config = SegNetConfig(class_count=3, level_count=3, base_width=16)
+    inferer = TiledInferer(init_runtime_params(config, 1), config, device=device,
+                           use_pallas_conv=True)
+    image = np.random.default_rng(1).integers(0, 256, (200, 256, 3), dtype=np.uint8)
+    before = gemm_conv.conv3x3_gemm_aligned.launches
+    inferer.infer_arrays(image)
+    torch.cuda.synchronize()
+    # one forward: 7 stride-1 layers at folds above 1 (the flagship's)
+    assert gemm_conv.conv3x3_gemm_aligned.launches == before + 7
