@@ -29,4 +29,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// K1/K2 in bf16 (conv_igemm.cu): launches the tensor-core implicit GEMM on
+// ``s`` and returns cudaGetLastError(). x, x2 (may be null when c2 == 0),
+// w and out are bf16; stride is 1 or 2.
+cudaError_t conv3x3_igemm_bf16(const void* x, const void* x2, const void* w,
+                               const float* bias, void* out, int64_t n,
+                               int64_t h, int64_t wd, int c1, int c2,
+                               int cout, int stride, cudaStream_t s);
+
 }  // namespace annonet

@@ -1,4 +1,6 @@
 // Fused conv + bias + ReLU kernels of the runtime segmentation net (K1-K3).
+// K1 and K2 in bf16 run on the tensor cores (conv_igemm.cu); here are their
+// f32 versions and K3.
 //
 // Replaces the Pallas TPU kernels of annonet_tpu/ops/int8_conv_mosaic.py
 //   K1 fconv3x3_s1_bias_relu (:359)  3x3 stride 1, zero padding (1, 1)
@@ -10,20 +12,16 @@
 // width-folded layout that packs 8 pixels into the 128 MXU lanes and pays
 // 8x redundant FLOPs for it; these kernels run the plain NHWC geometry.
 //
-// What bounds them on an H100: at this net's channel counts
-// (K = 9*cin = 27..1152, cout = 16..128) a layer moves ~2 bytes per
-// activation in and out against 2*9*cin FLOPs per output channel, far
-// under the ~295 FLOP/byte a bf16 tensor-core GEMM needs, so with tensor
-// cores the layers would be bound by bytes and latency. This first
-// version is direct convolution on the CUDA cores (f32 FMA, roof 67
-// TFLOP/s), so its own bound is instruction issue (FMAs and the shared-
-// memory loads that feed them), and its time follows the layer's FLOPs;
-// wide layers lose to tensor-core convs. It keeps the bytes low instead:
-// each input element is read once per block from device memory into a
-// shared-memory patch (halo included), weights for a channel chunk are
-// staged once per block, and each thread keeps 16 output channels of one
-// pixel in f32 registers. Moving the products to wgmma, with TMA loads, is
-// later work.
+// K1/K2 in f32 (the f32 configs, which check the arithmetic to 1e-4) are
+// direct convolution on the CUDA cores (f32 FMA, roof 67 TFLOP/s): TF32
+// tensor cores keep 10 mantissa bits and would break that contract. Their
+// bound is instruction issue (FMAs and the shared-memory loads that feed
+// them), so their time follows the layer's FLOPs. Each input element is
+// read once per block from device memory into a shared-memory patch (halo
+// included), weights for a channel chunk are staged once per block, and
+// each thread keeps 16 output channels of one pixel in f32 registers. K3
+// (both dtypes) is direct convolution too; it has no bf16 tensor-core
+// version yet.
 //
 // Numerics: f32 accumulation, + f32 bias, ReLU, one rounding to the output
 // dtype. Offsets are 64-bit (a 25-tile batch of 896^2 at 32 channels is
@@ -48,12 +46,12 @@ constexpr int kCpt = 16;    // output channels per thread
 // groups: output-channel groups of kCpt per block (1 when cout <= 16, so
 // no thread idles on the 16-channel full-resolution layers). The block
 // covers (8 / groups) x 32 output pixels x (16 * groups) channels.
-template <typename T, int STRIDE, int GROUPS>
+template <int STRIDE, int GROUPS>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ x2,
-               const T* __restrict__ w, const float* __restrict__ bias,
-               T* __restrict__ out, int64_t h, int64_t wd, int c1, int c2,
-               int cout, int64_t tiles_x) {
+conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ x2,
+                   const float* __restrict__ w, const float* __restrict__ bias,
+                   float* __restrict__ out, int64_t h, int64_t wd, int c1,
+                   int c2, int cout, int64_t tiles_x) {
   constexpr int kTileH = 8 / GROUPS;
   constexpr int kTilePix = kTileH * kTileW;
   constexpr int kCob = kCpt * GROUPS;
@@ -92,8 +90,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ x2,
       float v = 0.f;
       if (iy >= 0 && iy < h && ix >= 0 && ix < wd && c < cin) {
         const int64_t pix = (img * h + iy) * wd + ix;
-        v = c < c1 ? to_f32(x[pix * c1 + c])
-                   : to_f32(x2[pix * c2 + (c - c1)]);
+        v = c < c1 ? x[pix * c1 + c] : x2[pix * c2 + (c - c1)];
       }
       patch[ci][py][px] = v;
     }
@@ -103,9 +100,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ x2,
       const int ci = r % kCk, tap = r / kCk;
       const int c = c0 + ci, co = cob + col;
       wsh[tap][ci][col] =
-          (c < cin && co < cout)
-              ? to_f32(w[((int64_t)tap * cin + c) * cout + co])
-              : 0.f;
+          (c < cin && co < cout) ? w[((int64_t)tap * cin + c) * cout + co] : 0.f;
     }
     __syncthreads();
 #pragma unroll 2
@@ -126,11 +121,11 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ x2,
 
   const int64_t oy = oy0 + ty, ox = ox0 + tx;
   if (oy < ho && ox < wo) {
-    T* o = out + ((img * ho + oy) * wo + ox) * cout;
+    float* o = out + ((img * ho + oy) * wo + ox) * cout;
 #pragma unroll
     for (int j = 0; j < kCpt; ++j) {
       const int co = cob + g * kCpt + j;
-      if (co < cout) o[co] = from_f32<T>(fmaxf(acc[j] + bias[co], 0.f));
+      if (co < cout) o[co] = fmaxf(acc[j] + bias[co], 0.f);
     }
   }
 }
@@ -233,10 +228,10 @@ up2x2_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
   }
 }
 
-template <typename T, int STRIDE, int GROUPS>
-void launch_conv(const T* x, const T* x2, const T* w, const float* bias,
-                 T* out, int64_t n, int64_t h, int64_t wd, int c1, int c2,
-                 int cout, cudaStream_t stream) {
+template <int STRIDE, int GROUPS>
+void launch_conv(const float* x, const float* x2, const float* w,
+                 const float* bias, float* out, int64_t n, int64_t h,
+                 int64_t wd, int c1, int c2, int cout, cudaStream_t stream) {
   constexpr int kTileH = 8 / GROUPS;
   const int64_t ho = h / STRIDE, wo = wd / STRIDE;
   const int64_t tiles_x = (wo + kTileW - 1) / kTileW;
@@ -245,30 +240,29 @@ void launch_conv(const T* x, const T* x2, const T* w, const float* bias,
   for (int64_t n0 = 0; n0 < n; n0 += kMaxGridYZ) {
     const int64_t nb = n - n0 < kMaxGridYZ ? n - n0 : kMaxGridYZ;
     dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)slabs, (unsigned)nb);
-    conv3x3_kernel<T, STRIDE, GROUPS><<<grid, kThreads, 0, stream>>>(
+    conv3x3_f32_kernel<STRIDE, GROUPS><<<grid, kThreads, 0, stream>>>(
         x + n0 * h * wd * c1, x2 == nullptr ? nullptr : x2 + n0 * h * wd * c2,
         w, bias, out + n0 * ho * wo * cout, h, wd, c1, c2, cout, tiles_x);
   }
 }
 
-template <typename T>
-void dispatch_conv(const void* x, const void* x2, const void* w,
-                   const float* bias, void* out, int64_t n, int64_t h,
-                   int64_t wd, int c1, int c2, int cout, int stride,
-                   cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* x2t = static_cast<const T*>(x2);
-  const T* wt = static_cast<const T*>(w);
-  T* ot = static_cast<T*>(out);
+void dispatch_conv_f32(const void* x, const void* x2, const void* w,
+                       const float* bias, void* out, int64_t n, int64_t h,
+                       int64_t wd, int c1, int c2, int cout, int stride,
+                       cudaStream_t s) {
+  const float* xt = static_cast<const float*>(x);
+  const float* x2t = static_cast<const float*>(x2);
+  const float* wt = static_cast<const float*>(w);
+  float* ot = static_cast<float*>(out);
   const bool wide = cout > kCpt;
   if (stride == 1 && wide)
-    launch_conv<T, 1, 2>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
+    launch_conv<1, 2>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
   else if (stride == 1)
-    launch_conv<T, 1, 1>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
+    launch_conv<1, 1>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
   else if (wide)
-    launch_conv<T, 2, 2>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
+    launch_conv<2, 2>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
   else
-    launch_conv<T, 2, 1>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
+    launch_conv<2, 1>(xt, x2t, wt, bias, ot, n, h, wd, c1, c2, cout, s);
 }
 
 template <typename T, bool REQUANT>
@@ -305,11 +299,11 @@ extern "C" int annonet_conv3x3_bias_relu(const void* x, const void* x2,
   if (n == 0 || h / stride == 0 || wd / stride == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  // bf16 on the tensor cores, f32 on the CUDA cores (see the notes)
   if (bf16)
-    dispatch_conv<__nv_bfloat16>(x, x2, w, b, out, n, h, wd, c1, c2, cout,
-                                 stride, s);
-  else
-    dispatch_conv<float>(x, x2, w, b, out, n, h, wd, c1, c2, cout, stride, s);
+    return (int)conv3x3_igemm_bf16(x, x2, w, b, out, n, h, wd, c1, c2, cout,
+                                   stride, s);
+  dispatch_conv_f32(x, x2, w, b, out, n, h, wd, c1, c2, cout, stride, s);
   return (int)cudaGetLastError();
 }
 

@@ -2,10 +2,11 @@
 
 Each op has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper checks its arguments; for tensors on the CPU it returns the plain
-version, for CUDA tensors it launches the hand-written kernel of
-``csrc/conv.cu`` on the current stream (or raises: there is no fallback
-from a CUDA tensor to the plain version) and adds one to its ``launches``
-count.
+version, for CUDA tensors it launches the hand-written kernel on the
+current stream (or raises: there is no fallback from a CUDA tensor to the
+plain version) and adds one to its ``launches`` count. K1 and K2 in bf16
+are the tensor-core implicit GEMM of ``csrc/conv_igemm.cu``; in f32, and
+K3, the direct convolutions of ``csrc/conv.cu``.
 
 Layouts: activations NHWC ([N, H, W, C], bf16 or f32, contiguous), conv
 weights HWIO ([kh, kw, cin, cout], the activations' dtype), bias [cout]

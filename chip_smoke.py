@@ -7,7 +7,12 @@ Phases (any failure raises, and the exit code is then nonzero):
 
   1. device   needs CUDA; prints the card's name and power limit
   2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc, one
-              compiler process per source, in parallel
+              compiler process per source, in parallel; then reads the
+              library's SASS (cuobjdump): the bf16 K1/K2 kernels must hold
+              tensor-core instructions (HMMA or HGMMA) and no bf16
+              instantiation of the f32 direct convolution may exist; prints
+              the K1/K2 kernels' registers, stack, local and static shared
+              memory
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes, with its bound (the larger of its bytes at the
               HBM rate and its operations at the tensor-core peak) and,
@@ -119,8 +124,9 @@ _TPU_KERNELS = {
     "conv3x3_gemm_aligned": "annonet_tpu/ops/pallas_conv.py:137",
 }
 _SOURCES = {
-    "conv3x3_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
-    "conv3x3_s2_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
+    # bf16 (the kernel line's times); f32 stays in csrc/conv.cu
+    "conv3x3_bias_relu": "annonet_tpu_torch/csrc/conv_igemm.cu",
+    "conv3x3_s2_bias_relu": "annonet_tpu_torch/csrc/conv_igemm.cu",
     "up2x2_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
     "blend_argmax": "annonet_tpu_torch/csrc/blend.cu",
     "qconv3x3_requant": "annonet_tpu_torch/csrc/qconv.cu",
@@ -136,6 +142,53 @@ def smi_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def sass_functions(cuobjdump: str, library: str, what: str) -> dict:
+    """{kernel name: its lines} of ``cuobjdump --dump-<what>`` on the
+    library, one entry per compiled function."""
+    text = subprocess.run([cuobjdump, f"--dump-{what}", library], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    functions: dict = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Function\s*:?\s*(\S+?):?\s*$", line)
+        if m:
+            name = m.group(1)
+            functions[name] = []
+        elif name is not None:
+            functions[name].append(line)
+    return functions
+
+
+def short_name(mangled: str) -> str:
+    """``igemm_kernel<1, 16>`` for the mangled name of a K1/K2 kernel."""
+    m = re.search(r"\d+(igemm_kernel|conv3x3_f32_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else mangled
+
+
+def check_tensor_cores(library: str) -> None:
+    """The bf16 K1/K2 kernels (conv_igemm.cu's igemm_kernel<stride,
+    cout block>, all that annonet_conv3x3_bias_relu launches for bf16) hold
+    HMMA or HGMMA instructions, and the f32 direct convolution has no bf16
+    instantiation; prints each K1/K2 kernel's resource usage."""
+    from annonet_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = sass_functions(cuobjdump, library, "sass")
+    igemm = {k: v for k, v in sass.items() if "igemm_kernel" in k}
+    if len(igemm) != 8:  # 2 strides x 4 cout blocks
+        raise AssertionError(f"found {len(igemm)} bf16 K1/K2 kernels in the SASS: {list(igemm)}")
+    stale = [k for k in sass if "conv3x3" in k and "bfloat16" in k]
+    if stale:
+        raise AssertionError(f"a bf16 direct convolution is still compiled: {stale}")
+    usage = sass_functions(cuobjdump, library, "resource-usage")
+    for name in sorted(k for k in usage if short_name(k) != k):
+        mma = sum(len(re.findall(r"\b(HMMA|HGMMA)\.", line)) for line in sass.get(name, ()))
+        res = " ".join(line.strip() for line in usage[name] if "REG:" in line)
+        print(f"  {short_name(name):28s} tensor-core instructions {mma:4d}; {res}", flush=True)
+        if name in igemm and mma == 0:
+            raise AssertionError(f"{short_name(name)} holds no HMMA or HGMMA instruction")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1142,6 +1195,7 @@ def main() -> int:
     _build.lib()
     print(f"[build] {os.path.relpath(path, _REPO)} in "
           f"{time.monotonic() - t:.1f} s", flush=True)
+    check_tensor_cores(path)
 
     config = flagship_config()
     params_np = init_runtime_params(config, SEED)

@@ -75,17 +75,38 @@ def _close(got, want, dtype_name):
     np.testing.assert_allclose(got, want, rtol=tol if dtype_name == "float32" else 0, atol=tol)
 
 
+# (kind, n, h, w, c1, c2, cout): the first seven at n, h, w = 2, 16, 24 with
+# their earlier ids; then every K1/K2 shape that tests/test_torch_cuda.py
+# gives the kernels on the card (grayscale and RGB stems, concats with
+# c1 % 8 != 0, the decoder's 16+16 and 64+64, 128 -> 128, two cout slabs,
+# n = 3 with an odd H, stride 2 with odd cout)
+_SHAPES = [
+    pytest.param(kind, 2, 16, 24, cin, 0, cout, id=f"{kind}-{cin}-{cout}")
+    for kind, cin, cout in [("s1", 3, 16), ("s1", 16, 16), ("s1", 32, 8), ("s2", 16, 32),
+                            ("s2", 8, 4), ("up", 32, 16), ("up", 12, 20)]
+] + [
+    ("s1", 1, 17, 45, 3, 0, 20), ("s1", 2, 8, 40, 5, 7, 9), ("s1", 1, 33, 70, 40, 24, 48),
+    ("s2", 1, 18, 66, 6, 0, 40), ("s2", 3, 10, 34, 16, 0, 8),
+    ("s1", 2, 19, 100, 1, 0, 16), ("s1", 1, 24, 90, 3, 0, 16), ("s1", 1, 16, 72, 12, 20, 16),
+    ("s1", 2, 16, 70, 16, 16, 16), ("s1", 1, 12, 40, 64, 64, 64), ("s1", 1, 14, 28, 128, 0, 128),
+    ("s1", 1, 6, 20, 24, 0, 136), ("s1", 3, 9, 30, 8, 0, 24),
+    ("s2", 2, 32, 100, 16, 0, 32), ("s2", 1, 16, 36, 64, 0, 128), ("s2", 1, 18, 66, 16, 0, 9),
+    ("s2", 1, 10, 70, 64, 0, 20),
+]
+
+
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "kind,cin,cout",
-    [("s1", 3, 16), ("s1", 16, 16), ("s1", 32, 8), ("s2", 16, 32), ("s2", 8, 4),
-     ("up", 32, 16), ("up", 12, 20)],
-)
-def test_kernel_plain_versions_match_jax_runtime_convs(kind, cin, cout, dtype_name):
-    x, w, b = _inputs(cin * 100 + cout, 2, 16, 24, cin, cout, 2 if kind == "up" else 3)
+@pytest.mark.parametrize("kind,n,h,w,c1,c2,cout", _SHAPES)
+def test_kernel_plain_versions_match_jax_runtime_convs(kind, n, h, w, c1, c2, cout, dtype_name):
+    cin = c1 + c2
+    x, wgt, b = _inputs(cin * 100 + cout, n, h, w, cin, cout, 2 if kind == "up" else 3)
     tdt, jdt = _DTYPES[dtype_name]
-    got = _port(x, w, b, tdt, kind)
-    want = _jax_unit(x, w, b, jdt, kind)
+    if c2:  # the decoder's concat: the port takes its two parts apart
+        parts = np.ascontiguousarray(x[..., :c1]), np.ascontiguousarray(x[..., c1:])
+        got = _port(parts[0], wgt, b, tdt, kind, x2=parts[1])
+    else:
+        got = _port(x, wgt, b, tdt, kind)
+    want = _jax_unit(x, wgt, b, jdt, kind)
     assert got.shape == want.shape
     _close(got, want, dtype_name)
 

@@ -52,7 +52,18 @@ def _rand(shape, device, seed, lo=0.0, scale=1.0):
     "kind,n,h,w,c1,c2,cout",
     [("s1", 1, 17, 45, 3, 0, 20), ("s1", 2, 8, 40, 5, 7, 9), ("s1", 1, 33, 70, 40, 24, 48),
      ("s2", 1, 18, 66, 6, 0, 40), ("s2", 3, 10, 34, 16, 0, 8),
-     ("up", 2, 9, 13, 24, 0, 36), ("up", 1, 5, 40, 3, 0, 4)],
+     ("up", 2, 9, 13, 24, 0, 36), ("up", 1, 5, 40, 3, 0, 4),
+     # the edges of bf16 K1/K2's implicit GEMM (tests/test_torch_conv.py pins
+     # the same shapes to the JAX package): the grayscale and RGB stems at
+     # widths that are not a multiple of the 64-column tile, a concat with
+     # c1 % 8 != 0, the decoder's 16+16 and 64+64, enc3/conv1's 128 -> 128
+     # (its weights stream by channel chunk), two cout slabs, n = 3 with an
+     # odd H, stride 2 at 16 -> 32 and 64 -> 128 and with odd cout
+     ("s1", 2, 19, 100, 1, 0, 16), ("s1", 1, 24, 90, 3, 0, 16), ("s1", 1, 16, 72, 12, 20, 16),
+     ("s1", 2, 16, 70, 16, 16, 16), ("s1", 1, 12, 40, 64, 64, 64), ("s1", 1, 14, 28, 128, 0, 128),
+     ("s1", 1, 6, 20, 24, 0, 136), ("s1", 3, 9, 30, 8, 0, 24),
+     ("s2", 2, 32, 100, 16, 0, 32), ("s2", 1, 16, 36, 64, 0, 128), ("s2", 1, 18, 66, 16, 0, 9),
+     ("s2", 1, 10, 70, 64, 0, 20)],
 )
 def test_conv_kernels_match_plain(device, kind, n, h, w, c1, c2, cout, dtype):
     from annonet_tpu_torch.ops import conv
