@@ -1,6 +1,6 @@
 // Fused conv + bias + ReLU kernels of the runtime segmentation net (K1-K3).
-// K1 and K2 in bf16 run on the tensor cores (conv_igemm.cu); here are their
-// f32 versions and K3.
+// In bf16 they run on the tensor cores (K1 and K2 in conv_igemm.cu, K3 and
+// its requant mode in up_igemm.cu); here are their f32 versions.
 //
 // Replaces the Pallas TPU kernels of annonet_tpu/ops/int8_conv_mosaic.py
 //   K1 fconv3x3_s1_bias_relu (:359)  3x3 stride 1, zero padding (1, 1)
@@ -19,9 +19,8 @@
 // them), so their time follows the layer's FLOPs. Each input element is
 // read once per block from device memory into a shared-memory patch (halo
 // included), weights for a channel chunk are staged once per block, and
-// each thread keeps 16 output channels of one pixel in f32 registers. K3
-// (both dtypes) is direct convolution too; it has no bf16 tensor-core
-// version yet.
+// each thread keeps 16 output channels of one pixel in f32 registers. f32
+// K3 is direct convolution too.
 //
 // Numerics: f32 accumulation, + f32 bias, ReLU, one rounding to the output
 // dtype. Offsets are 64-bit (a 25-tile batch of 896^2 at 32 channels is
@@ -317,12 +316,12 @@ extern "C" int annonet_up2x2_bias_relu(const void* x, const void* w,
   if (n * h * wd == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  // bf16 on the tensor cores, f32 on the CUDA cores (see the notes)
   if (bf16)
-    launch_up<__nv_bfloat16, false>(x, nullptr, w, b, nullptr, out, n, h, wd,
-                                    cin, cout, s);
-  else
-    launch_up<float, false>(x, nullptr, w, b, nullptr, out, n, h, wd, cin,
-                            cout, s);
+    return (int)up2x2_igemm_bf16(x, nullptr, w, b, nullptr, out, n, h, wd, cin,
+                                 cout, false, s);
+  launch_up<float, false>(x, nullptr, w, b, nullptr, out, n, h, wd, cin, cout,
+                          s);
   return (int)cudaGetLastError();
 }
 
@@ -340,9 +339,8 @@ extern "C" int annonet_up2x2_requant(const void* x, const void* s_in,
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
   if (bf16)
-    launch_up<__nv_bfloat16, true>(x, si, w, sc, of, out, n, h, wd, cin, cout,
-                                   s);
-  else
-    launch_up<float, true>(x, si, w, sc, of, out, n, h, wd, cin, cout, s);
+    return (int)up2x2_igemm_bf16(x, si, w, sc, of, out, n, h, wd, cin, cout,
+                                 true, s);
+  launch_up<float, true>(x, si, w, sc, of, out, n, h, wd, cin, cout, s);
   return (int)cudaGetLastError();
 }

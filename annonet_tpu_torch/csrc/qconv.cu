@@ -9,6 +9,14 @@
 // the width-folded layout (8 pixels x 16 channels in 128 lanes) as tap
 // GEMMs; these run the plain NHWC geometry.
 //
+// Q1 also has an accumulator mode (ACC, stride 1 only) that stops before
+// the requant and writes the int32 sums, [N, H, W, cout], with 16-byte
+// stores: the counterpart of the raw-accumulator Pallas kernel of the TPU
+// diagnostic script scripts/repro_mosaic_s1.py (bisect._acc_kernel, :136,
+// pallas_call at :160), which tells a wrong sum from a wrong epilogue. It
+// is the same __dp4a direct convolution and moves 4 bytes per output
+// element where the requant moves 1.
+//
 // Every layer function is requant(conv_int32(x, w_q)):
 //   q = int8(clip(fma(float(acc), scale[co], offset[co]), 0, 127))
 // with ReLU folded into the clip and the round-half-up carried by the +0.5
@@ -115,14 +123,33 @@ __device__ __forceinline__ void store16(int8_t* o, int co0, int cout,
     if (co0 + j < cout) o[co0 + j] = q[j];
 }
 
+// 16 consecutive int32 sums of one pixel: 16-byte stores where 4 whole
+// aligned channels remain, scalars otherwise.
+__device__ __forceinline__ void store16_i32(int32_t* o, int co0, int cout,
+                                            const int32_t (&acc)[kCpt]) {
+#pragma unroll
+  for (int k = 0; k < kCpt / 4; ++k) {
+    const int co = co0 + 4 * k;
+    if (cout % 4 == 0 && co + 4 <= cout) {
+      *reinterpret_cast<int4*>(o + co) =
+          make_int4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (co + j < cout) o[co + j] = acc[4 * k + j];
+    }
+  }
+}
+
 // Q1 / Q2. groups: output-channel groups of kCpt per block (1 when
 // cout <= 16). The block covers (8 / groups) x 32 output pixels x
-// (16 * groups) channels, like K1.
-template <int STRIDE, int GROUPS>
+// (16 * groups) channels, like K1. ACC: ``out`` takes the int32 sums
+// (scale and offset unused), else the requantized int8.
+template <int STRIDE, int GROUPS, bool ACC>
 __global__ void __launch_bounds__(kThreads)
 qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
                 const int8_t* __restrict__ w, const float* __restrict__ scale,
-                const float* __restrict__ offset, int8_t* __restrict__ out,
+                const float* __restrict__ offset, void* __restrict__ out,
                 int64_t h, int64_t wd, int c1, int c2, int cout,
                 int64_t tiles_x, bool words) {
   constexpr int kTileH = 8 / GROUPS;
@@ -200,13 +227,18 @@ qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
   const int64_t oy = oy0 + ty, ox = ox0 + tx;
   if (oy < ho && ox < wo) {
     const int co0 = cob + g * kCpt;
-    int8_t q[kCpt];
+    const int64_t o = ((img * ho + oy) * wo + ox) * cout;
+    if constexpr (ACC) {
+      store16_i32(static_cast<int32_t*>(out) + o, co0, cout, acc);
+    } else {
+      int8_t q[kCpt];
 #pragma unroll
-    for (int j = 0; j < kCpt; ++j) {
-      const int co = co0 + j < cout ? co0 + j : cout - 1;
-      q[j] = requant(acc[j], scale[co], offset[co]);
+      for (int j = 0; j < kCpt; ++j) {
+        const int co = co0 + j < cout ? co0 + j : cout - 1;
+        q[j] = requant(acc[j], scale[co], offset[co]);
+      }
+      store16(static_cast<int8_t*>(out) + o, co0, cout, q);
     }
-    store16(out + ((img * ho + oy) * wo + ox) * cout, co0, cout, q);
   }
 }
 
@@ -299,9 +331,9 @@ qup2x2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int STRIDE, int GROUPS>
+template <int STRIDE, int GROUPS, bool ACC = false>
 void launch_qconv(const int8_t* x, const int8_t* x2, const int8_t* w,
-                  const float* scale, const float* offset, int8_t* out,
+                  const float* scale, const float* offset, void* out,
                   int64_t n, int64_t h, int64_t wd, int c1, int c2, int cout,
                   bool words, cudaStream_t stream) {
   constexpr int kTileH = 8 / GROUPS;
@@ -312,9 +344,10 @@ void launch_qconv(const int8_t* x, const int8_t* x2, const int8_t* w,
   for (int64_t n0 = 0; n0 < n; n0 += kMaxGridYZ) {
     const int64_t nb = n - n0 < kMaxGridYZ ? n - n0 : kMaxGridYZ;
     dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)slabs, (unsigned)nb);
-    qconv3x3_kernel<STRIDE, GROUPS><<<grid, kThreads, 0, stream>>>(
+    const int64_t o = n0 * ho * wo * cout * (ACC ? 4 : 1);  // bytes
+    qconv3x3_kernel<STRIDE, GROUPS, ACC><<<grid, kThreads, 0, stream>>>(
         x + n0 * h * wd * c1, x2 == nullptr ? nullptr : x2 + n0 * h * wd * c2,
-        w, scale, offset, out + n0 * ho * wo * cout, h, wd, c1, c2, cout,
+        w, scale, offset, static_cast<int8_t*>(out) + o, h, wd, c1, c2, cout,
         tiles_x, words);
   }
 }
@@ -349,6 +382,27 @@ extern "C" int annonet_qconv3x3_requant(const void* x, const void* x2,
     launch_qconv<2, 2>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
   else
     launch_qconv<2, 1>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int annonet_qconv3x3_acc(const void* x, const void* x2,
+                                    const void* w, void* out, int64_t n,
+                                    int64_t h, int64_t wd, int c1, int c2,
+                                    int cout, int words, void* stream) {
+  using namespace annonet;
+  cudaGetLastError();
+  if (cout <= 0 || c1 <= 0 || c2 < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0 || h == 0 || wd == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* xt = static_cast<const int8_t*>(x);
+  const int8_t* x2t = static_cast<const int8_t*>(x2);
+  const int8_t* wt = static_cast<const int8_t*>(w);
+  if (cout > kCpt)
+    launch_qconv<1, 2, true>(xt, x2t, wt, nullptr, nullptr, out, n, h, wd, c1,
+                             c2, cout, words != 0, s);
+  else
+    launch_qconv<1, 1, true>(xt, x2t, wt, nullptr, nullptr, out, n, h, wd, c1,
+                             c2, cout, words != 0, s);
   return (int)cudaGetLastError();
 }
 

@@ -57,6 +57,10 @@ _SIGNATURES = {
     "annonet_qconv3x3_requant": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P,
     ],
+    # x, x2, w, out, n, h, w, c1, c2, cout, words, stream
+    "annonet_qconv3x3_acc": [
+        _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P,
+    ],
     # x, w, scale, offset, out, n, h, w, cin, cout, words, stream
     "annonet_qup2x2_requant": [
         _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,

@@ -4,9 +4,10 @@ Each op has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper checks its arguments; for tensors on the CPU it returns the plain
 version, for CUDA tensors it launches the hand-written kernel on the
 current stream (or raises: there is no fallback from a CUDA tensor to the
-plain version) and adds one to its ``launches`` count. K1 and K2 in bf16
-are the tensor-core implicit GEMM of ``csrc/conv_igemm.cu``; in f32, and
-K3, the direct convolutions of ``csrc/conv.cu``.
+plain version) and adds one to its ``launches`` count. In bf16, K1 and K2
+are the tensor-core implicit GEMM of ``csrc/conv_igemm.cu`` and K3 (both
+modes) the tensor-core GEMM of ``csrc/up_igemm.cu``; in f32 all three are
+the direct convolutions of ``csrc/conv.cu``.
 
 Layouts: activations NHWC ([N, H, W, C], bf16 or f32, contiguous), conv
 weights HWIO ([kh, kw, cin, cout], the activations' dtype), bias [cout]

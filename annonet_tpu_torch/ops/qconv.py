@@ -26,6 +26,10 @@ its algorithms need not be).
   Q1 qconv3x3_requant      3x3, stride 1, zero padding (1, 1); optional
                            second input ``x2`` whose channels follow
                            ``x``'s (the decoder's concat([up, skip]))
+     qconv3x3_acc          Q1's accumulator mode: the int32 sums ``acc``
+                           before the requant, [N, H, W, C'] int32 (the raw
+                           accumulator of scripts/repro_mosaic_s1.py's
+                           bisect; tools/repro_qconv_s1.py runs it)
   Q2 qconv3x3_s2_requant   3x3, stride 2, zero padding (0, 1) on even H, W
   Q3 qup2x2_requant        2x2 stride-2 transpose conv,
                            out[2i+u, 2j+v] = requant_v(x[i, j] . w[1-u, 1-v])
@@ -82,11 +86,15 @@ def _oihw64(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 2, 0, 1).to(torch.float64)
 
 
-def qconv3x3_requant_plain(x, w, scale, offset, x2: Optional[torch.Tensor] = None):
+def qconv3x3_acc_plain(x, w, x2: Optional[torch.Tensor] = None):
     if x2 is not None:
         x = torch.cat([x, x2], dim=-1)
     acc = _exact_f64(F.conv2d, _nchw64(x), _oihw64(w), padding=1)
-    return requant_plain(acc.permute(0, 2, 3, 1), scale, offset).contiguous()
+    return acc.permute(0, 2, 3, 1).to(torch.int32).contiguous()
+
+
+def qconv3x3_requant_plain(x, w, scale, offset, x2: Optional[torch.Tensor] = None):
+    return requant_plain(qconv3x3_acc_plain(x, w, x2), scale, offset).contiguous()
 
 
 def qconv3x3_s2_requant_plain(x, w, scale, offset):
@@ -117,10 +125,11 @@ def _check(x, w, scale, offset, kh, kw, cin, scale_shape, what):
             f"conv over {cin} input channels"
         )
     shape = scale_shape + (w.shape[3],)
-    for t in (scale, offset):
+    vectors = () if scale is None else (scale, offset)  # None: no requant
+    for t in vectors:
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{what}: scale and offset must be float32 {list(shape)}")
-    for t in (x, w, scale, offset):
+    for t in (x, w, *vectors):
         if t.device != x.device:
             raise ValueError(f"{what}: all tensors must be on {x.device}")
         if not t.is_contiguous():
@@ -152,15 +161,20 @@ def _launch_qconv(x, x2, w, scale, offset, stride):
     return out
 
 
+def _second_input(x, x2, what) -> int:
+    """The channels of the optional second input (0 without one)."""
+    if x2 is None:
+        return 0
+    if x2.dim() != 4 or x2.shape[:3] != x.shape[:3] or x2.dtype != torch.int8:
+        raise ValueError(f"{what}: x2 must be int8 and match x in N, H, W")
+    if x2.device != x.device or not x2.is_contiguous():
+        raise ValueError(f"{what}: x2 must be contiguous on x's device")
+    return x2.shape[3]
+
+
 def qconv3x3_requant(x, w, scale, offset, x2: Optional[torch.Tensor] = None):
     """Q1: requant(conv3x3_same([x, x2])), int8 NHWC in and out."""
-    c2 = 0
-    if x2 is not None:
-        if x2.dim() != 4 or x2.shape[:3] != x.shape[:3] or x2.dtype != torch.int8:
-            raise ValueError("qconv3x3_requant: x2 must be int8 and match x in N, H, W")
-        if x2.device != x.device or not x2.is_contiguous():
-            raise ValueError("qconv3x3_requant: x2 must be contiguous on x's device")
-        c2 = x2.shape[3]
+    c2 = _second_input(x, x2, "qconv3x3_requant")
     _check(x, w, scale, offset, 3, 3, x.shape[3] + c2, (), "qconv3x3_requant")
     if x.device.type == "cpu":
         return qconv3x3_requant_plain(x, w, scale, offset, x2)
@@ -169,6 +183,30 @@ def qconv3x3_requant(x, w, scale, offset, x2: Optional[torch.Tensor] = None):
 
 
 qconv3x3_requant.launches = 0
+
+
+def qconv3x3_acc(x, w, x2: Optional[torch.Tensor] = None):
+    """Q1's accumulator mode: conv3x3_same([x, x2]) as exact int32 sums,
+    int8 NHWC in, [N, H, W, C'] int32 out."""
+    c2 = _second_input(x, x2, "qconv3x3_acc")
+    _check(x, w, None, None, 3, 3, x.shape[3] + c2, (), "qconv3x3_acc")
+    if x.device.type == "cpu":
+        return qconv3x3_acc_plain(x, w, x2)
+    qconv3x3_acc.launches += 1
+    n, h, wd, c1 = x.shape
+    out = torch.empty((n, h, wd, w.shape[3]), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _build.lib().annonet_qconv3x3_acc(
+            x.data_ptr(), 0 if x2 is None else x2.data_ptr(), w.data_ptr(),
+            out.data_ptr(), n, h, wd, c1, c2, w.shape[3],
+            _words(x) if x2 is None else _words(x, x2),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "annonet_qconv3x3_acc")
+    return out
+
+
+qconv3x3_acc.launches = 0
 
 
 def qconv3x3_s2_requant(x, w, scale, offset):

@@ -8,11 +8,12 @@ Phases (any failure raises, and the exit code is then nonzero):
   1. device   needs CUDA; prints the card's name and power limit
   2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc, one
               compiler process per source, in parallel; then reads the
-              library's SASS (cuobjdump): the bf16 K1/K2 kernels must hold
-              tensor-core instructions (HMMA or HGMMA) and no bf16
-              instantiation of the f32 direct convolution may exist; prints
-              the K1/K2 kernels' registers, stack, local and static shared
-              memory
+              library's SASS (cuobjdump): the bf16 K1/K2 kernels
+              (igemm_kernel) and both modes of bf16 K3 (upgemm_kernel) must
+              hold tensor-core instructions (HMMA or HGMMA) and no bf16
+              instantiation of the f32 direct convolutions (conv3x3,
+              up2x2) may exist; prints those kernels' registers, stack,
+              local and static shared memory
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes, with its bound (the larger of its bytes at the
               HBM rate and its operations at the tensor-core peak) and,
@@ -27,7 +28,8 @@ Phases (any failure raises, and the exit code is then nonzero):
               blend semantics. Then the int8 kernels on the same batch,
               with weights from quantize_net and calibration from one
               flagship forward, each layer fed the int8 net's own
-              activations: Q1 on the 8 stride-1 layers, Q2 on the 3
+              activations: Q1 and its accumulator mode (the int32 sums,
+              bit-identical) on the 8 stride-1 layers, Q2 on the 3
               stride-2 ones, K3's requant mode and Q3 on the 3 up layers;
               and the bf16 blend on the canvas (detection, the argmax
               fold, the normalised argmax). Then G1 on the 7 stride-1
@@ -61,6 +63,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               three times each, K4 once) in one call, labels agreeing with
               the default float path's, and both paths' infer_arrays walls
               and device stages in turns
+ 10. repro_qconv_s1 the diagnostic tool's sweep (unsigned and signed) and
+              bisect at all its configurations: Q1 and its accumulator mode
+              against the exact conv, no mismatch, the accumulator launched
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}. Scratch files go to a
@@ -123,11 +128,15 @@ _TPU_KERNELS = {
     "qup2x2_requant": "annonet_tpu/ops/int8_conv_mosaic.py:294",
     "conv3x3_gemm_aligned": "annonet_tpu/ops/pallas_conv.py:137",
 }
+# Q1's accumulator mode: the raw int32 sums of the TPU diagnostic script's
+# bisect, launched by the port's counterpart of that script
+_ACC_REPLACES = "scripts/repro_mosaic_s1.py:136"
+_ACC_PATH = "annonet_tpu_torch/tools/repro_qconv_s1.py"
 _SOURCES = {
     # bf16 (the kernel line's times); f32 stays in csrc/conv.cu
     "conv3x3_bias_relu": "annonet_tpu_torch/csrc/conv_igemm.cu",
     "conv3x3_s2_bias_relu": "annonet_tpu_torch/csrc/conv_igemm.cu",
-    "up2x2_bias_relu": "annonet_tpu_torch/csrc/conv.cu",
+    "up2x2_bias_relu": "annonet_tpu_torch/csrc/up_igemm.cu",
     "blend_argmax": "annonet_tpu_torch/csrc/blend.cu",
     "qconv3x3_requant": "annonet_tpu_torch/csrc/qconv.cu",
     "qconv3x3_s2_requant": "annonet_tpu_torch/csrc/qconv.cu",
@@ -162,16 +171,22 @@ def sass_functions(cuobjdump: str, library: str, what: str) -> dict:
 
 
 def short_name(mangled: str) -> str:
-    """``igemm_kernel<1, 16>`` for the mangled name of a K1/K2 kernel."""
+    """``igemm_kernel<1, 16>`` for the mangled name of a K1/K2 kernel,
+    ``upgemm_kernel<true>`` for a bf16 K3 one."""
     m = re.search(r"\d+(igemm_kernel|conv3x3_f32_kernel)ILi(\d+)ELi(\d+)E", mangled)
-    return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else mangled
+    if m:
+        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+    m = re.search(r"\d+upgemm_kernelILb([01])E", mangled)
+    return f"upgemm_kernel<{'true' if m.group(1) == '1' else 'false'}>" if m else mangled
 
 
 def check_tensor_cores(library: str) -> None:
     """The bf16 K1/K2 kernels (conv_igemm.cu's igemm_kernel<stride,
-    cout block>, all that annonet_conv3x3_bias_relu launches for bf16) hold
-    HMMA or HGMMA instructions, and the f32 direct convolution has no bf16
-    instantiation; prints each K1/K2 kernel's resource usage."""
+    cout block>, all that annonet_conv3x3_bias_relu launches for bf16) and
+    bf16 K3's (up_igemm.cu's upgemm_kernel<requant>, all that
+    annonet_up2x2_bias_relu and annonet_up2x2_requant launch for bf16) hold
+    HMMA or HGMMA instructions, and the f32 direct convolutions have no
+    bf16 instantiation; prints each of those kernels' resource usage."""
     from annonet_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -179,7 +194,10 @@ def check_tensor_cores(library: str) -> None:
     igemm = {k: v for k, v in sass.items() if "igemm_kernel" in k}
     if len(igemm) != 8:  # 2 strides x 4 cout blocks
         raise AssertionError(f"found {len(igemm)} bf16 K1/K2 kernels in the SASS: {list(igemm)}")
-    stale = [k for k in sass if "conv3x3" in k and "bfloat16" in k]
+    upgemm = {k: v for k, v in sass.items() if "upgemm_kernel" in k}
+    if len(upgemm) != 2:  # the float and the requant mode
+        raise AssertionError(f"found {len(upgemm)} bf16 K3 kernels in the SASS: {list(upgemm)}")
+    stale = [k for k in sass if ("conv3x3" in k or "up2x2_kernel" in k) and "bfloat16" in k]
     if stale:
         raise AssertionError(f"a bf16 direct convolution is still compiled: {stale}")
     usage = sass_functions(cuobjdump, library, "resource-usage")
@@ -187,7 +205,7 @@ def check_tensor_cores(library: str) -> None:
         mma = sum(len(re.findall(r"\b(HMMA|HGMMA)\.", line)) for line in sass.get(name, ()))
         res = " ".join(line.strip() for line in usage[name] if "REG:" in line)
         print(f"  {short_name(name):28s} tensor-core instructions {mma:4d}; {res}", flush=True)
-        if name in igemm and mma == 0:
+        if (name in igemm or name in upgemm) and mma == 0:
             raise AssertionError(f"{short_name(name)} holds no HMMA or HGMMA instruction")
 
 
@@ -502,8 +520,9 @@ def int8_setup(params_np, config, device, generator, n: int = 25, side: int = 89
 
 
 def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
-    """Q1, Q2, Q3 (bit-identical) and K3's requant mode (within one requant
-    step) against their plain versions on each layer's real inputs;
+    """Q1, its accumulator mode, Q2, Q3 (bit-identical) and K3's requant
+    mode (within one requant step) against their plain versions on each
+    layer's real inputs (the accumulator's bound counts its int32 output);
     returns {kernel: tally} (no PyTorch call computes an int8 conv with a
     requant, so no library time) and the share of K3-requant outputs that
     differ from the plain version's."""
@@ -540,6 +559,11 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
             cases = [(kernel, lambda: fn(xs[0], *args, **extra),
                       lambda: plain(xs[0], *args, **extra), e["w_q"],
                       (e["scale"], e["offset"]), "int8")]
+            if kernel == "qconv3x3_requant":  # and its accumulator mode
+                cases.append(("qconv3x3_acc",
+                              lambda: qconv.qconv3x3_acc(xs[0], e["w_q"], **extra),
+                              lambda: qconv.qconv3x3_acc_plain(xs[0], e["w_q"], **extra),
+                              e["w_q"], (), "int8"))
         for kernel, run, run_plain, w_k, vectors, kind in cases:
             got, want = run(), run_plain()
             torch.cuda.synchronize()
@@ -1072,6 +1096,38 @@ def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int 
     return counts["use_pallas_conv"]
 
 
+def repro_qconv_phase(device) -> int:
+    """The diagnostic tool (annonet_tpu_torch/tools/repro_qconv_s1.py) on
+    the card: its sweep of Q1, unsigned and signed, and its bisect (Q1's
+    accumulator mode against the exact int32 conv, then Q1) at every one
+    of its configurations; any mismatch fails. Returns the accumulator's
+    launches in this run."""
+    from annonet_tpu_torch.ops import qconv
+    from annonet_tpu_torch.tools import repro_qconv_s1 as tool
+
+    out = lambda line: print(line, flush=True)  # noqa: E731
+    qconv.qconv3x3_acc.launches = 0
+    for signed in (False, True):
+        print(f"  sweep{' --signed' if signed else ''}:", flush=True)
+        failures = tool.run_sweep(device, signed, out=out)
+        torch.cuda.empty_cache()
+        if failures:
+            raise AssertionError(f"repro_qconv_s1 sweep (signed={signed}) failed: {failures}")
+    for cfg in tool.CONFIGS:
+        print(f"  bisect --cfg {' '.join(map(str, cfg))}:", flush=True)
+        verdict = tool.bisect(device, cfg, out=out)
+        torch.cuda.empty_cache()
+        print(f"  VERDICT: {verdict}", flush=True)
+        if verdict != "none":
+            raise AssertionError(f"repro_qconv_s1 bisect {cfg}: {verdict}")
+    launches = qconv.qconv3x3_acc.launches
+    print(f"  qconv3x3_acc launches in this phase: {launches}", flush=True)
+    if launches != len(tool.CONFIGS):
+        raise AssertionError(f"the bisect launched the accumulator {launches} times, "
+                             f"not once per configuration ({len(tool.CONFIGS)})")
+    return launches
+
+
 def breakdown(params_np, config, device, data: str, name: str, reps: int = 5):
     """Where one image's time goes. The headline is ``infer_arrays`` itself:
     the host wall of ``reps`` calls after a warm-up, each ending in the copy
@@ -1263,6 +1319,10 @@ def main() -> int:
                                            os.path.join(work, "data"), IMAGE_SIZES[-1][0])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print("[repro_qconv_s1] the diagnostic tool's sweep and bisect on the card",
+          flush=True)
+    acc_launches = repro_qconv_phase(device)
     for label, records in (("float", per_image), ("int8", int8_per_image)):
         for rec in records:
             mpx = rec["width"] * rec["height"] / 1e6
@@ -1293,6 +1353,12 @@ def main() -> int:
             **numbers(int8_results["up2x2_requant"]),
         }},
         "blend_argmax": {f"bfloat16_{variant}": numbers(r) for variant, r in blend_bf16.items()},
+        "qconv3x3_requant": {"accumulator": {
+            "replaces": _ACC_REPLACES,
+            "path": _ACC_PATH,
+            "launches": acc_launches,
+            **numbers(int8_results["qconv3x3_acc"]),
+        }},
     }
     modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
     kernels = []

@@ -16,7 +16,7 @@ where the plain versions round before it too (two bf16 steps, 2**-6, of
 the output scale); the blend's labels and seeds are bit-identical, in f32
 and in bf16, with and without the argmax fold; the int8 kernels Q1-Q3 sum
 integers exactly and requantize with one FMA, as their plain versions do,
-so they are bit-identical; K3's requant mode sums floats in another order
+so they are bit-identical, as is Q1's accumulator mode (the int32 sums); K3's requant mode sums floats in another order
 than cuDNN, so it is held within one requant step. G1 and its plain version
 both sum in f32 and round once: bf16 within one bf16 step at the largest
 output, f32 within 1e-4 of the output scale; on the decoder's two-part input G1 is held to
@@ -30,6 +30,9 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+UP_EDGES = [("up", 1, 9, 19, 8, 0, 4), ("up", 1, 7, 45, 128, 0, 64), ("up", 1, 11, 70, 64, 0, 32),
+            ("up", 2, 13, 100, 32, 0, 16), ("up", 3, 9, 30, 32, 0, 16),
+            ("up", 1, 6, 20, 256, 0, 160)]
 
 
 @pytest.fixture
@@ -63,7 +66,12 @@ def _rand(shape, device, seed, lo=0.0, scale=1.0):
      ("s1", 2, 16, 70, 16, 16, 16), ("s1", 1, 12, 40, 64, 64, 64), ("s1", 1, 14, 28, 128, 0, 128),
      ("s1", 1, 6, 20, 24, 0, 136), ("s1", 3, 9, 30, 8, 0, 24),
      ("s2", 2, 32, 100, 16, 0, 32), ("s2", 1, 16, 36, 64, 0, 128), ("s2", 1, 18, 66, 16, 0, 9),
-     ("s2", 1, 10, 70, 64, 0, 20)],
+     ("s2", 1, 10, 70, 64, 0, 20),
+     # the edges of bf16 K3's GEMM (128-pixel tiles, 64-column passes):
+     # base_width=4's dec1 (cin 8 -> 4), the flagship's 128 -> 64, 64 -> 32
+     # and 32 -> 16 at pixel counts that are not a multiple of the tile,
+     # n = 3 with an odd H, and 4 cout = 640 columns, which split into slabs
+     *UP_EDGES],
 )
 def test_conv_kernels_match_plain(device, kind, n, h, w, c1, c2, cout, dtype):
     from annonet_tpu_torch.ops import conv
@@ -189,7 +197,8 @@ def test_int8_kernels_are_bit_identical_to_plain(device, kind, n, h, w, c1, c2, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 13, 24, 36), (1, 5, 40, 3, 4), (1, 16, 16, 64, 32)])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 13, 24, 36), (1, 5, 40, 3, 4), (1, 16, 16, 64, 32),
+                                           *(case[1:5] + case[6:] for case in UP_EDGES)])
 def test_up2x2_requant_within_one_step_of_plain(device, dtype, n, h, w, cin, cout):
     from annonet_tpu_torch.ops import conv
 
@@ -206,6 +215,31 @@ def test_up2x2_requant_within_one_step_of_plain(device, dtype, n, h, w, cin, cou
     assert got.shape == want.shape and got.dtype == torch.int8
     d = (got.int() - want.int()).abs()
     assert d.max().item() <= 1 and d.float().mean().item() <= 0.05
+
+
+@pytest.mark.parametrize(
+    "n,h,w,c1,c2,cout",
+    [(1, 17, 45, 3, 0, 20), (2, 8, 40, 5, 7, 9), (1, 33, 70, 40, 24, 48), (2, 16, 64, 16, 16, 16),
+     (1, 64, 128, 128, 0, 128)],
+)
+def test_q1_accumulator_is_bit_identical_to_plain(device, n, h, w, c1, c2, cout):
+    """qconv3x3_acc equals the exact int32 conv, and requantized it gives
+    Q1's output bit for bit."""
+    from annonet_tpu_torch.ops import qconv
+
+    x = _int8((n, h, w, c1), device, 1, -127 if c1 == 3 else 0)
+    x2 = _int8((n, h, w, c2), device, 2) if c2 else None
+    wgt = _int8((3, 3, c1 + c2, cout), device, 3, -127)
+    before = qconv.qconv3x3_acc.launches
+    acc = qconv.qconv3x3_acc(x, wgt, x2)
+    assert qconv.qconv3x3_acc.launches == before + 1
+    want = qconv.qconv3x3_acc_plain(x, wgt, x2)
+    torch.cuda.synchronize()
+    assert acc.shape == want.shape == (n, h, w, cout) and acc.dtype == torch.int32
+    assert torch.equal(acc, want)
+    scale, offset = _requant_args((cout,), device, 4)
+    q1 = qconv.qconv3x3_requant(x, wgt, scale, offset, x2)
+    assert torch.equal(qconv.requant_plain(acc, scale, offset), q1)
 
 
 @pytest.mark.parametrize("m,k", [(1, 3), (2, 5), (1, 300)])
