@@ -5,11 +5,12 @@ The JAX package ``annonet_tpu`` stays the reference; this package keeps its
 structure and names so each module's counterpart is easy to find:
 
   models/segnet.py     SegNetConfig, the BN-folded runtime net
-  models/quantized.py  the int8 net (Q1-Q3, csrc/qconv.cu)
+  models/quantized.py  the int8 net (Q1-Q3: csrc/qconv_igemm.cu, qconv.cu)
   models/folded_runtime.py  the folded net of use_pallas_conv (G1)
   serialization.py     the annonet.dnn npz artifact (same keys and checks)
-  ops/conv.py          K1-K3: fused conv + bias + ReLU (CUDA, csrc/conv.cu)
-  ops/gemm_conv.py     G1: the folded 3x3 conv as three GEMMs
+  ops/conv.py          K1-K3: fused conv + bias + ReLU (CUDA, csrc/conv.cu,
+                       conv_igemm.cu, up_igemm.cu)
+  ops/gemm_conv.py     G1: the folded 3x3 conv as three block-sparse GEMMs
                        (CUDA, csrc/gemm_conv.cu)
   ops/blend.py         K4: blend + normalise + gains argmax + seeds
                        (CUDA, csrc/blend.cu)

@@ -14,31 +14,46 @@
 // with the b-1 term zero at b = 0 and the b+1 term zero at b = WB-1. That
 // is one GEMM of M = N*H*WB rows by NC columns over K = 9*K1, whose A row
 // (segment s, dy; channel c) is x at the row shifted by dy-1 and the block
-// shifted by 0, -1, +1 for Wc, Wl, Wr. The kernel holds for any weights: it
-// does not use the zero rows that build_gemm_kernels_aligned leaves in Wl
-// and Wr.
+// shifted by 0, -1, +1 for Wc, Wl, Wr. It holds for any weights.
 //
-// Design. The TPU kernel materialises a padded copy and three shifted
-// planes and rolls them in VMEM; here the shifts are address offsets into
-// the one input in device memory, and out-of-range rows and blocks are
-// predicated zero loads. Each block computes a 128 x 128 output tile with
-// eight warps of bf16 mma.sync m16n8k16 (f32 accumulate), streaming K in
-// chunks of 32 through double-buffered shared memory: the next chunk's
-// global loads are in registers while the current one is multiplied. Each
-// (segment, dy) part of K is zero-padded to whole chunks in shared memory,
-// so K1 need not divide 32 (the RGB stem's K1 = 24). The weights are
-// stored transposed in shared memory (column-major B), so every fragment
-// is one 32-bit shared load, on padded rows that make them conflict-free.
-// f32 runs on the CUDA cores (a 64 x 64 tile, 4 x 4 outputs a thread): only
-// the f32 configs, used to check the arithmetic, take it.
+// What bounds it on an H100. The folded weights are block-banded
+// (build_gemm_kernels_aligned): output pixel j of a block reads input
+// pixels j-1..j+1 only, and Wl and Wr hold one nonzero pixel block each, so
+// only about 1/fold of the dense GEMM's 2*M*NC*9*K1 operations multiply
+// nonzero weights. What remains is 100-300 operations a byte, at or under
+// the ~295 where bf16 tensor cores stop waiting on memory: by its bytes,
+// most layers are bound by memory. The first version multiplied every
+// zero (fold times the work, 8x at the stem and dec1) in a two-stage
+// mainloop without ldmatrix, at half of cuBLAS's rate on the same dense
+// GEMMs and 2.3x slower than cuDNN's unfolded conv. This one takes about
+// 5x its bound over the flagship's layers, 0.8x cuDNN's unfolded conv:
+// with the copies or the products switched off, the two parts add up
+// rather than overlap, and neither fewer bytes (one A chunk for all three
+// matrices, B of the listed slabs only), more stages, more blocks an SM nor
+// fewer block barriers changed the total (PERF.md).
 //
-// What bounds it on an H100: the folded GEMM does fold times the conv's
-// FLOPs (the zeros in the folded weights ride along), 2*M*NC*9*K1, e.g.
-// 1.48 TFLOP for the flagship's dec1/conv0 on a 25-tile 896^2 batch
-// against 0.19 GB of bytes: far above the ~295 FLOP/byte where bf16
-// tensor cores stop waiting on memory, so it is bound by tensor-core
-// throughput. mma.sync reaches only part of the card's wgmma peak; moving
-// to wgmma with TMA loads, or dropping the zero blocks, is later work.
+// Design (bf16). (a) Skip what is zero, exactly: the wrapper passes a
+// table, built on the host once per weight set (ops/gemm_conv.py
+// g1_block_table), that lists for each group of 128 output columns the K
+// chunks (segment, dy, 32 rows of K1) whose weights hold any nonzero in
+// that group, each with a mask of the group's four 32-column slabs that
+// do. A block (128 rows x 128 columns, 8 warps) walks its group's list:
+// it copies each listed chunk of A once and every warp whose slab the
+// mask names multiplies it; a slab whose block of the chunk is all zero
+// contributes exactly zero, so the skip changes no sum and the result
+// holds for any weights (dense weights list every chunk with a full mask).
+// Warps split the block as 4 slabs x 2 row halves, so one A chunk in
+// shared memory feeds every slab that needs it. (b) The mainloop: a ring
+// of 4 cp.async stages (A rows of the shifted input, out-of-range rows and
+// blocks as zero-fill copies; B the chunk's 32 weight rows), fragments by ldmatrix (A) and ldmatrix.trans (B) from
+// rows padded by 8 elements (conflict-free), bf16 mma.sync m16n8k16 with
+// f32 accumulation, each B fragment used by 4 m16 tiles. The epilogue adds
+// the f32 bias, applies ReLU, rounds once, stages the tile in shared
+// memory and stores 16 bytes a thread. K1 need not be a multiple of 32 (the
+// RGB stem's 24: the chunk's missing rows are zero-filled); where K1 or NC
+// is no multiple of 8 the copies are element by element.
+// f32 runs on the CUDA cores (a 64 x 64 tile, 4 x 4 outputs a thread,
+// dense): only the f32 configs, used to check the arithmetic, take it.
 //
 // Numerics: f32 accumulation, + f32 bias, ReLU, one rounding to x's dtype,
 // as the Pallas kernel does.
@@ -81,13 +96,47 @@ __device__ __forceinline__ int seg_db(int s) { return s == 0 ? 0 : (s == 1 ? -1 
 
 // ----------------------------------------------------------------- bf16
 
-constexpr int kBM = 128, kBN = 128, kKC = 32;
-constexpr int kLd = kKC + 8;  // padded shared row, in bf16 elements
+// block: kBM rows x kGN columns (one group); slabs of kSlab columns, K
+// chunks of kKC rows; ops/gemm_conv.py builds the table with the same sizes
+constexpr int kBM = 128, kGN = 128, kSlab = 32, kKC = 32, kStages = 4;
+constexpr int kALd = kKC + 8;  // padded shared rows, in bf16 elements
+constexpr int kBLd = kGN + 8;
+constexpr int kABytes = kBM * kALd * 2;
+constexpr int kStageBytes = kABytes + kKC * kBLd * 2;
+constexpr int kSmemBytes = kStages * kStageBytes;
+static_assert(kBM * kBLd * 2 <= kSmemBytes, "the staged output tile fits");
 
-struct Bf16Stage {
-  uint4 a[2];  // two 8-element pieces of A rows
-  uint4 b[2];  // two 8-column pieces of one weight row
-};
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from src, or 16 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
 // the first min(n, 8) elements at p, zero-filled to 8, packed low first
 __device__ __forceinline__ uint4 pack8(const __nv_bfloat16* p, int n) {
@@ -99,154 +148,156 @@ __device__ __forceinline__ uint4 pack8(const __nv_bfloat16* p, int n) {
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+                                         const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// table: [groups + 1] offsets into the entries that follow them; an entry
+// is chunk * 16 + mask, chunk = (s * 3 + dy) * ceil(K1 / kKC) + c (rows
+// c*kKC .. of segment s = Wc, Wl, Wr at row tap dy), mask bit j = the
+// group's slab j holds a nonzero weight in that chunk
+__global__ void __launch_bounds__(kThreads, 2)
 gemm_conv_bf16(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ wc,
                const __nv_bfloat16* __restrict__ wl,
                const __nv_bfloat16* __restrict__ wr,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-               int64_t rows, int h, int wb, int k1, int nc, int cout,
-               int vec_a, int vec_b) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kBM][kLd];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kBN][kLd];  // [n][k]
+               const float* __restrict__ bias, const int* __restrict__ table,
+               __nv_bfloat16* __restrict__ out, int64_t rows, int h, int wb,
+               int k1, int nc, int cout, int groups, int vec_a, int vec_b,
+               int vec_o) {
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t m0 = (int64_t)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int chunks_per_seg = (k1 + kKC - 1) / kKC;
-  const int chunks = 9 * chunks_per_seg;
+  const int n0 = blockIdx.y * kGN;
+  const int first = table[blockIdx.y];
+  const int count = table[blockIdx.y + 1] - first;
+  const int* entries = table + groups + 1 + first;
+  const int cps = (k1 + kKC - 1) / kKC;  // chunks a (segment, dy)
 
-  // A: rows tid/4 and tid/4 + 64, columns (tid%4)*8 .. +7 of the chunk
-  const int a_kk = (tid & 3) * 8;
+  // A copies: rows tid/4 and tid/4 + 64, 16-byte piece tid%4 of the chunk
+  const int a_piece = tid & 3;
   ARow arow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) arow[i] = a_row(m0 + (tid >> 2) + 64 * i, rows, h, wb);
-  // B: weight row k = tid%32 of the chunk, columns ng*8 and (ng+8)*8
-  const int b_k = tid & 31, b_ng = tid >> 5;
+  // B copies: chunk rows tid/16 and tid/16 + 16, columns (tid%16)*8 .. +7
+  const int b_row = tid >> 4, b_col = (tid & 15) * 8;
 
-  auto load = [&](int t, Bf16Stage& st) {
-    const int seg = t / chunks_per_seg;
-    const int c0 = (t - seg * chunks_per_seg) * kKC;
+  auto fill = [&](int i, int buf) {
+    const int chunk = entries[i] >> 4;
+    const int seg = chunk / cps, c0 = (chunk - seg * cps) * kKC;
     const int s = seg / 3, dy = seg % 3;
+    __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem + buf * kStageBytes);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int64_t src = a_src(arow[i], dy, seg_db(s), h, wb);
-      const int c = c0 + a_kk;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (src >= 0 && c < k1) {
-        const __nv_bfloat16* p = x + src * k1 + c;
-        v = vec_a ? *reinterpret_cast<const uint4*>(p) : pack8(p, k1 - c);
-      }
-      st.a[i] = v;
+    for (int r = 0; r < 2; ++r) {
+      const int64_t src = a_src(arow[r], dy, seg_db(s), h, wb);
+      const int c = c0 + a_piece * 8;
+      __nv_bfloat16* dst = as + ((tid >> 2) + 64 * r) * kALd + a_piece * 8;
+      const bool ok = src >= 0 && c < k1;
+      if (vec_a)
+        cp_async16(dst, ok ? x + src * k1 + c : x, ok);
+      else
+        *reinterpret_cast<uint4*>(dst) =
+            ok ? pack8(x + src * k1 + c, k1 - c) : make_uint4(0, 0, 0, 0);
     }
     const __nv_bfloat16* w = s == 0 ? wc : (s == 1 ? wl : wr);
-    const int k = c0 + b_k;
+    __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem + buf * kStageBytes + kABytes);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int col = n0 + (b_ng + 8 * i) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < k1 && col < nc) {
-        const __nv_bfloat16* p = w + ((int64_t)dy * k1 + k) * nc + col;
-        v = vec_b && col + 8 <= nc ? *reinterpret_cast<const uint4*>(p)
-                                   : pack8(p, nc - col);
-      }
-      st.b[i] = v;
+    for (int r = 0; r < 2; ++r) {
+      const int k = b_row + 16 * r, col = n0 + b_col;
+      const bool ok = c0 + k < k1 && col < nc;
+      const __nv_bfloat16* src = w + ((int64_t)dy * k1 + c0 + k) * nc + col;
+      __nv_bfloat16* dst = bs + k * kBLd + b_col;
+      if (vec_b)
+        cp_async16(dst, ok ? src : w, ok);
+      else
+        *reinterpret_cast<uint4*>(dst) = ok ? pack8(src, nc - col) : make_uint4(0, 0, 0, 0);
     }
   };
 
-  auto store = [&](int buf, const Bf16Stage& st) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint4*>(&As[buf][(tid >> 2) + 64 * i][a_kk]) = st.a[i];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint32_t words[4] = {st.b[i].x, st.b[i].y, st.b[i].z, st.b[i].w};
-      const int col = (b_ng + 8 * i) * 8;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        Bs[buf][col + j][b_k] = __ushort_as_bfloat16(
-            (unsigned short)(words[j >> 1] >> (16 * (j & 1))));
-    }
-  };
+  // warp tile: rows mh*64 .. +64 (4 m16 tiles), columns slab*32 .. +32
+  // (4 n8 tiles)
+  const int slab = warp & 3, mh = warp >> 2;
+  const int r16 = lane & 15, hi = lane >> 4;
+  // this lane's ldmatrix row of A (row r16 of an m16 tile, columns +8*hi)
+  // and of B (k = r16, columns + 8*hi), in bytes from their stage's start
+  const uint32_t a_off = ((mh * 64 + r16) * kALd + hi * 8) * 2;
+  const uint32_t b_off = kABytes + (r16 * kBLd + slab * kSlab + hi * 8) * 2;
 
-  // warp tile: rows wm*32 .. +32, columns wn*64 .. +64
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, tg = lane & 3;
-  float acc[2][8][4];
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  Bf16Stage stage;
-  load(0, stage);
-  store(0, stage);
-  __syncthreads();
-  for (int t = 0; t < chunks; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < chunks) load(t + 1, stage);
 #pragma unroll
-    for (int ks = 0; ks < kKC; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        const int kc = ks + tg * 2;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(&As[buf][r][kc]);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(&As[buf][r + 8][kc]);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(&As[buf][r][kc + 8]);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(&As[buf][r + 8][kc + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = wn * 64 + nt * 8 + g;
-        const int kc = ks + tg * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Bs[buf][col][kc]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Bs[buf][col][kc + 8]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-    if (t + 1 < chunks) store(buf ^ 1, stage);
-    __syncthreads();
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < count) fill(i, i);
+    cp_async_commit();
   }
-
+  for (int i = 0; i < count; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // entry i has landed; entry i-1's buffer is free
+    const int next = i + kStages - 1;
+    if (next < count) fill(next, next % kStages);
+    cp_async_commit();
+    if ((entries[i] >> slab) & 1) {
+      const uint32_t base = smem_addr(smem + (i % kStages) * kStageBytes);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+      for (int ks = 0; ks < kKC; ks += 16) {
+        uint32_t b[4][2];
+        ldmatrix_x4_trans(&b[0][0], base + b_off + ks * kBLd * 2);
+        ldmatrix_x4_trans(&b[2][0], base + b_off + (ks * kBLd + 16) * 2);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t m = m0 + wm * 32 + mt * 16 + g + 8 * half;
-      if (m >= rows) continue;
-      __nv_bfloat16* o = out + m * nc;
+        for (int mt = 0; mt < 4; ++mt) {
+          uint32_t a[4];
+          ldmatrix_x4(a, base + a_off + (mt * 16 * kALd + ks) * 2);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = n0 + wn * 64 + nt * 8 + tg * 2;
-        if (col >= nc) continue;
-        const float v0 = fmaxf(acc[mt][nt][2 * half] + bias[col % cout], 0.f);
-        if (col + 1 < nc) {
-          const float v1 =
-              fmaxf(acc[mt][nt][2 * half + 1] + bias[(col + 1) % cout], 0.f);
-          if ((nc & 1) == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(o + col) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            o[col] = __float2bfloat16_rn(v0);
-            o[col + 1] = __float2bfloat16_rn(v1);
-          }
-        } else {
-          o[col] = __float2bfloat16_rn(v0);
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
         }
       }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: f32 bias, ReLU, one rounding; staged as [kBM][kBLd] bf16
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = slab * kSlab + nt * 8 + tg * 2;
+    const float b0 = n0 + col < nc ? bias[(n0 + col) % cout] : 0.f;
+    const float b1 = n0 + col + 1 < nc ? bias[(n0 + col + 1) % cout] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const int row = mh * 64 + mt * 16 + g;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* c = &acc[mt][nt][2 * half];
+        *reinterpret_cast<__nv_bfloat162*>(os + (row + 8 * half) * kBLd + col) =
+            __floats2bfloat162_rn(fmaxf(c[0] + b0, 0.f), fmaxf(c[1] + b1, 0.f));
+      }
+    }
+  }
+  __syncthreads();
+  const int ncols = min(kGN, nc - n0);
+  for (int e = tid; e < kBM * (kGN / 8); e += kThreads) {
+    const int p = e / (kGN / 8), col = (e % (kGN / 8)) * 8;
+    const int64_t m = m0 + p;
+    if (m >= rows || col >= ncols) continue;
+    __nv_bfloat16* dst = out + m * nc + n0 + col;
+    const __nv_bfloat16* src = os + p * kBLd + col;
+    if (vec_o) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < 8 && col + j < ncols; ++j) dst[j] = src[j];
     }
   }
 }
@@ -331,13 +382,14 @@ gemm_conv_f32(const float* __restrict__ x, const float* __restrict__ wc,
 
 extern "C" int annonet_conv3x3_gemm(const void* x, const void* wc,
                                     const void* wl, const void* wr,
-                                    const void* bias, void* out, int64_t n,
-                                    int64_t h, int64_t wb, int k1, int nc,
-                                    int cout, int bf16, void* stream) {
+                                    const void* bias, const void* table,
+                                    void* out, int64_t n, int64_t h,
+                                    int64_t wb, int k1, int nc, int cout,
+                                    int bf16, void* stream) {
   using namespace annonet;
   cudaGetLastError();  // report this launch's error only
   if (k1 <= 0 || nc <= 0 || cout <= 0 || nc % cout || h > INT32_MAX ||
-      wb > INT32_MAX)
+      wb > INT32_MAX || (bf16 && table == nullptr))
     return (int)cudaErrorInvalidValue;
   const int64_t rows = n * h * wb;
   if (rows == 0) return 0;
@@ -348,14 +400,20 @@ extern "C" int annonet_conv3x3_gemm(const void* x, const void* wc,
     const auto* wct = static_cast<const __nv_bfloat16*>(wc);
     const auto* wlt = static_cast<const __nv_bfloat16*>(wl);
     const auto* wrt = static_cast<const __nv_bfloat16*>(wr);
+    auto* ot = static_cast<__nv_bfloat16*>(out);
     const int vec_a = k1 % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     const int vec_b = nc % 8 == 0 && reinterpret_cast<uintptr_t>(wc) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(wl) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(wr) % 16 == 0;
-    dim3 grid((unsigned)((rows + kBM - 1) / kBM), (unsigned)((nc + kBN - 1) / kBN));
-    gemm_conv_bf16<<<grid, kThreads, 0, s>>>(
-        xt, wct, wlt, wrt, b, static_cast<__nv_bfloat16*>(out), rows, (int)h,
-        (int)wb, k1, nc, cout, vec_a, vec_b);
+    const int vec_o = nc % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const int groups = (nc + kGN - 1) / kGN;
+    const cudaError_t e = cudaFuncSetAttribute(
+        gemm_conv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((unsigned)((rows + kBM - 1) / kBM), (unsigned)groups);
+    gemm_conv_bf16<<<grid, kThreads, kSmemBytes, s>>>(
+        xt, wct, wlt, wrt, b, static_cast<const int*>(table), ot, rows, (int)h,
+        (int)wb, k1, nc, cout, groups, vec_a, vec_b, vec_o);
   } else {
     dim3 grid((unsigned)((rows + kFM - 1) / kFM), (unsigned)((nc + kFN - 1) / kFN));
     gemm_conv_f32<<<grid, kThreads, 0, s>>>(

@@ -1,21 +1,13 @@
-// int8 conv + requant kernels of the quantized segmentation net (Q1-Q3).
+// int8 conv + requant kernels of the quantized segmentation net (Q2, Q3).
 //
 // Replaces the Pallas TPU kernels of annonet_tpu/ops/int8_conv_mosaic.py
-//   Q1 qconv3x3_s1_requant (:673)  3x3 stride 1, zero padding (1, 1)
 //   Q2 qconv3x3_s2_requant (:222)  3x3 stride 2, zero padding (0, 1)
 //   Q3 qup_requant         (:294)  2x2 stride-2 transpose conv
 // and the XLA int8 convs the default JAX path runs in their place
 // (models/quantized_runtime.py apply_folded_int8). The TPU kernels work on
 // the width-folded layout (8 pixels x 16 channels in 128 lanes) as tap
-// GEMMs; these run the plain NHWC geometry.
-//
-// Q1 also has an accumulator mode (ACC, stride 1 only) that stops before
-// the requant and writes the int32 sums, [N, H, W, cout], with 16-byte
-// stores: the counterpart of the raw-accumulator Pallas kernel of the TPU
-// diagnostic script scripts/repro_mosaic_s1.py (bisect._acc_kernel, :136,
-// pallas_call at :160), which tells a wrong sum from a wrong epilogue. It
-// is the same __dp4a direct convolution and moves 4 bytes per output
-// element where the requant moves 1.
+// GEMMs; these run the plain NHWC geometry. Q1 (stride 1) and its
+// accumulator mode run on the int8 tensor cores (qconv_igemm.cu).
 //
 // Every layer function is requant(conv_int32(x, w_q)):
 //   q = int8(clip(fma(float(acc), scale[co], offset[co]), 0, 127))
@@ -28,20 +20,17 @@
 // What bounds them on an H100: int8 activations halve the bytes of the
 // bf16 net, and a layer's 2*9*cin MACs per output channel are far under
 // the int8 tensor cores' ridge, so with tensor cores the layers would be
-// bound by bytes. This first version is direct convolution on the CUDA
-// cores with __dp4a (four int8 products and an int32 add per
-// instruction): its bound is the instruction rate, dp4a and the
-// shared-memory loads that feed it, and its time follows the layer's MACs
-// (on the H100 it takes about a third of K1-K3's time). It keeps the
-// bytes low: each input element is read once per block from device memory
-// into a shared-memory patch of 4-channel words (halo included; the stem's
-// 3 channels are zero-padded to one word there), the weights of a channel
-// chunk are packed into words once per block, and each thread keeps 16
-// output channels of one pixel in int32 registers. Q1 takes the decoder's
-// concat([up, skip]) as two input pointers and never materialises it.
-// wgmma with TMA loads is later work.
+// bound by bytes. These are direct convolutions on the CUDA cores with
+// __dp4a (four int8 products and an int32 add per instruction): their
+// bound is the instruction rate, dp4a and the shared-memory loads that
+// feed it, and their time follows the layer's MACs. They keep the bytes
+// low: each input element is read once per block from device memory into
+// a shared-memory patch of 4-channel words (halo included), the weights of
+// a channel chunk are packed into words once per block, and each thread
+// keeps 16 output channels of one pixel in int32 registers. Moving them to
+// the int8 tensor cores, as Q1, is later work.
 //
-// Offsets are 64-bit: a 25-tile batch of 896^2 at 16 channels is 3.2e8
+// Offsets are 64-bit: a 25-tile batch of 872^2 at 16 channels is 3.0e8
 // elements, and the deeper layers' products of batch, pixels and channels
 // come near 2^31.
 
@@ -54,29 +43,19 @@ constexpr int kThreads = 256;
 constexpr int kTileW = 32;  // output columns per block: one warp per row
 constexpr int kCpt = 16;    // output channels per thread
 
-// Channel word cw of a pixel of the virtual concat [x (c1), x2 (c2)]:
-// channels 4cw..4cw+3 packed little-endian (byte j = channel 4cw+j), zero
-// past the last channel. ``words`` says both inputs hold whole 4-byte
-// aligned words (c1 and c2 multiples of 4), so one load serves.
+// Channel word cw of pixel ``pix`` of x (cin channels): channels
+// 4cw..4cw+3 packed little-endian (byte j = channel 4cw+j), zero past the
+// last channel. ``words`` says x holds whole 4-byte aligned words (cin a
+// multiple of 4), so one load serves.
 __device__ __forceinline__ int32_t load_word(const int8_t* __restrict__ x,
-                                             const int8_t* __restrict__ x2,
-                                             int64_t pix, int c1, int c2,
-                                             int cw, bool words) {
+                                             int64_t pix, int cin, int cw,
+                                             bool words) {
   const int c = 4 * cw;
-  if (words)
-    return c < c1 ? *reinterpret_cast<const int32_t*>(x + pix * c1 + c)
-                  : *reinterpret_cast<const int32_t*>(x2 + pix * c2 + c - c1);
+  if (words) return *reinterpret_cast<const int32_t*>(x + pix * cin + c);
   uint32_t v = 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int cj = c + j;
-    int8_t b = 0;
-    if (cj < c1)
-      b = x[pix * c1 + cj];
-    else if (cj < c1 + c2)
-      b = x2[pix * c2 + cj - c1];
-    v |= (uint32_t)(uint8_t)b << (8 * j);
-  }
+  for (int j = 0; j < 4; ++j)
+    if (c + j < cin) v |= (uint32_t)(uint8_t)x[pix * cin + c + j] << (8 * j);
   return (int32_t)v;
 }
 
@@ -123,48 +102,28 @@ __device__ __forceinline__ void store16(int8_t* o, int co0, int cout,
     if (co0 + j < cout) o[co0 + j] = q[j];
 }
 
-// 16 consecutive int32 sums of one pixel: 16-byte stores where 4 whole
-// aligned channels remain, scalars otherwise.
-__device__ __forceinline__ void store16_i32(int32_t* o, int co0, int cout,
-                                            const int32_t (&acc)[kCpt]) {
-#pragma unroll
-  for (int k = 0; k < kCpt / 4; ++k) {
-    const int co = co0 + 4 * k;
-    if (cout % 4 == 0 && co + 4 <= cout) {
-      *reinterpret_cast<int4*>(o + co) =
-          make_int4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (co + j < cout) o[co + j] = acc[4 * k + j];
-    }
-  }
-}
-
-// Q1 / Q2. groups: output-channel groups of kCpt per block (1 when
+// Q2. groups: output-channel groups of kCpt per block (1 when
 // cout <= 16). The block covers (8 / groups) x 32 output pixels x
-// (16 * groups) channels, like K1. ACC: ``out`` takes the int32 sums
-// (scale and offset unused), else the requantized int8.
-template <int STRIDE, int GROUPS, bool ACC>
+// (16 * groups) channels.
+template <int GROUPS>
 __global__ void __launch_bounds__(kThreads)
-qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
-                const int8_t* __restrict__ w, const float* __restrict__ scale,
-                const float* __restrict__ offset, void* __restrict__ out,
-                int64_t h, int64_t wd, int c1, int c2, int cout,
-                int64_t tiles_x, bool words) {
+qconv3x3_s2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ offset, int8_t* __restrict__ out,
+                   int64_t h, int64_t wd, int cin, int cout, int64_t tiles_x,
+                   bool words) {
+  constexpr int STRIDE = 2;
   constexpr int kTileH = 8 / GROUPS;
   constexpr int kTilePix = kTileH * kTileW;
   constexpr int kCob = kCpt * GROUPS;
-  constexpr int kWk = STRIDE == 1 ? 8 : 4;  // channel words per chunk
+  constexpr int kWk = 4;  // channel words per chunk
   constexpr int kPh = (kTileH - 1) * STRIDE + 3;
   constexpr int kPw = (kTileW - 1) * STRIDE + 3;
-  constexpr int kPad = STRIDE == 1 ? 1 : 0;  // top/left zero padding
   static_assert(kTilePix * GROUPS == kThreads, "block shape");
 
   __shared__ int32_t patch[kWk][kPh][kPw];
   __shared__ __align__(16) int32_t wsh[9][kWk][kCob];
 
-  const int cin = c1 + c2;
   const int cinw = (cin + 3) / 4;
   const int64_t ho = h / STRIDE, wo = wd / STRIDE;
   const int64_t img = blockIdx.z;
@@ -174,7 +133,7 @@ qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
   const int tid = threadIdx.x;
   const int p = tid % kTilePix, g = tid / kTilePix;
   const int ty = p / kTileW, tx = p % kTileW;
-  const int64_t iy0 = oy0 * STRIDE - kPad, ix0 = ox0 * STRIDE - kPad;
+  const int64_t iy0 = oy0 * STRIDE, ix0 = ox0 * STRIDE;
 
   int32_t acc[kCpt];
 #pragma unroll
@@ -190,7 +149,7 @@ qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
       const int cw = w0 + wi;
       int32_t v = 0;
       if (iy >= 0 && iy < h && ix >= 0 && ix < wd && cw < cinw)
-        v = load_word(x, x2, (img * h + iy) * wd + ix, c1, c2, cw, words);
+        v = load_word(x, (img * h + iy) * wd + ix, cin, cw, words);
       patch[wi][py][px] = v;
     }
     for (int e = tid; e < 9 * kWk * kCob; e += kThreads) {
@@ -227,18 +186,13 @@ qconv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
   const int64_t oy = oy0 + ty, ox = ox0 + tx;
   if (oy < ho && ox < wo) {
     const int co0 = cob + g * kCpt;
-    const int64_t o = ((img * ho + oy) * wo + ox) * cout;
-    if constexpr (ACC) {
-      store16_i32(static_cast<int32_t*>(out) + o, co0, cout, acc);
-    } else {
-      int8_t q[kCpt];
+    int8_t q[kCpt];
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j) {
-        const int co = co0 + j < cout ? co0 + j : cout - 1;
-        q[j] = requant(acc[j], scale[co], offset[co]);
-      }
-      store16(static_cast<int8_t*>(out) + o, co0, cout, q);
+    for (int j = 0; j < kCpt; ++j) {
+      const int co = co0 + j < cout ? co0 + j : cout - 1;
+      q[j] = requant(acc[j], scale[co], offset[co]);
     }
+    store16(out + ((img * ho + oy) * wo + ox) * cout, co0, cout, q);
   }
 }
 
@@ -278,7 +232,7 @@ qup2x2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       const int64_t pidx = p0 + q;
       const int cw = w0 + wi;
       xs[wi][q] = (pidx < npix && cw < cinw)
-                      ? load_word(x, nullptr, pidx, cin, 0, cw, words)
+                      ? load_word(x, pidx, cin, cw, words)
                       : 0;
     }
     // ws[s = 2u + v] holds the flipped tap w_q[1-u][1-v]
@@ -331,78 +285,48 @@ qup2x2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int STRIDE, int GROUPS, bool ACC = false>
-void launch_qconv(const int8_t* x, const int8_t* x2, const int8_t* w,
-                  const float* scale, const float* offset, void* out,
-                  int64_t n, int64_t h, int64_t wd, int c1, int c2, int cout,
-                  bool words, cudaStream_t stream) {
+template <int GROUPS>
+void launch_qconv_s2(const int8_t* x, const int8_t* w, const float* scale,
+                     const float* offset, int8_t* out, int64_t n, int64_t h,
+                     int64_t wd, int cin, int cout, bool words,
+                     cudaStream_t stream) {
   constexpr int kTileH = 8 / GROUPS;
-  const int64_t ho = h / STRIDE, wo = wd / STRIDE;
+  const int64_t ho = h / 2, wo = wd / 2;
   const int64_t tiles_x = (wo + kTileW - 1) / kTileW;
   const int64_t tiles_y = (ho + kTileH - 1) / kTileH;
   const int64_t slabs = (cout + kCpt * GROUPS - 1) / (kCpt * GROUPS);
   for (int64_t n0 = 0; n0 < n; n0 += kMaxGridYZ) {
     const int64_t nb = n - n0 < kMaxGridYZ ? n - n0 : kMaxGridYZ;
     dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)slabs, (unsigned)nb);
-    const int64_t o = n0 * ho * wo * cout * (ACC ? 4 : 1);  // bytes
-    qconv3x3_kernel<STRIDE, GROUPS, ACC><<<grid, kThreads, 0, stream>>>(
-        x + n0 * h * wd * c1, x2 == nullptr ? nullptr : x2 + n0 * h * wd * c2,
-        w, scale, offset, static_cast<int8_t*>(out) + o, h, wd, c1, c2, cout,
-        tiles_x, words);
+    qconv3x3_s2_kernel<GROUPS><<<grid, kThreads, 0, stream>>>(
+        x + n0 * h * wd * cin, w, scale, offset, out + n0 * ho * wo * cout, h, wd,
+        cin, cout, tiles_x, words);
   }
 }
 
 }  // namespace
 }  // namespace annonet
 
-extern "C" int annonet_qconv3x3_requant(const void* x, const void* x2,
-                                        const void* w, const void* scale,
-                                        const void* offset, void* out,
-                                        int64_t n, int64_t h, int64_t wd,
-                                        int c1, int c2, int cout, int stride,
-                                        int words, void* stream) {
+extern "C" int annonet_qconv3x3_s2_requant(const void* x, const void* w,
+                                           const void* scale,
+                                           const void* offset, void* out,
+                                           int64_t n, int64_t h, int64_t wd,
+                                           int cin, int cout, int words,
+                                           void* stream) {
   using namespace annonet;
   cudaGetLastError();  // report this launch's error only
-  if ((stride != 1 && stride != 2) || cout <= 0 || c1 <= 0 || c2 < 0)
-    return (int)cudaErrorInvalidValue;
-  if (n == 0 || h / stride == 0 || wd / stride == 0) return 0;
+  if (cout <= 0 || cin <= 0) return (int)cudaErrorInvalidValue;
+  if (n == 0 || h / 2 == 0 || wd / 2 == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* xt = static_cast<const int8_t*>(x);
-  const int8_t* x2t = static_cast<const int8_t*>(x2);
   const int8_t* wt = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
   int8_t* ot = static_cast<int8_t*>(out);
-  const bool wide = cout > kCpt, wo = words != 0;
-  if (stride == 1 && wide)
-    launch_qconv<1, 2>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
-  else if (stride == 1)
-    launch_qconv<1, 1>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
-  else if (wide)
-    launch_qconv<2, 2>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
-  else
-    launch_qconv<2, 1>(xt, x2t, wt, sc, of, ot, n, h, wd, c1, c2, cout, wo, s);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int annonet_qconv3x3_acc(const void* x, const void* x2,
-                                    const void* w, void* out, int64_t n,
-                                    int64_t h, int64_t wd, int c1, int c2,
-                                    int cout, int words, void* stream) {
-  using namespace annonet;
-  cudaGetLastError();
-  if (cout <= 0 || c1 <= 0 || c2 < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0 || h == 0 || wd == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xt = static_cast<const int8_t*>(x);
-  const int8_t* x2t = static_cast<const int8_t*>(x2);
-  const int8_t* wt = static_cast<const int8_t*>(w);
   if (cout > kCpt)
-    launch_qconv<1, 2, true>(xt, x2t, wt, nullptr, nullptr, out, n, h, wd, c1,
-                             c2, cout, words != 0, s);
+    launch_qconv_s2<2>(xt, wt, sc, of, ot, n, h, wd, cin, cout, words != 0, s);
   else
-    launch_qconv<1, 1, true>(xt, x2t, wt, nullptr, nullptr, out, n, h, wd, c1,
-                             c2, cout, words != 0, s);
+    launch_qconv_s2<1>(xt, wt, sc, of, ot, n, h, wd, cin, cout, words != 0, s);
   return (int)cudaGetLastError();
 }
 

@@ -34,10 +34,12 @@ net of ``models/folded_runtime.py`` on every plan whose tile width folds
 (``folding_supported``), one net per base fold, and the unfolded net on
 the others, as the JAX inferer falls back to ``apply_runtime``.
 
-Plans come from ``infer/tiling.py`` exactly as the JAX unfolded inferer
-makes them, so both packages tile an image identically. The JAX folded
-inferer's count-cliff bump (``core.py:816-833``, a plan heuristic measured
-on the TPU's XLA conv emitters) is not ported. Gains enter the
+Plans come from ``infer/tiling.py`` as the JAX default (folded) inferer
+makes them (``plan_image``): without the lane round-up when the config
+folds. The JAX folded inferer's count-cliff bump (``core.py:816-833``, a
+plan heuristic measured on the TPU's XLA conv emitters) is not ported, so
+the plans differ where an axis has exactly 3 tiles (the 2300x1500 image's
+columns, for one). Gains enter the
 argmax in logit space after normalisation; seeds compare gain-free
 blended margins (annonet_infer.cpp:170-212, PARITY.md's documented
 deviation and its compat mode).
@@ -86,6 +88,28 @@ _CANVAS_BUCKET = 128
 FORWARD_BUDGET_BYTES = 8 << 30
 _MULTI = 'ROADMAP.md queue 1 item 4, "Inference CLIs and serving"'
 _BLEND_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def default_tiling(config: SegNetConfig) -> TilingParameters:
+    """The inferer's tiling when none is given: the reference's CUDA tile
+    max (1024) and the net's receptive field as the overlap."""
+    tile_max = default_tile_max()
+    overlap = required_input_dimension(config)
+    return TilingParameters(tile_max, tile_max, overlap, overlap)
+
+
+def plan_image(image_height: int, image_width: int, config: SegNetConfig,
+               tiling: TilingParameters) -> TilePlan:
+    """The inferer's plan, as JAX's default (folded) inferer makes it
+    (``annonet_tpu/infer/core.py:771-780``): tiles round up to a multiple
+    of 128 only when the config does not fold; a config that folds needs
+    them to divide the fold, so a 4096x4096 image plans to 25 tiles of
+    872x872 with the flagship. JAX's count-cliff bump (``:816-833``) is not
+    ported: the two plans differ where an axis has exactly 3 tiles."""
+    return plan_tiles(
+        image_height, image_width, config, tiling, canvas_bucket=_CANVAS_BUCKET,
+        lane_align_tiles=not folding_supported(config, 8 * 128),
+    )
 
 
 def _edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
@@ -144,9 +168,7 @@ class TiledInferer:
         self.runtime_params = runtime_params
         self.net = RuntimeSegNet(runtime_params, config, device=self.device)
         if tiling is None:
-            tile_max = default_tile_max()
-            overlap = required_input_dimension(config)
-            tiling = TilingParameters(tile_max, tile_max, overlap, overlap)
+            tiling = default_tiling(config)
         if tiling.overlap_x < 0 or tiling.overlap_y < 0:
             raise ValueError("tile overlap must be non-negative")
         self.tiling = tiling
@@ -167,10 +189,7 @@ class TiledInferer:
         self.float_fallbacks = 0
 
     def plan(self, image_height: int, image_width: int) -> TilePlan:
-        return plan_tiles(
-            image_height, image_width, self.config, self.tiling,
-            canvas_bucket=_CANVAS_BUCKET, lane_align_tiles=True,
-        )
+        return plan_image(image_height, image_width, self.config, self.tiling)
 
     def _constants(self, plan: TilePlan):
         """(ramp, inv_wsum, tile_yx, wsum factors or None) of a plan, on the

@@ -1,9 +1,9 @@
 """Tile-grid planning for large-image inference.
 
 A copy of annonet_tpu/infer/tiling.py (which imports JAX through its
-model module), planning exactly as the JAX package's unfolded inferer
-does: ``plan_tiles(..., canvas_bucket=128, lane_align_tiles=True)``, so
-both packages tile an image identically.
+model module), planning exactly as the JAX package does for the same
+``lane_align_tiles``; ``infer/core.py::plan_image`` chooses it as the JAX
+default inferer does.
 
 Geometry:
   * tile side = recommended_input_dimension(min(max_tile, image_dim)),

@@ -7,7 +7,8 @@ channel dim, a free view of NHWC), the fold halves through each stride-2
 encoder stage and doubles through each 2x upsample, and every stride-1 3x3
 layer at a fold above 1 is an ``s1p:<fold>:<cin>`` entry: G1
 (``ops/gemm_conv.py``) with the ``(Wc, Wl, Wr)`` of
-``build_gemm_kernels_aligned`` on the folded view. The decoder's concat
+``build_gemm_kernels_aligned`` on the folded view and their table of nonzero
+blocks (``g1_block_table``), made once per layer. The decoder's concat
 [up, skip] in folded layout is not the NHWC concat, so its G1 weights carry
 the concat permutation inside each dy group (``folded_runtime.py:195-200``).
 
@@ -43,6 +44,7 @@ from annonet_tpu_torch.ops.conv import (
 from annonet_tpu_torch.ops.gemm_conv import (
     build_gemm_kernels_aligned,
     conv3x3_gemm_aligned,
+    g1_block_table,
 )
 
 # (spec entry, runtime layer "block/conv" or None, fold at the layer's input)
@@ -220,6 +222,11 @@ class FoldedSegNet(nn.Module):
         self.entries = folded_entries(config, fold0)
         for key, t in folded_params_from_numpy(source, config, fold0, device).items():
             self.register_buffer(key.replace("/", "_"), t)
+        # each G1 layer's table of nonzero weight blocks, built once
+        for kind, name, _f in self.entries:
+            if kind.startswith("s1p:"):
+                self.register_buffer(f"{name.replace('/', '_')}_table", g1_block_table(
+                    *(self.param(name, k) for k in ("wc", "wl", "wr"))))
 
     def param(self, name: str, leaf: str) -> torch.Tensor:
         return getattr(self, f"{name.replace('/', '_')}_{leaf}")
@@ -263,7 +270,7 @@ class FoldedSegNet(nn.Module):
                 cin = xf.shape[3] // f
                 x = conv3x3_gemm_aligned(
                     xf, self.param(name, "wc"), self.param(name, "wl"),
-                    self.param(name, "wr"), b, f, cin,
+                    self.param(name, "wr"), b, f, cin, self.param(name, "table"),
                 ).view(n, h, w, b.shape[0])
             elif kind == "s1_plain":
                 x = conv3x3_bias_relu(x, self.param(name, "w"), b, x2=pending)

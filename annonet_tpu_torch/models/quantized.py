@@ -25,7 +25,8 @@ Scheme (symmetric static post-training quantization):
     weights (width(0) * 127 * 127 < 2**24), then ``acc * s_w + b``.
 
 Layer kernels: Q1 (stride-1 convs, the decoder's with the skip as a second
-input), Q2 (stride-2 convs), K3's requant mode or Q3 (up layers).
+input; their weights also packed once, as Q1's kernel reads them), Q2
+(stride-2 convs), K3's requant mode or Q3 (up layers).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from annonet_tpu_torch.models.segnet import (
 )
 from annonet_tpu_torch.ops.conv import up2x2_requant
 from annonet_tpu_torch.ops.qconv import (
+    pack_q1_weights,
     qconv3x3_requant,
     qconv3x3_s2_requant,
     qup2x2_requant,
@@ -242,9 +244,24 @@ class QuantizedSegNet(nn.Module):
                 self.register_buffer(name, t.to(device).contiguous())
                 names.append(name)
             self._names[layer] = names
+        # Q1's weights as its kernel reads them, packed once per layer
+        for layer in self.q1_layers():
+            self.register_buffer(f"{layer.replace('/', '_')}_w_packed",
+                                 pack_q1_weights(self._layer(layer)[0]))
+
+    def q1_layers(self) -> List[str]:
+        """The stride-1 int8 convs (Q1), in forward order."""
+        L = self.config.level_count
+        return (["stem/conv0", "stem/conv1"] + [f"enc{i}/conv1" for i in range(1, L + 1)]
+                + [f"dec{i}/conv0" for i in range(L, 0, -1)])
 
     def _layer(self, layer: str):
         return [getattr(self, n) for n in self._names[layer]]
+
+    def _q1(self, layer: str, x, x2=None):
+        w_q, scale, offset = self._layer(layer)
+        packed = getattr(self, f"{layer.replace('/', '_')}_w_packed")
+        return qconv3x3_requant(x, w_q, scale, offset, x2=x2, packed=packed)
 
     def check_input(self, x: torch.Tensor) -> None:
         cfg = self.config
@@ -271,14 +288,13 @@ class QuantizedSegNet(nn.Module):
                 tap(name, x)
             return x
 
-        x = out("stem/conv0", qconv3x3_requant(x_q, *self._layer("stem/conv0")))
-        x = out("stem/conv1", qconv3x3_requant(x, *self._layer("stem/conv1")))
+        x = out("stem/conv0", self._q1("stem/conv0", x_q))
+        x = out("stem/conv1", self._q1("stem/conv1", x))
         skips: List[torch.Tensor] = [x]
         for i in range(1, L + 1):
             x = out(f"enc{i}/conv0",
                     qconv3x3_s2_requant(x, *self._layer(f"enc{i}/conv0")))
-            x = out(f"enc{i}/conv1",
-                    qconv3x3_requant(x, *self._layer(f"enc{i}/conv1")))
+            x = out(f"enc{i}/conv1", self._q1(f"enc{i}/conv1", x))
             if i < L:
                 skips.append(x)
         for i in range(L, 0, -1):
@@ -290,8 +306,7 @@ class QuantizedSegNet(nn.Module):
                 x = up2x2_requant(x, s_in, w, scale, offset)
             x = out(f"dec{i}/up", x)
             # the decoder's concat([up, skip]) is Q1's second input
-            x = out(f"dec{i}/conv0", qconv3x3_requant(
-                x, *self._layer(f"dec{i}/conv0"), x2=skips.pop()))
+            x = out(f"dec{i}/conv0", self._q1(f"dec{i}/conv0", x, skips.pop()))
         w_q, s_w, b = self._layer("head")
         # exact: every partial sum is an integer below 2**24
         acc = torch.matmul(x.to(torch.float32), w_q)

@@ -52,22 +52,21 @@ _SIGNATURES = {
     "annonet_up2x2_requant": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
-    # x, x2, w, scale, offset, out, n, h, w, c1, c2, cout, stride, words,
-    # stream
-    "annonet_qconv3x3_requant": [
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P,
+    # x, x2, packed w, scale, offset, out, n, h, w, c1, c2, cout, acc, stream
+    "annonet_q1_igemm": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P,
     ],
-    # x, x2, w, out, n, h, w, c1, c2, cout, words, stream
-    "annonet_qconv3x3_acc": [
-        _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P,
+    # x, w, scale, offset, out, n, h, w, cin, cout, words, stream
+    "annonet_qconv3x3_s2_requant": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
     # x, w, scale, offset, out, n, h, w, cin, cout, words, stream
     "annonet_qup2x2_requant": [
         _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
-    # x, wc, wl, wr, bias, out, n, h, wb, k1, nc, cout, bf16, stream
+    # x, wc, wl, wr, bias, table, out, n, h, wb, k1, nc, cout, bf16, stream
     "annonet_conv3x3_gemm": [
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P,
     ],
     # logits, tile_yx, ramp, inv_wsum, gains, det, wy, wx, labels, seeds,
     # n_tiles, m, th, tw, hp, wp, k, labels_int32, with_detection,

@@ -2,14 +2,19 @@
 
 Each op has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper checks its arguments; for tensors on the CPU it returns the plain
-version, for CUDA tensors it launches the hand-written kernel of
-``csrc/qconv.cu`` on the current stream (or raises: there is no fallback
+version, for CUDA tensors it launches the hand-written kernel
+(``csrc/qconv_igemm.cu`` for Q1 and its accumulator mode, ``csrc/qconv.cu``
+for Q2 and Q3) on the current stream (or raises: there is no fallback
 from a CUDA tensor to the plain version) and adds one to its ``launches``
 count.
 
 Layouts: activations NHWC int8 ([N, H, W, C], contiguous, the post-ReLU
 grid [0, 127] except the input image's [-127, 127]), weights HWIO int8,
-requant scale and offset f32. Output NHWC int8.
+requant scale and offset f32. Output NHWC int8. Q1's kernel reads its
+weights as ``pack_q1_weights`` lays them out (each output channel's K
+contiguous, the tensor cores' "col" B operand); its wrappers take the HWIO
+weights and, optionally, that packed copy made once per layer
+(``models/quantized.py``), else they pack on each call.
 
 Every op is ``requant(acc)`` of an exact int32 conv sum ``acc``:
 
@@ -138,26 +143,76 @@ def _check(x, w, scale, offset, kh, kw, cin, scale_shape, what):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _words(*tensors) -> int:
-    """1 when every activation holds whole aligned 4-channel words."""
-    return int(all(t.shape[3] % 4 == 0 and t.data_ptr() % 4 == 0 for t in tensors))
+def _words(x) -> int:
+    """1 when the activation holds whole aligned 4-channel words."""
+    return int(x.shape[3] % 4 == 0 and x.data_ptr() % 4 == 0)
 
 
-def _launch_qconv(x, x2, w, scale, offset, stride):
+# layers of at most this many input channels fill half of an int8 k32 step:
+# two row taps share one (csrc/qconv_igemm.cu, PAIR)
+Q1_PAIR_CIN = 16
+
+
+def pack_q1_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO [3, 3, cin, cout] int8 -> Q1's B operand [chunks, units, cout,
+    32] int8, zero-padded: unit u of chunk t holds, for each output channel,
+    the 32 bytes of one int8 k32 step.
+
+    cin > 16: chunk t covers channels 32t .. 32t + 31, unit dy*3 + dx the
+    tap (dy, dx). cin <= 16: one chunk of 6 units, unit dx*2 holding taps
+    (0, dx) in bytes 0-15 and (1, dx) in bytes 16-31, unit dx*2 + 1 the tap
+    (2, dx) in bytes 0-15."""
+    if w.dim() != 4 or tuple(w.shape[:2]) != (3, 3) or w.dtype != torch.int8:
+        raise ValueError(f"pack_q1_weights: expected int8 [3,3,cin,cout], got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    cin, cout = w.shape[2], w.shape[3]
+    taps = w.permute(0, 1, 3, 2)  # [dy, dx, cout, cin]
+    if cin <= Q1_PAIR_CIN:
+        p = w.new_zeros((3, 2, cout, 32))
+        p[:, 0, :, :cin] = taps[0]
+        p[:, 0, :, 16 : 16 + cin] = taps[1]
+        p[:, 1, :, :cin] = taps[2]
+        return p.reshape(1, 6, cout, 32)
+    chunks = -(-cin // 32)
+    p = w.new_zeros((3, 3, cout, chunks * 32))
+    p[..., :cin] = taps
+    return p.reshape(9, cout, chunks, 32).permute(2, 0, 1, 3).contiguous()
+
+
+def _q1_shape(cin: int, cout: int):
+    return (1, 6, cout, 32) if cin <= Q1_PAIR_CIN else (-(-cin // 32), 9, cout, 32)
+
+
+def _q1_packed(x, c2, w, packed, what):
+    """Q1's packed weights for a launch: ``packed`` checked, or made here."""
+    cin, cout = x.shape[3] + c2, w.shape[3]
+    if packed is None:
+        return pack_q1_weights(w)
+    if (packed.dtype != torch.int8 or tuple(packed.shape) != _q1_shape(cin, cout)
+            or packed.device != x.device or not packed.is_contiguous()):
+        raise ValueError(f"{what}: packed weights must be contiguous int8 "
+                         f"{list(_q1_shape(cin, cout))} on {x.device}, got "
+                         f"{tuple(packed.shape)} {packed.dtype} on {packed.device}")
+    return packed
+
+
+def _launch_q1(x, x2, packed, scale, offset):
+    """Q1's kernel on CUDA tensors: the requantized int8, or with ``scale``
+    None the int32 sums."""
     n, h, wd, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[3]
-    cout = w.shape[3]
-    out = torch.empty(
-        (n, h // stride, wd // stride, cout), dtype=torch.int8, device=x.device
-    )
+    cout = packed.shape[2]
+    acc = scale is None
+    out = torch.empty((n, h, wd, cout), dtype=torch.int32 if acc else torch.int8,
+                      device=x.device)
     with torch.cuda.device(x.device):
-        code = _build.lib().annonet_qconv3x3_requant(
-            x.data_ptr(), 0 if x2 is None else x2.data_ptr(), w.data_ptr(),
-            scale.data_ptr(), offset.data_ptr(), out.data_ptr(), n, h, wd, c1,
-            c2, cout, stride, _words(x) if x2 is None else _words(x, x2),
+        code = _build.lib().annonet_q1_igemm(
+            x.data_ptr(), 0 if x2 is None else x2.data_ptr(), packed.data_ptr(),
+            0 if acc else scale.data_ptr(), 0 if acc else offset.data_ptr(),
+            out.data_ptr(), n, h, wd, c1, c2, cout, int(acc),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _build.check(code, "annonet_qconv3x3_requant")
+    _build.check(code, "annonet_q1_igemm")
     return out
 
 
@@ -172,38 +227,33 @@ def _second_input(x, x2, what) -> int:
     return x2.shape[3]
 
 
-def qconv3x3_requant(x, w, scale, offset, x2: Optional[torch.Tensor] = None):
-    """Q1: requant(conv3x3_same([x, x2])), int8 NHWC in and out."""
+def qconv3x3_requant(x, w, scale, offset, x2: Optional[torch.Tensor] = None,
+                     packed: Optional[torch.Tensor] = None):
+    """Q1: requant(conv3x3_same([x, x2])), int8 NHWC in and out; ``packed``
+    is ``pack_q1_weights(w)``, made once by the caller, or None."""
     c2 = _second_input(x, x2, "qconv3x3_requant")
     _check(x, w, scale, offset, 3, 3, x.shape[3] + c2, (), "qconv3x3_requant")
     if x.device.type == "cpu":
         return qconv3x3_requant_plain(x, w, scale, offset, x2)
+    packed = _q1_packed(x, c2, w, packed, "qconv3x3_requant")
     qconv3x3_requant.launches += 1
-    return _launch_qconv(x, x2, w, scale, offset, 1)
+    return _launch_q1(x, x2, packed, scale, offset)
 
 
 qconv3x3_requant.launches = 0
 
 
-def qconv3x3_acc(x, w, x2: Optional[torch.Tensor] = None):
+def qconv3x3_acc(x, w, x2: Optional[torch.Tensor] = None,
+                 packed: Optional[torch.Tensor] = None):
     """Q1's accumulator mode: conv3x3_same([x, x2]) as exact int32 sums,
-    int8 NHWC in, [N, H, W, C'] int32 out."""
+    int8 NHWC in, [N, H, W, C'] int32 out (``packed`` as for Q1)."""
     c2 = _second_input(x, x2, "qconv3x3_acc")
     _check(x, w, None, None, 3, 3, x.shape[3] + c2, (), "qconv3x3_acc")
     if x.device.type == "cpu":
         return qconv3x3_acc_plain(x, w, x2)
+    packed = _q1_packed(x, c2, w, packed, "qconv3x3_acc")
     qconv3x3_acc.launches += 1
-    n, h, wd, c1 = x.shape
-    out = torch.empty((n, h, wd, w.shape[3]), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _build.lib().annonet_qconv3x3_acc(
-            x.data_ptr(), 0 if x2 is None else x2.data_ptr(), w.data_ptr(),
-            out.data_ptr(), n, h, wd, c1, c2, w.shape[3],
-            _words(x) if x2 is None else _words(x, x2),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(code, "annonet_qconv3x3_acc")
-    return out
+    return _launch_q1(x, x2, packed, None, None)
 
 
 qconv3x3_acc.launches = 0
@@ -220,7 +270,17 @@ def qconv3x3_s2_requant(x, w, scale, offset):
     if x.device.type == "cpu":
         return qconv3x3_s2_requant_plain(x, w, scale, offset)
     qconv3x3_s2_requant.launches += 1
-    return _launch_qconv(x, None, w, scale, offset, 2)
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((n, h // 2, wd // 2, cout), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _build.lib().annonet_qconv3x3_s2_requant(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, cout, _words(x),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "annonet_qconv3x3_s2_requant")
+    return out
 
 
 qconv3x3_s2_requant.launches = 0

@@ -9,11 +9,13 @@ Phases (any failure raises, and the exit code is then nonzero):
   2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc, one
               compiler process per source, in parallel; then reads the
               library's SASS (cuobjdump): the bf16 K1/K2 kernels
-              (igemm_kernel) and both modes of bf16 K3 (upgemm_kernel) must
-              hold tensor-core instructions (HMMA or HGMMA) and no bf16
+              (igemm_kernel), both modes of bf16 K3 (upgemm_kernel) and
+              bf16 G1 (gemm_conv_bf16) must hold tensor-core instructions
+              (HMMA or HGMMA), every Q1 kernel of both modes
+              (q1_igemm_kernel) int8 ones (IMMA) and no __dp4a; no bf16
               instantiation of the f32 direct convolutions (conv3x3,
-              up2x2) may exist; prints those kernels' registers, stack,
-              local and static shared memory
+              up2x2) and no stride-1 __dp4a kernel may exist; prints those
+              kernels' registers, stack, local and static shared memory
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes, with its bound (the larger of its bytes at the
               HBM rate and its operations at the tensor-core peak) and,
@@ -21,9 +23,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               call's time (cuDNN F.conv2d / conv_transpose2d with bias):
               each conv layer of the flagship net
               (SegNetConfig(class_count=3, level_count=3, base_width=16),
-              widths 16/32/64/128) on the 25-tile 896x896 batch that a
-              4096x4096 image plans to, in bf16, plus the f32 kernels on
-              one tile; the blend epilogue on the 4096x4096 canvas with
+              widths 16/32/64/128) on the tile batch that the inferer
+              plans for a 4096x4096 image (25 tiles of 872x872), in bf16,
+              plus the f32 kernels on one tile; the blend epilogue on the 4096x4096 canvas with
               K=3, with and without detection and under the reference
               blend semantics. Then the int8 kernels on the same batch,
               with weights from quantize_net and calibration from one
@@ -36,7 +38,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               layers that the folded net (use_pallas_conv) runs at folds
               above 1, on the folded net's own activations of the 25-tile
               batch in bf16 and of one tile in f32, beside the three
-              cuBLAS GEMMs of the same shapes. Times come from CUDA events.
+              cuBLAS GEMMs of the same shapes; G1's bound counts the
+              products over its table of nonzero weight blocks (the
+              dense GEMM's beside it). Times come from CUDA events.
   4. accuracy the tiled inferer on the card against the same inferer on
               the CPU (plain versions) on a small image
   5. main     writes a random-weight flagship artifact (init_runtime_params,
@@ -92,7 +96,8 @@ import torch
 
 SEED = 0
 IMAGE_SIZES = (("a_2300x1500", 1500, 2300), ("b_4096x4096", 4096, 4096))
-# the 4096x4096 canvas's plan: 5x5 tiles of 896x896 (default tile max 1024)
+# the 4096x4096 canvas: the inferer plans it to 5x5 tiles of 872x872
+# (default tile max 1024); the kernel phases run that plan's tile batch
 CANVAS = 4096
 # bf16 kernels round once after the bias; the plain versions round the conv
 # sum to bf16 before the f32 bias (as the JAX net does), so the two may land
@@ -138,7 +143,7 @@ _SOURCES = {
     "conv3x3_s2_bias_relu": "annonet_tpu_torch/csrc/conv_igemm.cu",
     "up2x2_bias_relu": "annonet_tpu_torch/csrc/up_igemm.cu",
     "blend_argmax": "annonet_tpu_torch/csrc/blend.cu",
-    "qconv3x3_requant": "annonet_tpu_torch/csrc/qconv.cu",
+    "qconv3x3_requant": "annonet_tpu_torch/csrc/qconv_igemm.cu",
     "qconv3x3_s2_requant": "annonet_tpu_torch/csrc/qconv.cu",
     "qup2x2_requant": "annonet_tpu_torch/csrc/qconv.cu",
     "conv3x3_gemm_aligned": "annonet_tpu_torch/csrc/gemm_conv.cu",
@@ -172,41 +177,74 @@ def sass_functions(cuobjdump: str, library: str, what: str) -> dict:
 
 def short_name(mangled: str) -> str:
     """``igemm_kernel<1, 16>`` for the mangled name of a K1/K2 kernel,
-    ``upgemm_kernel<true>`` for a bf16 K3 one."""
+    ``upgemm_kernel<true>`` for a bf16 K3 one, ``q1_igemm_kernel<16, true,
+    false>`` for a Q1 one (cout block, two-row-tap steps, accumulator mode),
+    the plain name of G1's and of the __dp4a kernels, else the name as
+    given."""
     m = re.search(r"\d+(igemm_kernel|conv3x3_f32_kernel)ILi(\d+)ELi(\d+)E", mangled)
-    if m:
+    if m and "q1_igemm" not in mangled:
         return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+    m = re.search(r"q1_igemm_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    if m:
+        flags = ", ".join("true" if b == "1" else "false" for b in m.groups()[1:])
+        return f"q1_igemm_kernel<{m.group(1)}, {flags}>"
+    m = re.search(r"\d+(qconv3x3_s2_kernel|qup2x2_kernel)ILi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    if re.search(r"\d+gemm_conv_bf16E", mangled):
+        return "gemm_conv_bf16"
     m = re.search(r"\d+upgemm_kernelILb([01])E", mangled)
     return f"upgemm_kernel<{'true' if m.group(1) == '1' else 'false'}>" if m else mangled
 
 
 def check_tensor_cores(library: str) -> None:
     """The bf16 K1/K2 kernels (conv_igemm.cu's igemm_kernel<stride,
-    cout block>, all that annonet_conv3x3_bias_relu launches for bf16) and
+    cout block>, all that annonet_conv3x3_bias_relu launches for bf16),
     bf16 K3's (up_igemm.cu's upgemm_kernel<requant>, all that
-    annonet_up2x2_bias_relu and annonet_up2x2_requant launch for bf16) hold
-    HMMA or HGMMA instructions, and the f32 direct convolutions have no
-    bf16 instantiation; prints each of those kernels' resource usage."""
+    annonet_up2x2_bias_relu and annonet_up2x2_requant launch for bf16) and
+    bf16 G1's (gemm_conv.cu's gemm_conv_bf16) hold HMMA or HGMMA
+    instructions; Q1's (qconv_igemm.cu's q1_igemm_kernel<cout block, pair,
+    accumulator>, all that annonet_q1_igemm launches) hold IMMA and no
+    __dp4a (IDP.4A); __dp4a appears only in Q2's and Q3's kernels, so no
+    stride-1 __dp4a kernel is left; the f32 direct convolutions have no bf16
+    instantiation. Prints each of those kernels' tensor-core and __dp4a
+    instruction counts and resource usage (registers, stack, local memory:
+    a spill shows as local memory)."""
     from annonet_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = sass_functions(cuobjdump, library, "sass")
-    igemm = {k: v for k, v in sass.items() if "igemm_kernel" in k}
+    count = lambda name, pattern: sum(  # noqa: E731
+        len(re.findall(pattern, line)) for line in sass.get(name, ()))
+    hmma, imma, dp4a = r"\b(HMMA|HGMMA)\.", r"\bIMMA\.", r"\bIDP\.4A\b"
+    igemm = {k for k in sass if "igemm_kernel" in k and "q1_igemm" not in k}
     if len(igemm) != 8:  # 2 strides x 4 cout blocks
-        raise AssertionError(f"found {len(igemm)} bf16 K1/K2 kernels in the SASS: {list(igemm)}")
-    upgemm = {k: v for k, v in sass.items() if "upgemm_kernel" in k}
+        raise AssertionError(f"found {len(igemm)} bf16 K1/K2 kernels in the SASS: {sorted(igemm)}")
+    upgemm = {k for k in sass if "upgemm_kernel" in k}
     if len(upgemm) != 2:  # the float and the requant mode
-        raise AssertionError(f"found {len(upgemm)} bf16 K3 kernels in the SASS: {list(upgemm)}")
+        raise AssertionError(f"found {len(upgemm)} bf16 K3 kernels in the SASS: {sorted(upgemm)}")
+    g1 = {k for k in sass if short_name(k) == "gemm_conv_bf16"}
+    if len(g1) != 1:
+        raise AssertionError(f"found {len(g1)} bf16 G1 kernels in the SASS: {sorted(g1)}")
+    q1 = {k for k in sass if "q1_igemm_kernel" in k}
+    if len(q1) != 16:  # 4 cout blocks x pair or not x requant or accumulator
+        raise AssertionError(f"found {len(q1)} Q1 kernels in the SASS: {sorted(q1)}")
     stale = [k for k in sass if ("conv3x3" in k or "up2x2_kernel" in k) and "bfloat16" in k]
     if stale:
         raise AssertionError(f"a bf16 direct convolution is still compiled: {stale}")
+    dp4a_kernels = {short_name(k) for k in sass if count(k, dp4a)}
+    if any(not k.startswith(("qconv3x3_s2_kernel<", "qup2x2_kernel<")) for k in dp4a_kernels):
+        raise AssertionError(f"__dp4a outside Q2 and Q3: {sorted(dp4a_kernels)}")
     usage = sass_functions(cuobjdump, library, "resource-usage")
     for name in sorted(k for k in usage if short_name(k) != k):
-        mma = sum(len(re.findall(r"\b(HMMA|HGMMA)\.", line)) for line in sass.get(name, ()))
+        n_hmma, n_imma, n_dp4a = count(name, hmma), count(name, imma), count(name, dp4a)
         res = " ".join(line.strip() for line in usage[name] if "REG:" in line)
-        print(f"  {short_name(name):28s} tensor-core instructions {mma:4d}; {res}", flush=True)
-        if (name in igemm or name in upgemm) and mma == 0:
+        print(f"  {short_name(name):36s} HMMA/HGMMA {n_hmma:4d} IMMA {n_imma:4d} "
+              f"IDP.4A {n_dp4a:4d}; {res}", flush=True)
+        if (name in igemm or name in upgemm or name in g1) and n_hmma == 0:
             raise AssertionError(f"{short_name(name)} holds no HMMA or HGMMA instruction")
+        if name in q1 and (n_imma == 0 or n_dp4a):
+            raise AssertionError(f"{short_name(name)}: {n_imma} IMMA, {n_dp4a} IDP.4A")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -278,6 +316,13 @@ def flagship_config():
     from annonet_tpu_torch.models.segnet import SegNetConfig
 
     return SegNetConfig(class_count=3, level_count=3, base_width=16)
+
+
+def canvas_plan(config):
+    """The inferer's plan of the 4096x4096 canvas (25 tiles of 872x872)."""
+    from annonet_tpu_torch.infer.core import default_tiling, plan_image
+
+    return plan_image(CANVAS, CANVAS, config, default_tiling(config))
 
 
 def conv_calls(config, n: int, side: int):
@@ -398,18 +443,9 @@ def check_convs(params, config, device, n: int, side: int, dtype, tol: float,
 
 def blend_inputs(config, device, generator):
     """The 4096x4096 canvas's plan constants and random [T, th, tw, K] logits."""
-    from annonet_tpu_torch.infer.tiling import (
-        TilingParameters, default_tile_max, inverse_weight_sum, plan_tiles,
-        ramp_weights,
-    )
-    from annonet_tpu_torch.models.segnet import required_input_dimension
+    from annonet_tpu_torch.infer.tiling import inverse_weight_sum, ramp_weights
 
-    ov = required_input_dimension(config)
-    tile = default_tile_max()
-    plan = plan_tiles(
-        CANVAS, CANVAS, config, TilingParameters(tile, tile, ov, ov),
-        canvas_bucket=128, lane_align_tiles=True,
-    )
+    plan = canvas_plan(config)
     th, tw = plan.tile_height, plan.tile_width
     k = config.class_count
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
@@ -483,10 +519,10 @@ def check_blend(config, device, reps: int, generator):
     return timing["blend_argmax"]
 
 
-def int8_setup(params_np, config, device, generator, n: int = 25, side: int = 896):
+def int8_setup(params_np, config, device, generator, n: int, side: int):
     """Calibration from one flagship forward (4 tiles of a random image),
     the int8 net (bf16 up layers) and its quantize_up twin, and each int8
-    layer's inputs on the 25-tile 896x896 batch from one forward of the
+    layer's inputs on an [n, side, side] tile batch from one forward of the
     int8 net: {layer: (x,) or (x, skip)}."""
     from annonet_tpu_torch.models.quantized import (
         QuantizedSegNet, collect_calibration, quantize_input, quantize_net,
@@ -556,12 +592,15 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
             kernel = "qconv3x3_s2_requant" if (block.startswith("enc") and name == "conv0") \
                 else "qconv3x3_requant"
             fn, plain = getattr(qconv, kernel), getattr(qconv, kernel + "_plain")
-            cases = [(kernel, lambda: fn(xs[0], *args, **extra),
+            # Q1 gets its packed weights as the int8 net passes them
+            packed = {"packed": qconv.pack_q1_weights(e["w_q"])} \
+                if kernel == "qconv3x3_requant" else {}
+            cases = [(kernel, lambda: fn(xs[0], *args, **extra, **packed),
                       lambda: plain(xs[0], *args, **extra), e["w_q"],
                       (e["scale"], e["offset"]), "int8")]
             if kernel == "qconv3x3_requant":  # and its accumulator mode
                 cases.append(("qconv3x3_acc",
-                              lambda: qconv.qconv3x3_acc(xs[0], e["w_q"], **extra),
+                              lambda: qconv.qconv3x3_acc(xs[0], e["w_q"], **extra, **packed),
                               lambda: qconv.qconv3x3_acc_plain(xs[0], e["w_q"], **extra),
                               e["w_q"], (), "int8"))
         for kernel, run, run_plain, w_k, vectors, kind in cases:
@@ -660,7 +699,9 @@ def check_g1(params_np, config, device, n: int, side: int, reps: int, generator)
     sum in f32 and round once), f32 within F32_TOL of the scale. Timed
     beside its plain version, cuDNN's F.conv2d with bias on the NHWC view
     with the unfolded weight (the same function), and the three cuBLAS
-    GEMMs of G1's shapes. Returns {"conv3x3_gemm_aligned": tally}."""
+    GEMMs of G1's dense shapes. The bf16 bound counts the products over
+    the layer's table of nonzero weight blocks (what these weights need;
+    the f32 kernel is dense). Returns {"conv3x3_gemm_aligned": tally}."""
     from annonet_tpu_torch.models.folded_runtime import FoldedSegNet, folding_supported
     from annonet_tpu_torch.ops import gemm_conv
 
@@ -671,7 +712,7 @@ def check_g1(params_np, config, device, n: int, side: int, reps: int, generator)
     bf16 = net.dtype == torch.bfloat16
     results: dict = {}
     for name, args in g1_calls(net, tiles):
-        xf, wc, wl, wr, b, f, cin = args
+        xf, wc, wl, wr, b, f, cin, table = args
         run = lambda: gemm_conv.conv3x3_gemm_aligned(*args)  # noqa: E731
         run_plain = lambda: gemm_conv.conv3x3_gemm_aligned_plain(*args)  # noqa: E731
         got, want = run(), run_plain()
@@ -685,7 +726,9 @@ def check_g1(params_np, config, device, n: int, side: int, reps: int, generator)
         k1, nc = xf.shape[3], wc.shape[1]
         rows = xf.numel() // k1
         gemm_ops = 2.0 * rows * nc * 9 * k1
-        bnd = bound(gemm_ops, "bf16" if bf16 else "f32", nbytes(xf, wc, wl, wr, b, got))
+        table_ops = 2.0 * rows * gemm_conv.table_macs(table, k1, nc)
+        bnd = bound(table_ops if bf16 else gemm_ops, "bf16" if bf16 else "f32",
+                    nbytes(xf, wc, wl, wr, b, table, got))
         k_ms = p_ms = lib_ms = gemm_ms = float("nan")
         if reps:
             k_ms, p_ms = timed_pair(run, run_plain, reps)
@@ -705,8 +748,9 @@ def check_g1(params_np, config, device, n: int, side: int, reps: int, generator)
         print(f"  conv3x3_gemm_aligned {name:12s} x{list(xf.shape)} fold {f} cin {cin} -> "
               f"{list(got.shape)} {str(xf.dtype)[6:]}: max|err| {err:.3e} (limit {limit:.3e}) "
               f"G1 {k_ms:.3f} ms plain {p_ms:.3f} ms cuDNN conv {lib_ms:.3f} ms cuBLAS 3 GEMMs "
-              f"{gemm_ms:.3f} ms; GEMM {gemm_ops / 1e12:.4f} TFLOP (conv's "
-              f"{gemm_ops / f / 1e12:.4f}), bound {bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+              f"{gemm_ms:.3f} ms; dense GEMM {gemm_ops / 1e12:.4f} TFLOP, over the table "
+              f"{table_ops / 1e12:.4f} (conv's {gemm_ops / f / 1e12:.4f}), bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]})", flush=True)
         if not err <= limit:
             raise AssertionError(f"G1 {name}: max|err| {err} > {limit}")
         tally(results, "conv3x3_gemm_aligned", err, k_ms, p_ms, lib_ms, bnd)
@@ -1257,36 +1301,40 @@ def main() -> int:
     params_np = init_runtime_params(config, SEED)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    print("[kernels] f32, one 896x896 tile", flush=True)
+    plan = canvas_plan(config)
+    n, side = plan.tile_count, plan.tile_height
+    print(f"[kernels] the inferer's plan of a {CANVAS}x{CANVAS} image: {n} tiles of "
+          f"{side}x{plan.tile_width}, overlap {plan.overlap_y}", flush=True)
+    print(f"[kernels] f32, one {side}x{side} tile", flush=True)
     check_convs(
         runtime_params_from_numpy(params_np, config, device), config, device,
-        1, 896, torch.float32, F32_TOL, 0, gen,
+        1, side, torch.float32, F32_TOL, 0, gen,
     )
-    print("[kernels] bf16, the 25-tile 896x896 batch of a 4096x4096 image",
-          flush=True)
+    print(f"[kernels] bf16, the {n}-tile {side}x{side} batch", flush=True)
     conv_results = check_convs(
         runtime_params_from_numpy(params_np, config, device), config, device,
-        25, 896, torch.bfloat16, BF16_TOL, 5, gen,
+        n, side, torch.bfloat16, BF16_TOL, 5, gen,
     )
     print("[kernels] blend epilogue, 4096x4096 canvas, K=3", flush=True)
     blend_result = check_blend(config, device, 5, gen)
     torch.cuda.empty_cache()
-    print("[kernels] int8, the 25-tile 896x896 batch, each layer on the int8 net's "
+    print(f"[kernels] int8, the {n}-tile {side}x{side} batch, each layer on the int8 net's "
           "own activations", flush=True)
-    _calibration, qp, qp_up, _x_q, inputs = int8_setup(params_np, config, device, gen)
+    _calibration, qp, qp_up, _x_q, inputs = int8_setup(params_np, config, device, gen,
+                                                       n, side)
     int8_results, requant_share = check_int8_kernels(config, device, qp, qp_up, inputs, 3)
     del inputs, _x_q
     torch.cuda.empty_cache()
     print("[kernels] blend epilogue in bf16, 4096x4096 canvas, K=3", flush=True)
     blend_bf16 = check_blend_bf16(config, device, 5, gen)
     torch.cuda.empty_cache()
-    print("[kernels] G1, f32, the folded net's 7 stride-1 layers on one 896x896 tile",
+    print(f"[kernels] G1, f32, the folded net's 7 stride-1 layers on one {side}x{side} tile",
           flush=True)
     check_g1(params_np, dataclasses.replace(config, compute_dtype="float32"), device,
-             1, 896, 0, gen)
-    print("[kernels] G1, bf16, the folded net's 7 stride-1 layers on the 25-tile batch",
+             1, side, 0, gen)
+    print(f"[kernels] G1, bf16, the folded net's 7 stride-1 layers on the {n}-tile batch",
           flush=True)
-    g1_results = check_g1(params_np, config, device, 25, 896, 3, gen)
+    g1_results = check_g1(params_np, config, device, n, side, 3, gen)
     torch.cuda.empty_cache()
 
     print("[accuracy] card vs CPU on a small image", flush=True)

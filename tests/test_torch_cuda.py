@@ -16,7 +16,8 @@ where the plain versions round before it too (two bf16 steps, 2**-6, of
 the output scale); the blend's labels and seeds are bit-identical, in f32
 and in bf16, with and without the argmax fold; the int8 kernels Q1-Q3 sum
 integers exactly and requantize with one FMA, as their plain versions do,
-so they are bit-identical, as is Q1's accumulator mode (the int32 sums); K3's requant mode sums floats in another order
+so they are bit-identical, as is Q1's accumulator mode (the int32 sums;
+Q1 and it on the int8 tensor cores); K3's requant mode sums floats in another order
 than cuDNN, so it is held within one requant step. G1 and its plain version
 both sum in f32 and round once: bf16 within one bf16 step at the largest
 output, f32 within 1e-4 of the output scale; on the decoder's two-part input G1 is held to
@@ -242,6 +243,42 @@ def test_q1_accumulator_is_bit_identical_to_plain(device, n, h, w, c1, c2, cout)
     assert torch.equal(qconv.requant_plain(acc, scale, offset), q1)
 
 
+@pytest.mark.parametrize(
+    "n,h,w,c1,c2,cout",
+    [(1, 9, 109, 3, 0, 16),  # the RGB stem at the 872-px plan's width 109
+     (2, 11, 37, 8, 0, 4), (1, 13, 70, 16, 0, 16), (1, 8, 109, 24, 0, 36),
+     (2, 10, 45, 32, 0, 32), (1, 12, 109, 16, 16, 16), (1, 9, 50, 64, 64, 64),
+     (1, 6, 109, 128, 0, 128), (3, 5, 21, 12, 20, 4), (1, 7, 33, 128, 0, 36)],
+)
+def test_q1_tensor_core_modes_are_bit_identical_to_plain(device, n, h, w, c1, c2, cout):
+    """Q1 (int8 tensor cores) and its accumulator mode at the edges of its
+    implicit GEMM: the two-row-tap steps of cin <= 16 (3, 8, 16), chunks
+    with zero-padded channels (24, 40 + 24), the decoder's concats, cout
+    under one n8 tile or not a multiple of 16, several slabs, widths that
+    are not a multiple of the tile (109, the 872-px plan's folded width),
+    with the packed weights passed as the int8 net passes them."""
+    from annonet_tpu_torch.ops import qconv
+
+    x = _int8((n, h, w, c1), device, 1, -127 if c1 == 3 else 0)
+    x2 = _int8((n, h, w, c2), device, 2) if c2 else None
+    wgt = _int8((3, 3, c1 + c2, cout), device, 3, -127)
+    packed = qconv.pack_q1_weights(wgt)
+    scale, offset = _requant_args((cout,), device, 4)
+    before = (qconv.qconv3x3_requant.launches, qconv.qconv3x3_acc.launches)
+    got = qconv.qconv3x3_requant(x, wgt, scale, offset, x2, packed=packed)
+    acc = qconv.qconv3x3_acc(x, wgt, x2, packed=packed)
+    assert (qconv.qconv3x3_requant.launches, qconv.qconv3x3_acc.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_acc = qconv.qconv3x3_acc_plain(x, wgt, x2)
+    want = qconv.qconv3x3_requant_plain(x, wgt, scale, offset, x2)
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.int32 and torch.equal(acc, want_acc)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert (want == 0).any() and (want > 0).any()
+    with pytest.raises(ValueError, match="packed"):
+        qconv.qconv3x3_requant(x, wgt, scale, offset, x2, packed=packed[..., :16].contiguous())
+
+
 @pytest.mark.parametrize("m,k", [(1, 3), (2, 5), (1, 300)])
 @pytest.mark.parametrize("blend_dtype", [torch.bfloat16, torch.float32])
 def test_blend_modes_are_bit_identical_to_plain(device, m, k, blend_dtype):
@@ -334,6 +371,44 @@ def test_g1_matches_plain(device, dtype, n, h, wb, fold, cin, cout):
     # output (its unit in the last place), f32 within 1e-4 of the scale
     limit = 1e-4 * max(1.0, top) if dtype == torch.float32 else bf16_step(top)
     assert (got.float() - want.float()).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["banded", "dense"])
+@pytest.mark.parametrize(
+    "n,h,wb,fold,cin,cout",
+    [(2, 9, 109, 8, 3, 16),  # K1 = 24: the RGB stem, one zero-padded chunk
+     (1, 10, 109, 8, 16, 16), (2, 7, 109, 4, 32, 32), (1, 12, 109, 2, 64, 64),
+     (1, 6, 61, 8, 32, 16), (1, 5, 33, 2, 128, 64)],
+)
+def test_g1_block_sparse_matches_plain(device, n, h, wb, fold, cin, cout, dense):
+    """bf16 G1 walks the table of nonzero blocks: on the weights of
+    build_gemm_kernels_aligned it skips the band's zeros, on random dense
+    Wc, Wl, Wr the table is full and nothing may be skipped; either way
+    within one bf16 step of the plain version at the largest output."""
+    from annonet_tpu_torch.ops import gemm_conv
+
+    k1, nc = fold * cin, fold * cout
+    x = _rand((n, h, wb, k1), device, 21, -0.3).to(torch.bfloat16)
+    if dense:
+        mats = [_rand((3 * k1, nc), device, 22 + i, -0.5, (2.0 / (9 * cin)) ** 0.5)
+                for i in range(3)]
+    else:
+        k = np.random.default_rng(23).normal(0, (2.0 / (9 * cin)) ** 0.5, (3, 3, cin, cout))
+        mats = [torch.from_numpy(m).to(device)
+                for m in gemm_conv.build_gemm_kernels_aligned(k.astype(np.float32), fold)]
+    mats = [m.to(torch.bfloat16).contiguous() for m in mats]
+    bias = _rand((cout,), device, 26, -0.5, 0.2)
+    table = gemm_conv.g1_block_table(*mats)
+    macs = gemm_conv.table_macs(table, k1, nc)
+    assert (macs == 9 * k1 * nc) if dense else (macs < 9 * k1 * nc)
+    before = gemm_conv.conv3x3_gemm_aligned.launches
+    got = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin, table)
+    assert gemm_conv.conv3x3_gemm_aligned.launches == before + 1
+    want = gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, bias, fold, cin)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, h, wb, nc)
+    top = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bf16_step(top)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -127,3 +127,80 @@ def test_wrapper_rejects_bad_arguments(change):
         x = x.to("meta")
     with pytest.raises(ValueError):
         gemm_conv.conv3x3_gemm_aligned(x, *mats, b, fold, cin)
+
+
+# --------------------------------------------------------------------------
+# the table of nonzero blocks that the bf16 kernel walks
+# --------------------------------------------------------------------------
+
+
+def _banded_blocks(fold, cin, cout):
+    """The (segment, dy, rows, columns) blocks that hold a nonzero weight of
+    build_gemm_kernels_aligned, from the band itself: Wc links input pixel i
+    to output pixel j when |i - j| <= 1, Wl input fold-1 to output 0, Wr
+    input 0 to output fold-1."""
+    k1, nc = fold * cin, fold * cout
+    i = np.arange(k1)[:, None] // cin
+    j = np.arange(nc)[None, :] // cout
+    bands = [np.abs(i - j) <= 1, (i == fold - 1) & (j == 0), (i == 0) & (j == fold - 1)]
+    want = set()
+    for s, band in enumerate(bands):
+        for dy in range(3):
+            for r0 in range(0, k1, gemm_conv.G1_KC):
+                for n0 in range(0, nc, gemm_conv.G1_SLAB):
+                    r1, n1 = min(k1, r0 + gemm_conv.G1_KC), min(nc, n0 + gemm_conv.G1_SLAB)
+                    if band[r0:r1, n0:n1].any():
+                        want.add((s, dy, (r0, r1), (n0, n1)))
+    return want
+
+
+@pytest.mark.parametrize("fold,cin,cout", [(8, 3, 16), (8, 16, 16), (8, 32, 16), (4, 32, 32),
+                                           (4, 6, 5), (2, 64, 64), (2, 128, 64)])
+def test_block_table_lists_exactly_the_banded_blocks(fold, cin, cout):
+    w = np.random.default_rng(cin + cout).normal(size=(3, 3, cin, cout)).astype(np.float32)
+    mats = [torch.from_numpy(m) for m in gemm_conv.build_gemm_kernels_aligned(w, fold)]
+    table = gemm_conv.g1_block_table(*mats)
+    assert table.dtype == torch.int32
+    got = list(gemm_conv.table_blocks(table, fold * cin, fold * cout))
+    assert len(got) == len(set(got)) and set(got) == _banded_blocks(fold, cin, cout)
+    # what the kernel multiplies: at most half of the dense GEMM, once the
+    # columns span more than one slab
+    dense = 9 * fold * cin * fold * cout
+    macs = gemm_conv.table_macs(table, fold * cin, fold * cout)
+    assert (2 * macs <= dense) if fold * cout > gemm_conv.G1_SLAB else macs <= dense
+
+
+@pytest.mark.parametrize("k1,nc", [(24, 128), (128, 128), (256, 128), (12, 20), (40, 136)])
+def test_block_table_of_dense_weights_lists_every_block(k1, nc):
+    rng = np.random.default_rng(k1 + nc)
+    mats = [torch.from_numpy(rng.normal(size=(3 * k1, nc)).astype(np.float32)) for _ in range(3)]
+    table = gemm_conv.g1_block_table(*mats)
+    blocks = list(gemm_conv.table_blocks(table, k1, nc))
+    chunks, slabs = -(-k1 // gemm_conv.G1_KC), -(-nc // gemm_conv.G1_SLAB)
+    assert len(blocks) == len(set(blocks)) == 9 * chunks * slabs
+    assert gemm_conv.table_macs(table, k1, nc) == 9 * k1 * nc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dense", [False, True], ids=["built", "dense"])
+@pytest.mark.parametrize("n,h,wb,fold,cin,cout", SHAPES)
+def test_plain_restricted_to_the_table_equals_the_full_plain(n, h, wb, fold, cin, cout, dense,
+                                                             dtype):
+    """Every block the table leaves out is zero, so the restricted product
+    is the full one, bit for bit, on built and on dense weights."""
+    x, mats, b = _case(n, h, wb, fold, cin, cout, dense, seed=7 * n + h + wb + cin)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dtype)  # noqa: E731
+    x, mats, b = t(x), [t(m) for m in mats], torch.from_numpy(b)
+    table = gemm_conv.g1_block_table(*mats)
+    restricted = gemm_conv.restrict_to_table(*mats, table)
+    for got, want in zip(restricted, mats):
+        assert torch.equal(got, want)
+    full = gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, b, fold, cin)
+    assert torch.equal(gemm_conv.conv3x3_gemm_aligned(x, *mats, b, fold, cin, table), full)
+    # a table that drops a listed block changes the result
+    if not dense:
+        groups = -(-fold * cout // gemm_conv.G1_GROUP)
+        dropped = table.clone()
+        dropped[groups + 1] &= ~15  # the first entry lists no slab
+        assert not torch.equal(
+            gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, b, fold, cin, dropped), full)

@@ -1,8 +1,10 @@
 """The port's tiled inference (annonet_tpu_torch/infer/core.py) against the
 JAX package's ``TiledInferer``.
 
-Against the JAX inferer with the unfolded net (``use_folded_net=False``):
-the plans are equal, and on a float32 config with a multi-tile plan the
+Plans equal the JAX default inferer's (the folded net), but for its
+3-tile bump, which the port does not make. Against the JAX inferer with
+the unfolded net (``use_folded_net=False``), whose plan is the same at the
+64-px tiles used here: on a float32 config with a multi-tile plan the
 label maps agree on >= 99.9% of pixels (identical is expected; the margin
 covers a near-tie flipped by another summation order). This holds with and
 without gains, with detection levels (seeds and the blob veto), under the
@@ -21,6 +23,7 @@ from annonet_tpu.infer.tiling import TilingParameters as JaxTilingParameters
 from annonet_tpu.models.segnet import SegNetConfig as JaxSegNetConfig
 from annonet_tpu_torch.infer import core
 from annonet_tpu_torch.infer.tiling import TilingParameters, default_tile_max
+from annonet_tpu_torch.models.folded_runtime import folding_supported
 from annonet_tpu_torch.models.segnet import (
     SegNetConfig,
     init_runtime_params,
@@ -69,22 +72,64 @@ def _agree(a, b):
 
 @pytest.mark.parametrize("shape", [(150, 200), (64, 64), (700, 90), (4096, 4096), (1500, 2300)])
 def test_plans_equal_the_jax_unfolded_plans(tree, shape):
+    """At 64-px tiles the lane round-up changes nothing, so the port's plans
+    are also the JAX unfolded inferer's: the label comparisons below rest
+    on that."""
     ours, theirs = _pair(tree)
     assert dataclasses.astuple(ours.plan(*shape)) == dataclasses.astuple(theirs.plan(*shape))
 
 
+FLAGSHIP = SegNetConfig(class_count=3, level_count=3, base_width=16)
+# 4 * 32 = 128 lanes, but fold 4 < 2**3: this config does not fold
+NO_FOLD = SegNetConfig(class_count=3, level_count=3, base_width=32)
+
+
+def _grid(plan):
+    return len({y for y, _ in plan.tile_yx}), len({x for _, x in plan.tile_yx})
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["float", "int8"])
+@pytest.mark.parametrize("config", [FLAGSHIP, CONFIG, NO_FOLD], ids=["flagship", "small", "no_fold"])
+@pytest.mark.parametrize("shape", [(4096, 4096), (1500, 2300), (3000, 5000), (150, 200),
+                                   (700, 90), (2048, 1100)])
+def test_plans_equal_the_jax_default_plans(shape, config, quantize):
+    """Against JAX's default inferer (the folded net, the default tile
+    max of the CUDA build, 1024): equal plans, except that the port does
+    not bump an axis of exactly 3 tiles to 4 (a TPU measurement); there the
+    plan is JAX's ``plan_tiles`` without the lane round-up."""
+    from annonet_tpu.infer.tiling import plan_tiles as jax_plan_tiles
+
+    tiling = core.default_tiling(config)
+    params = init_runtime_params(config, 0)
+    jcfg = JaxSegNetConfig(**config.to_dict())
+    jtiling = JaxTilingParameters(**dataclasses.asdict(tiling))
+    ours = core.TiledInferer(params, config, device="cpu", quantize=quantize)
+    theirs = jax_core.TiledInferer(params, jcfg, jtiling, quantize=quantize)
+    got, want = ours.plan(*shape), theirs.plan(*shape)
+    folds = folding_supported(config, 8 * 128) > 0
+    if folds and 3 in _grid(got):
+        assert _grid(want) != _grid(got)  # JAX bumped the 3-tile axis
+        want = jax_plan_tiles(*shape, jcfg, jtiling, canvas_bucket=128,
+                              lane_align_tiles=False)
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+
+
 def test_flagship_plan_at_4096():
     """The default tile max is the reference's CUDA 1024: a 4096x4096
-    image plans to 25 tiles of 896x896 with overlap 62."""
-    flagship = SegNetConfig(class_count=3, level_count=3, base_width=16)
+    image plans to 25 tiles of 872x872 with overlap 62, as JAX's default
+    inferer plans it (no lane round-up: 872 = 8 * 109 folds by 8, so the
+    int8 path and the folded net apply)."""
     inferer = core.TiledInferer(
-        init_runtime_params(flagship, 0), flagship, device="cpu"
+        init_runtime_params(FLAGSHIP, 0), FLAGSHIP, device="cpu"
     )
     plan = inferer.plan(4096, 4096)
     assert default_tile_max() == 1024
     assert (plan.tile_count, plan.tile_height, plan.tile_width, plan.overlap_y) == (
-        25, 896, 896, 62
+        25, 872, 872, 62
     )
+    assert _grid(plan) == (5, 5) and folding_supported(FLAGSHIP, plan.tile_width) == 8
+    # the 2300x1500 image has 3 columns: the port keeps them (no bump)
+    assert _grid(inferer.plan(1500, 2300))[1] == 3
 
 
 @pytest.mark.parametrize(

@@ -250,6 +250,67 @@ def test_q3_plain_equals_qup_requant():
     np.testing.assert_array_equal(got, _unfold(np.asarray(want), cout))
 
 
+def _unpack_q1_weights(packed: torch.Tensor, cin: int) -> torch.Tensor:
+    """The HWIO weights of pack_q1_weights's layout, read back from it."""
+    chunks, units, cout, _ = packed.shape
+    if units == 6:
+        p = packed.reshape(3, 2, cout, 32)
+        taps = torch.stack([p[:, 0, :, :cin], p[:, 0, :, 16 : 16 + cin], p[:, 1, :, :cin]])
+    else:
+        taps = packed.permute(1, 2, 0, 3).reshape(3, 3, cout, chunks * 32)[..., :cin]
+    return taps.permute(0, 1, 3, 2).contiguous()
+
+
+def _q1_kernel_gemm(x, packed):
+    """Q1's kernel's GEMM in numpy, k32 step by k32 step from the packed
+    weights: chunk by chunk the taps' 32 channels, or, at most 16 input
+    channels, two row taps a step (the lower 16 bytes from row r, the upper
+    from row r + 1)."""
+    n, h, w, cin = x.shape
+    chunks, units, _cout, _ = packed.shape
+    width = 16 if units == 6 else 32 * chunks
+    xp = np.zeros((n, h + 3, w + 2, width), np.int64)  # rows -1 .. h + 1
+    xp[:, 1 : h + 1, 1 : w + 1, :cin] = x
+    wp = packed.astype(np.int64)
+    acc = 0
+    for dx in range(3):
+        if units == 6:
+            for j in range(2):
+                a = np.concatenate([xp[:, 2 * j + r : 2 * j + r + h, dx : dx + w]
+                                    for r in range(2)], -1)
+                acc = acc + a @ wp[0, 2 * dx + j].T
+        else:
+            for t in range(chunks):
+                for dy in range(3):
+                    a = xp[:, dy : dy + h, dx : dx + w, 32 * t : 32 * t + 32]
+                    acc = acc + a @ wp[t, 3 * dy + dx].T
+    return acc
+
+
+@pytest.mark.parametrize("c1,c2,cout", [(3, 0, 16), (8, 0, 24), (16, 0, 16), (12, 0, 4),
+                                        (24, 0, 36), (32, 0, 32), (16, 16, 16),
+                                        (40, 24, 48), (64, 64, 64), (128, 0, 128)])
+def test_q1_packed_weights_round_trip_and_sum(c1, c2, cout):
+    """pack_q1_weights is a zero-padded permutation of the HWIO weights
+    (reading them back gives them), and the kernel's GEMM over it, step by
+    step, is the exact conv of the concat [x, x2]."""
+    rng = np.random.default_rng(c1 + c2 + cout)
+    cin = c1 + c2
+    w_q = torch.from_numpy(rng.integers(-127, 128, (3, 3, cin, cout), dtype=np.int8))
+    packed = qconv.pack_q1_weights(w_q)
+    pair = cin <= qconv.Q1_PAIR_CIN
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tuple(packed.shape) == ((1, 6, cout, 32) if pair else (-(-cin // 32), 9, cout, 32))
+    assert torch.equal(_unpack_q1_weights(packed, cin), w_q)
+    assert int((packed != 0).sum()) == int((w_q != 0).sum())  # the padding is zero
+    x = rng.integers(-127 if c1 == 3 else 0, 128, (2, 7, 11, c1), dtype=np.int8)
+    x2 = rng.integers(0, 128, (2, 7, 11, c2), dtype=np.int8) if c2 else None
+    want = qconv.qconv3x3_acc_plain(
+        torch.from_numpy(x), w_q, None if x2 is None else torch.from_numpy(x2)).numpy()
+    xc = x if x2 is None else np.concatenate([x, x2], -1)
+    np.testing.assert_array_equal(_q1_kernel_gemm(xc, packed.numpy()), want)
+
+
 def test_fma_f32_is_one_rounding():
     rng = np.random.default_rng(14)
     a = (rng.integers(-(2**25), 2**25, 200_000)).astype(np.float32)
