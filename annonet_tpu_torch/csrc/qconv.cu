@@ -1,15 +1,16 @@
-// int8 conv + requant kernels of the quantized segmentation net (Q2, Q3).
+// Q3: the int8 2x2 stride-2 transpose conv + requant of the quantized
+// segmentation net, which runs under quantize_up only.
 //
-// Replaces the Pallas TPU kernels of annonet_tpu/ops/int8_conv_mosaic.py
-//   Q2 qconv3x3_s2_requant (:222)  3x3 stride 2, zero padding (0, 1)
-//   Q3 qup_requant         (:294)  2x2 stride-2 transpose conv
-// and the XLA int8 convs the default JAX path runs in their place
-// (models/quantized_runtime.py apply_folded_int8). The TPU kernels work on
+// Replaces the Pallas TPU kernel of annonet_tpu/ops/int8_conv_mosaic.py
+//   Q3 qup_requant (:294)  2x2 stride-2 transpose conv
+// and the XLA int8 transpose conv the default JAX path runs in its place
+// (models/quantized_runtime.py apply_folded_int8). The TPU kernel works on
 // the width-folded layout (8 pixels x 16 channels in 128 lanes) as tap
-// GEMMs; these run the plain NHWC geometry. Q1 (stride 1) and its
-// accumulator mode run on the int8 tensor cores (qconv_igemm.cu).
+// GEMMs; this one runs the plain NHWC geometry. Q1 (stride 1), its
+// accumulator mode and Q2 (stride 2) run on the int8 tensor cores
+// (qconv_igemm.cu); Q3 is the one kernel left on __dp4a.
 //
-// Every layer function is requant(conv_int32(x, w_q)):
+// The layer function is requant(conv_int32(x, w_q)):
 //   q = int8(clip(fma(float(acc), scale[co], offset[co]), 0, 127))
 // with ReLU folded into the clip and the round-half-up carried by the +0.5
 // inside offset (quantized_runtime.py:381-388), so the float -> int8 step
@@ -17,18 +18,18 @@
 // rounded __fmaf_rn: XLA contracts the same expression into an FMA on the
 // CPU, and the plain PyTorch versions emulate that FMA exactly.
 //
-// What bounds them on an H100: int8 activations halve the bytes of the
-// bf16 net, and a layer's 2*9*cin MACs per output channel are far under
-// the int8 tensor cores' ridge, so with tensor cores the layers would be
-// bound by bytes. These are direct convolutions on the CUDA cores with
-// __dp4a (four int8 products and an int32 add per instruction): their
-// bound is the instruction rate, dp4a and the shared-memory loads that
-// feed it, and their time follows the layer's MACs. They keep the bytes
-// low: each input element is read once per block from device memory into
-// a shared-memory patch of 4-channel words (halo included), the weights of
-// a channel chunk are packed into words once per block, and each thread
-// keeps 16 output channels of one pixel in int32 registers. Moving them to
-// the int8 tensor cores, as Q1, is later work.
+// What bounds it on an H100: int8 activations halve the bytes of the bf16
+// net, and the layer's 2*4*cin MACs per input pixel and output channel are
+// far under the int8 tensor cores' ridge, so with tensor cores it would be
+// bound by bytes. This is a direct computation on the CUDA cores with
+// __dp4a (four int8 products and an int32 add per instruction): its bound
+// is the instruction rate, dp4a and the shared-memory loads that feed it,
+// and its time follows the layer's MACs. It keeps the bytes low: each
+// input element is read once per block into shared memory as 4-channel
+// words, the weights of a channel chunk are packed into words once per
+// block, and each thread keeps 16 output channels of the four output
+// pixels of one input pixel in int32 registers. Moving it to the int8
+// tensor cores, as Q1 and Q2, is later work.
 //
 // Offsets are 64-bit: a 25-tile batch of 872^2 at 16 channels is 3.0e8
 // elements, and the deeper layers' products of batch, pixels and channels
@@ -40,8 +41,7 @@ namespace annonet {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileW = 32;  // output columns per block: one warp per row
-constexpr int kCpt = 16;    // output channels per thread
+constexpr int kCpt = 16;  // output channels per thread
 
 // Channel word cw of pixel ``pix`` of x (cin channels): channels
 // 4cw..4cw+3 packed little-endian (byte j = channel 4cw+j), zero past the
@@ -100,100 +100,6 @@ __device__ __forceinline__ void store16(int8_t* o, int co0, int cout,
 #pragma unroll
   for (int j = 0; j < kCpt; ++j)
     if (co0 + j < cout) o[co0 + j] = q[j];
-}
-
-// Q2. groups: output-channel groups of kCpt per block (1 when
-// cout <= 16). The block covers (8 / groups) x 32 output pixels x
-// (16 * groups) channels.
-template <int GROUPS>
-__global__ void __launch_bounds__(kThreads)
-qconv3x3_s2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ offset, int8_t* __restrict__ out,
-                   int64_t h, int64_t wd, int cin, int cout, int64_t tiles_x,
-                   bool words) {
-  constexpr int STRIDE = 2;
-  constexpr int kTileH = 8 / GROUPS;
-  constexpr int kTilePix = kTileH * kTileW;
-  constexpr int kCob = kCpt * GROUPS;
-  constexpr int kWk = 4;  // channel words per chunk
-  constexpr int kPh = (kTileH - 1) * STRIDE + 3;
-  constexpr int kPw = (kTileW - 1) * STRIDE + 3;
-  static_assert(kTilePix * GROUPS == kThreads, "block shape");
-
-  __shared__ int32_t patch[kWk][kPh][kPw];
-  __shared__ __align__(16) int32_t wsh[9][kWk][kCob];
-
-  const int cinw = (cin + 3) / 4;
-  const int64_t ho = h / STRIDE, wo = wd / STRIDE;
-  const int64_t img = blockIdx.z;
-  const int64_t oy0 = (blockIdx.x / tiles_x) * kTileH;
-  const int64_t ox0 = (blockIdx.x % tiles_x) * kTileW;
-  const int cob = blockIdx.y * kCob;
-  const int tid = threadIdx.x;
-  const int p = tid % kTilePix, g = tid / kTilePix;
-  const int ty = p / kTileW, tx = p % kTileW;
-  const int64_t iy0 = oy0 * STRIDE, ix0 = ox0 * STRIDE;
-
-  int32_t acc[kCpt];
-#pragma unroll
-  for (int j = 0; j < kCpt; ++j) acc[j] = 0;
-
-  for (int w0 = 0; w0 < cinw; w0 += kWk) {
-    // input patch, word fastest for coalesced NHWC reads; zero outside the
-    // image (the padding) and past the last channel
-    for (int e = tid; e < kPh * kPw * kWk; e += kThreads) {
-      const int wi = e % kWk, pp = e / kWk;
-      const int py = pp / kPw, px = pp % kPw;
-      const int64_t iy = iy0 + py, ix = ix0 + px;
-      const int cw = w0 + wi;
-      int32_t v = 0;
-      if (iy >= 0 && iy < h && ix >= 0 && ix < wd && cw < cinw)
-        v = load_word(x, (img * h + iy) * wd + ix, cin, cw, words);
-      patch[wi][py][px] = v;
-    }
-    for (int e = tid; e < 9 * kWk * kCob; e += kThreads) {
-      const int col = e % kCob, r = e / kCob;
-      const int wi = r % kWk, tap = r / kWk;
-      const int cw = w0 + wi, co = cob + col;
-      wsh[tap][wi][col] =
-          (cw < cinw && co < cout) ? weight_word(w, tap, cw, co, cin, cout) : 0;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int wi = 0; wi < kWk; ++wi) {
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int32_t v = patch[wi][ty * STRIDE + dy][tx * STRIDE + dx];
-          const int4* wr =
-              reinterpret_cast<const int4*>(&wsh[dy * 3 + dx][wi][g * kCpt]);
-#pragma unroll
-          for (int k = 0; k < kCpt / 4; ++k) {
-            const int4 ww = wr[k];
-            acc[4 * k] = __dp4a(v, ww.x, acc[4 * k]);
-            acc[4 * k + 1] = __dp4a(v, ww.y, acc[4 * k + 1]);
-            acc[4 * k + 2] = __dp4a(v, ww.z, acc[4 * k + 2]);
-            acc[4 * k + 3] = __dp4a(v, ww.w, acc[4 * k + 3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int64_t oy = oy0 + ty, ox = ox0 + tx;
-  if (oy < ho && ox < wo) {
-    const int co0 = cob + g * kCpt;
-    int8_t q[kCpt];
-#pragma unroll
-    for (int j = 0; j < kCpt; ++j) {
-      const int co = co0 + j < cout ? co0 + j : cout - 1;
-      q[j] = requant(acc[j], scale[co], offset[co]);
-    }
-    store16(out + ((img * ho + oy) * wo + ox) * cout, co0, cout, q);
-  }
 }
 
 // Q3: each thread owns one INPUT pixel and writes the four output pixels
@@ -285,50 +191,8 @@ qup2x2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-template <int GROUPS>
-void launch_qconv_s2(const int8_t* x, const int8_t* w, const float* scale,
-                     const float* offset, int8_t* out, int64_t n, int64_t h,
-                     int64_t wd, int cin, int cout, bool words,
-                     cudaStream_t stream) {
-  constexpr int kTileH = 8 / GROUPS;
-  const int64_t ho = h / 2, wo = wd / 2;
-  const int64_t tiles_x = (wo + kTileW - 1) / kTileW;
-  const int64_t tiles_y = (ho + kTileH - 1) / kTileH;
-  const int64_t slabs = (cout + kCpt * GROUPS - 1) / (kCpt * GROUPS);
-  for (int64_t n0 = 0; n0 < n; n0 += kMaxGridYZ) {
-    const int64_t nb = n - n0 < kMaxGridYZ ? n - n0 : kMaxGridYZ;
-    dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)slabs, (unsigned)nb);
-    qconv3x3_s2_kernel<GROUPS><<<grid, kThreads, 0, stream>>>(
-        x + n0 * h * wd * cin, w, scale, offset, out + n0 * ho * wo * cout, h, wd,
-        cin, cout, tiles_x, words);
-  }
-}
-
 }  // namespace
 }  // namespace annonet
-
-extern "C" int annonet_qconv3x3_s2_requant(const void* x, const void* w,
-                                           const void* scale,
-                                           const void* offset, void* out,
-                                           int64_t n, int64_t h, int64_t wd,
-                                           int cin, int cout, int words,
-                                           void* stream) {
-  using namespace annonet;
-  cudaGetLastError();  // report this launch's error only
-  if (cout <= 0 || cin <= 0) return (int)cudaErrorInvalidValue;
-  if (n == 0 || h / 2 == 0 || wd / 2 == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xt = static_cast<const int8_t*>(x);
-  const int8_t* wt = static_cast<const int8_t*>(w);
-  const float* sc = static_cast<const float*>(scale);
-  const float* of = static_cast<const float*>(offset);
-  int8_t* ot = static_cast<int8_t*>(out);
-  if (cout > kCpt)
-    launch_qconv_s2<2>(xt, wt, sc, of, ot, n, h, wd, cin, cout, words != 0, s);
-  else
-    launch_qconv_s2<1>(xt, wt, sc, of, ot, n, h, wd, cin, cout, words != 0, s);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int annonet_qup2x2_requant(const void* x, const void* w,
                                       const void* scale, const void* offset,

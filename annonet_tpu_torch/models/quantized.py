@@ -25,8 +25,8 @@ Scheme (symmetric static post-training quantization):
     weights (width(0) * 127 * 127 < 2**24), then ``acc * s_w + b``.
 
 Layer kernels: Q1 (stride-1 convs, the decoder's with the skip as a second
-input; their weights also packed once, as Q1's kernel reads them), Q2
-(stride-2 convs), K3's requant mode or Q3 (up layers).
+input), Q2 (stride-2 convs; the weights of both also packed once, as their
+tensor-core kernel reads them), K3's requant mode or Q3 (up layers).
 """
 
 from __future__ import annotations
@@ -244,8 +244,9 @@ class QuantizedSegNet(nn.Module):
                 self.register_buffer(name, t.to(device).contiguous())
                 names.append(name)
             self._names[layer] = names
-        # Q1's weights as its kernel reads them, packed once per layer
-        for layer in self.q1_layers():
+        # the weights of Q1 and Q2 as their kernel reads them, packed once
+        # per layer
+        for layer in self.q1_layers() + self.q2_layers():
             self.register_buffer(f"{layer.replace('/', '_')}_w_packed",
                                  pack_q1_weights(self._layer(layer)[0]))
 
@@ -255,13 +256,23 @@ class QuantizedSegNet(nn.Module):
         return (["stem/conv0", "stem/conv1"] + [f"enc{i}/conv1" for i in range(1, L + 1)]
                 + [f"dec{i}/conv0" for i in range(L, 0, -1)])
 
+    def q2_layers(self) -> List[str]:
+        """The stride-2 int8 convs (Q2), in forward order."""
+        return [f"enc{i}/conv0" for i in range(1, self.config.level_count + 1)]
+
     def _layer(self, layer: str):
         return [getattr(self, n) for n in self._names[layer]]
 
+    def _packed(self, layer: str) -> torch.Tensor:
+        return getattr(self, f"{layer.replace('/', '_')}_w_packed")
+
     def _q1(self, layer: str, x, x2=None):
         w_q, scale, offset = self._layer(layer)
-        packed = getattr(self, f"{layer.replace('/', '_')}_w_packed")
-        return qconv3x3_requant(x, w_q, scale, offset, x2=x2, packed=packed)
+        return qconv3x3_requant(x, w_q, scale, offset, x2=x2, packed=self._packed(layer))
+
+    def _q2(self, layer: str, x):
+        w_q, scale, offset = self._layer(layer)
+        return qconv3x3_s2_requant(x, w_q, scale, offset, packed=self._packed(layer))
 
     def check_input(self, x: torch.Tensor) -> None:
         cfg = self.config
@@ -292,8 +303,7 @@ class QuantizedSegNet(nn.Module):
         x = out("stem/conv1", self._q1("stem/conv1", x))
         skips: List[torch.Tensor] = [x]
         for i in range(1, L + 1):
-            x = out(f"enc{i}/conv0",
-                    qconv3x3_s2_requant(x, *self._layer(f"enc{i}/conv0")))
+            x = out(f"enc{i}/conv0", self._q2(f"enc{i}/conv0", x))
             x = out(f"enc{i}/conv1", self._q1(f"enc{i}/conv1", x))
             if i < L:
                 skips.append(x)

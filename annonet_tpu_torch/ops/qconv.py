@@ -3,18 +3,19 @@
 Each op has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper checks its arguments; for tensors on the CPU it returns the plain
 version, for CUDA tensors it launches the hand-written kernel
-(``csrc/qconv_igemm.cu`` for Q1 and its accumulator mode, ``csrc/qconv.cu``
-for Q2 and Q3) on the current stream (or raises: there is no fallback
-from a CUDA tensor to the plain version) and adds one to its ``launches``
-count.
+(``csrc/qconv_igemm.cu`` for Q1, its accumulator mode and Q2,
+``csrc/qconv.cu`` for Q3) on the current stream (or raises: there is no
+fallback from a CUDA tensor to the plain version) and adds one to its
+``launches`` count.
 
 Layouts: activations NHWC int8 ([N, H, W, C], contiguous, the post-ReLU
 grid [0, 127] except the input image's [-127, 127]), weights HWIO int8,
-requant scale and offset f32. Output NHWC int8. Q1's kernel reads its
-weights as ``pack_q1_weights`` lays them out (each output channel's K
-contiguous, the tensor cores' "col" B operand); its wrappers take the HWIO
-weights and, optionally, that packed copy made once per layer
-(``models/quantized.py``), else they pack on each call.
+requant scale and offset f32. Output NHWC int8. The kernels of Q1 and Q2
+read their weights as ``pack_q1_weights`` lays them out (each output
+channel's K contiguous, the tensor cores' "col" B operand; the same at
+either stride); their wrappers take the HWIO weights and, optionally, that
+packed copy made once per layer (``models/quantized.py``), checked on
+either device, else they pack on each call.
 
 Every op is ``requant(acc)`` of an exact int32 conv sum ``acc``:
 
@@ -149,14 +150,14 @@ def _words(x) -> int:
 
 
 # layers of at most this many input channels fill half of an int8 k32 step:
-# two row taps share one (csrc/qconv_igemm.cu, PAIR)
+# two row taps share one (csrc/qconv_igemm.cu, PAIR; Q1 and Q2)
 Q1_PAIR_CIN = 16
 
 
 def pack_q1_weights(w: torch.Tensor) -> torch.Tensor:
-    """HWIO [3, 3, cin, cout] int8 -> Q1's B operand [chunks, units, cout,
-    32] int8, zero-padded: unit u of chunk t holds, for each output channel,
-    the 32 bytes of one int8 k32 step.
+    """HWIO [3, 3, cin, cout] int8 -> the B operand of Q1 and Q2 [chunks,
+    units, cout, 32] int8, zero-padded: unit u of chunk t holds, for each
+    output channel, the 32 bytes of one int8 k32 step (at either stride).
 
     cin > 16: chunk t covers channels 32t .. 32t + 31, unit dy*3 + dx the
     tap (dy, dx). cin <= 16: one chunk of 6 units, unit dx*2 holding taps
@@ -184,7 +185,8 @@ def _q1_shape(cin: int, cout: int):
 
 
 def _q1_packed(x, c2, w, packed, what):
-    """Q1's packed weights for a launch: ``packed`` checked, or made here."""
+    """The packed weights of a launch: ``packed`` checked (on either
+    device), or made here."""
     cin, cout = x.shape[3] + c2, w.shape[3]
     if packed is None:
         return pack_q1_weights(w)
@@ -233,9 +235,9 @@ def qconv3x3_requant(x, w, scale, offset, x2: Optional[torch.Tensor] = None,
     is ``pack_q1_weights(w)``, made once by the caller, or None."""
     c2 = _second_input(x, x2, "qconv3x3_requant")
     _check(x, w, scale, offset, 3, 3, x.shape[3] + c2, (), "qconv3x3_requant")
+    packed = _q1_packed(x, c2, w, packed, "qconv3x3_requant")
     if x.device.type == "cpu":
         return qconv3x3_requant_plain(x, w, scale, offset, x2)
-    packed = _q1_packed(x, c2, w, packed, "qconv3x3_requant")
     qconv3x3_requant.launches += 1
     return _launch_q1(x, x2, packed, scale, offset)
 
@@ -249,9 +251,9 @@ def qconv3x3_acc(x, w, x2: Optional[torch.Tensor] = None,
     int8 NHWC in, [N, H, W, C'] int32 out (``packed`` as for Q1)."""
     c2 = _second_input(x, x2, "qconv3x3_acc")
     _check(x, w, None, None, 3, 3, x.shape[3] + c2, (), "qconv3x3_acc")
+    packed = _q1_packed(x, c2, w, packed, "qconv3x3_acc")
     if x.device.type == "cpu":
         return qconv3x3_acc_plain(x, w, x2)
-    packed = _q1_packed(x, c2, w, packed, "qconv3x3_acc")
     qconv3x3_acc.launches += 1
     return _launch_q1(x, x2, packed, None, None)
 
@@ -259,14 +261,16 @@ def qconv3x3_acc(x, w, x2: Optional[torch.Tensor] = None,
 qconv3x3_acc.launches = 0
 
 
-def qconv3x3_s2_requant(x, w, scale, offset):
+def qconv3x3_s2_requant(x, w, scale, offset, packed: Optional[torch.Tensor] = None):
     """Q2: requant(conv3x3 stride 2, padding (0, 1)): [N,H,W,C] ->
-    [N,H/2,W/2,C'] int8 for even H and W."""
+    [N,H/2,W/2,C'] int8 for even H and W; ``packed`` is
+    ``pack_q1_weights(w)``, made once by the caller, or None."""
     _check(x, w, scale, offset, 3, 3, x.shape[3], (), "qconv3x3_s2_requant")
     if x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(
             f"qconv3x3_s2_requant: H and W must be even, got {tuple(x.shape)}"
         )
+    packed = _q1_packed(x, 0, w, packed, "qconv3x3_s2_requant")
     if x.device.type == "cpu":
         return qconv3x3_s2_requant_plain(x, w, scale, offset)
     qconv3x3_s2_requant.launches += 1
@@ -275,8 +279,8 @@ def qconv3x3_s2_requant(x, w, scale, offset):
     out = torch.empty((n, h // 2, wd // 2, cout), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         code = _build.lib().annonet_qconv3x3_s2_requant(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, cout, _words(x),
+            x.data_ptr(), packed.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, cout,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(code, "annonet_qconv3x3_s2_requant")

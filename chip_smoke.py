@@ -11,11 +11,12 @@ Phases (any failure raises, and the exit code is then nonzero):
               library's SASS (cuobjdump): the bf16 K1/K2 kernels
               (igemm_kernel), both modes of bf16 K3 (upgemm_kernel) and
               bf16 G1 (gemm_conv_bf16) must hold tensor-core instructions
-              (HMMA or HGMMA), every Q1 kernel of both modes
-              (q1_igemm_kernel) int8 ones (IMMA) and no __dp4a; no bf16
-              instantiation of the f32 direct convolutions (conv3x3,
-              up2x2) and no stride-1 __dp4a kernel may exist; prints those
-              kernels' registers, stack, local and static shared memory
+              (HMMA or HGMMA), every Q1 kernel of both modes and every Q2
+              kernel (q1_igemm_kernel<stride, ...>) int8 ones (IMMA) and
+              no __dp4a; no bf16 instantiation of the f32 direct
+              convolutions (conv3x3, up2x2) may exist, and __dp4a only in
+              Q3's kernel; prints those kernels' registers, stack, local
+              and static shared memory
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes, with its bound (the larger of its bytes at the
               HBM rate and its operations at the tensor-core peak) and,
@@ -27,16 +28,18 @@ Phases (any failure raises, and the exit code is then nonzero):
               plans for a 4096x4096 image (25 tiles of 872x872), in bf16,
               plus the f32 kernels on one tile; the blend epilogue on the 4096x4096 canvas with
               K=3, with and without detection and under the reference
-              blend semantics. Then the int8 kernels on the same batch,
-              with weights from quantize_net and calibration from one
-              flagship forward, each layer fed the int8 net's own
+              blend semantics, and on two stress lists (random tiles that
+              form no grid; 200 small tiles at nearly one position, more
+              than K4 lists at a time). Then the int8 kernels on the same
+              batch, with weights from quantize_net and calibration from
+              one flagship forward, each layer fed the int8 net's own
               activations: Q1 and its accumulator mode (the int32 sums,
               bit-identical) on the 8 stride-1 layers, Q2 on the 3
               stride-2 ones, K3's requant mode and Q3 on the 3 up layers;
               and the bf16 blend on the canvas (detection, the argmax
-              fold, the normalised argmax). Then G1 on the 7 stride-1
-              layers that the folded net (use_pallas_conv) runs at folds
-              above 1, on the folded net's own activations of the 25-tile
+              fold, the normalised argmax) and on the two stress lists.
+              Then G1 on the 7 stride-1 layers that the folded net
+              (use_pallas_conv) runs at folds above 1, on the folded net's own activations of the 25-tile
               batch in bf16 and of one tile in f32, beside the three
               cuBLAS GEMMs of the same shapes; G1's bound counts the
               products over its table of nonzero weight blocks (the
@@ -144,7 +147,7 @@ _SOURCES = {
     "up2x2_bias_relu": "annonet_tpu_torch/csrc/up_igemm.cu",
     "blend_argmax": "annonet_tpu_torch/csrc/blend.cu",
     "qconv3x3_requant": "annonet_tpu_torch/csrc/qconv_igemm.cu",
-    "qconv3x3_s2_requant": "annonet_tpu_torch/csrc/qconv.cu",
+    "qconv3x3_s2_requant": "annonet_tpu_torch/csrc/qconv_igemm.cu",
     "qup2x2_requant": "annonet_tpu_torch/csrc/qconv.cu",
     "conv3x3_gemm_aligned": "annonet_tpu_torch/csrc/gemm_conv.cu",
 }
@@ -177,18 +180,18 @@ def sass_functions(cuobjdump: str, library: str, what: str) -> dict:
 
 def short_name(mangled: str) -> str:
     """``igemm_kernel<1, 16>`` for the mangled name of a K1/K2 kernel,
-    ``upgemm_kernel<true>`` for a bf16 K3 one, ``q1_igemm_kernel<16, true,
-    false>`` for a Q1 one (cout block, two-row-tap steps, accumulator mode),
-    the plain name of G1's and of the __dp4a kernels, else the name as
-    given."""
+    ``upgemm_kernel<true>`` for a bf16 K3 one, ``q1_igemm_kernel<2, 16,
+    true, false>`` for a Q1 or Q2 one (stride, cout block, two-row-tap
+    steps, accumulator mode), the plain name of G1's and of Q3's __dp4a
+    kernel, else the name as given."""
     m = re.search(r"\d+(igemm_kernel|conv3x3_f32_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if m and "q1_igemm" not in mangled:
         return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
-    m = re.search(r"q1_igemm_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    m = re.search(r"q1_igemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
     if m:
-        flags = ", ".join("true" if b == "1" else "false" for b in m.groups()[1:])
-        return f"q1_igemm_kernel<{m.group(1)}, {flags}>"
-    m = re.search(r"\d+(qconv3x3_s2_kernel|qup2x2_kernel)ILi(\d+)E", mangled)
+        flags = ", ".join("true" if b == "1" else "false" for b in m.groups()[2:])
+        return f"q1_igemm_kernel<{m.group(1)}, {m.group(2)}, {flags}>"
+    m = re.search(r"\d+(qup2x2_kernel)ILi(\d+)E", mangled)
     if m:
         return f"{m.group(1)}<{m.group(2)}>"
     if re.search(r"\d+gemm_conv_bf16E", mangled):
@@ -203,13 +206,14 @@ def check_tensor_cores(library: str) -> None:
     bf16 K3's (up_igemm.cu's upgemm_kernel<requant>, all that
     annonet_up2x2_bias_relu and annonet_up2x2_requant launch for bf16) and
     bf16 G1's (gemm_conv.cu's gemm_conv_bf16) hold HMMA or HGMMA
-    instructions; Q1's (qconv_igemm.cu's q1_igemm_kernel<cout block, pair,
-    accumulator>, all that annonet_q1_igemm launches) hold IMMA and no
-    __dp4a (IDP.4A); __dp4a appears only in Q2's and Q3's kernels, so no
-    stride-1 __dp4a kernel is left; the f32 direct convolutions have no bf16
-    instantiation. Prints each of those kernels' tensor-core and __dp4a
-    instruction counts and resource usage (registers, stack, local memory:
-    a spill shows as local memory)."""
+    instructions; Q1's and Q2's (qconv_igemm.cu's q1_igemm_kernel<stride,
+    cout block, pair, accumulator>, all that annonet_q1_igemm and
+    annonet_qconv3x3_s2_requant launch) hold IMMA and no __dp4a (IDP.4A);
+    __dp4a appears only in Q3's kernel (qup2x2_kernel), so no int8 3x3 conv
+    is left on it; the f32 direct convolutions have no bf16 instantiation.
+    Prints each of those kernels' tensor-core and __dp4a instruction counts
+    and resource usage (registers, stack, local memory: a spill shows as
+    local memory)."""
     from annonet_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -227,14 +231,18 @@ def check_tensor_cores(library: str) -> None:
     if len(g1) != 1:
         raise AssertionError(f"found {len(g1)} bf16 G1 kernels in the SASS: {sorted(g1)}")
     q1 = {k for k in sass if "q1_igemm_kernel" in k}
-    if len(q1) != 16:  # 4 cout blocks x pair or not x requant or accumulator
-        raise AssertionError(f"found {len(q1)} Q1 kernels in the SASS: {sorted(q1)}")
+    q2 = {k for k in q1 if short_name(k).startswith("q1_igemm_kernel<2, ")}
+    # stride 1: 4 cout blocks x pair or not x requant or accumulator;
+    # stride 2 (Q2): 3 cout blocks (16, 32, 64) x pair or not, requant only
+    if len(q1) != 22 or len(q2) != 6:
+        raise AssertionError(f"found {len(q1)} Q1/Q2 kernels, {len(q2)} of stride 2, in "
+                             f"the SASS: {sorted(short_name(k) for k in q1)}")
     stale = [k for k in sass if ("conv3x3" in k or "up2x2_kernel" in k) and "bfloat16" in k]
     if stale:
         raise AssertionError(f"a bf16 direct convolution is still compiled: {stale}")
     dp4a_kernels = {short_name(k) for k in sass if count(k, dp4a)}
-    if any(not k.startswith(("qconv3x3_s2_kernel<", "qup2x2_kernel<")) for k in dp4a_kernels):
-        raise AssertionError(f"__dp4a outside Q2 and Q3: {sorted(dp4a_kernels)}")
+    if any(not k.startswith("qup2x2_kernel<") for k in dp4a_kernels):
+        raise AssertionError(f"__dp4a outside Q3: {sorted(dp4a_kernels)}")
     usage = sass_functions(cuobjdump, library, "resource-usage")
     for name in sorted(k for k in usage if short_name(k) != k):
         n_hmma, n_imma, n_dp4a = count(name, hmma), count(name, imma), count(name, dp4a)
@@ -472,10 +480,51 @@ def blend_bound(args, labels, seeds, extra=()):
     return bound(ops, "f32", nbytes(*args, *extra, labels, seeds))
 
 
+def blend_stress_inputs(kind: str, device, generator):
+    """Blend inputs of K=3 whose tiles form no grid: 23 random tiles of
+    37x53 over a 90x150 canvas ("non-grid"), or 200 tiles of 6x9 at nearly
+    one position, more than K4 lists at a time over one pixel patch
+    ("overflow"). Returns (args, wsum factors)."""
+    n, th, tw, hp, wp = (23, 37, 53, 90, 150) if kind == "non-grid" else (200, 6, 9, 24, 140)
+    lo, span = ((0, 0), (hp - th + 1, wp - tw + 1)) if kind == "non-grid" else ((3, 60), (3, 4))
+    yx = torch.stack([torch.randint(lo[i], lo[i] + span[i], (n,), generator=generator,
+                                    device=device) for i in range(2)], 1).to(torch.int32)
+    unit = lambda *shape: torch.rand(shape, generator=generator, device=device)  # noqa: E731
+    args = (torch.randn((n, th, tw, 3), generator=generator, device=device), yx.contiguous(),
+            unit(th, tw), unit(hp, wp) + 0.5, unit(3) * 0.4 - 0.2, unit(3))
+    return args, (unit(hp) + 0.5, unit(wp) + 0.5)
+
+
+def check_blend_stress(device, blend_dtype, modes, generator) -> None:
+    """K4 against its plain version on the two stress lists of
+    ``blend_stress_inputs``, in each of ``modes`` ((name, detection,
+    reference_blend, fold)): labels and seeds bit-identical."""
+    from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
+
+    for kind in ("non-grid", "overflow"):
+        args, factors = blend_stress_inputs(kind, device, generator)
+        same = []
+        for mode, detection, reference, fold in modes:
+            kw = dict(with_detection=detection, reference_blend=reference,
+                      blend_dtype=blend_dtype, wsum_factors=factors if fold else None)
+            labels, seeds = blend_argmax(*args, **kw)
+            want_labels, want_seeds = blend_argmax_plain(*args, **kw)
+            torch.cuda.synchronize()
+            same.append(torch.equal(labels, want_labels)
+                        and (not detection or torch.equal(seeds, want_seeds)))
+            if not same[-1]:
+                raise AssertionError(f"blend_argmax {str(blend_dtype)[6:]} {mode} on the "
+                                     f"{kind} tile list differs from its plain version")
+        print(f"  blend_argmax {str(blend_dtype)[6:]} on the {kind} list ({args[1].shape[0]} "
+              f"tiles of {args[2].shape[0]}x{args[2].shape[1]} on {args[3].shape[0]}x"
+              f"{args[3].shape[1]}): bit-identical to plain in "
+              f"{', '.join(m[0] for m in modes)}: {all(same)}", flush=True)
+
+
 def check_blend(config, device, reps: int, generator):
-    """K4 against its plain version on the 4096x4096 canvas: labels and
-    seeds bit-identical. Returns the tally of the detection variant (the
-    one the main path runs)."""
+    """K4 against its plain version on the 4096x4096 canvas, then on the
+    two stress lists: labels and seeds bit-identical. Returns the tally of
+    the canvas's detection variant (the one the main path runs)."""
     from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
 
     plan, a = blend_inputs(config, device, generator)
@@ -516,6 +565,10 @@ def check_blend(config, device, reps: int, generator):
         if detection and not reference:
             tally(timing, "blend_argmax", err, k_ms, p_ms, None,
                   blend_bound(args, labels, seeds))
+    check_blend_stress(device, torch.float32, (("detection", True, False, False),
+                                               ("no detection", False, False, False),
+                                               ("reference_blend", True, True, False)),
+                       generator)
     return timing["blend_argmax"]
 
 
@@ -592,9 +645,8 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
             kernel = "qconv3x3_s2_requant" if (block.startswith("enc") and name == "conv0") \
                 else "qconv3x3_requant"
             fn, plain = getattr(qconv, kernel), getattr(qconv, kernel + "_plain")
-            # Q1 gets its packed weights as the int8 net passes them
-            packed = {"packed": qconv.pack_q1_weights(e["w_q"])} \
-                if kernel == "qconv3x3_requant" else {}
+            # Q1 and Q2 get their packed weights as the int8 net passes them
+            packed = {"packed": qconv.pack_q1_weights(e["w_q"])}
             cases = [(kernel, lambda: fn(xs[0], *args, **extra, **packed),
                       lambda: plain(xs[0], *args, **extra), e["w_q"],
                       (e["scale"], e["offset"]), "int8")]
@@ -640,7 +692,8 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
 def check_blend_bf16(config, device, reps: int, generator):
     """K4 in bf16 on the 4096x4096 canvas against its plain version: with
     detection (normalised), without detection with the argmax fold and
-    normalised; labels and seeds bit-identical. Returns {variant: tally}."""
+    normalised; then on the two stress lists; labels and seeds
+    bit-identical. Returns {variant: tally} of the canvas."""
     from annonet_tpu_torch.infer.tiling import weight_sum_factors
     from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
 
@@ -670,6 +723,10 @@ def check_blend_bf16(config, device, reps: int, generator):
               f"plain: {same}; kernel {k_ms:.3f} ms plain {p_ms:.3f} ms", flush=True)
         if not same:
             raise AssertionError(f"bf16 blend_argmax ({variant}) differs from its plain version")
+    check_blend_stress(device, torch.bfloat16, (("detection", True, False, False),
+                                                ("fold", False, False, True),
+                                                ("normalised", False, False, False)),
+                       generator)
     return timings
 
 

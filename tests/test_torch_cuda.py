@@ -14,10 +14,11 @@ Tolerances: f32 kernels only reorder f32 sums (1e-4 of the output scale,
 TF32 off in the plain versions); bf16 kernels round once after the bias
 where the plain versions round before it too (two bf16 steps, 2**-6, of
 the output scale); the blend's labels and seeds are bit-identical, in f32
-and in bf16, with and without the argmax fold; the int8 kernels Q1-Q3 sum
-integers exactly and requantize with one FMA, as their plain versions do,
-so they are bit-identical, as is Q1's accumulator mode (the int32 sums;
-Q1 and it on the int8 tensor cores); K3's requant mode sums floats in another order
+and in bf16, with and without the argmax fold, for any tile list; the int8
+kernels Q1-Q3 sum integers exactly and requantize with one FMA, as their
+plain versions do, so they are bit-identical, as is Q1's accumulator mode
+(the int32 sums; Q1, it and Q2 on the int8 tensor cores); K3's requant
+mode sums floats in another order
 than cuDNN, so it is held within one requant step. G1 and its plain version
 both sum in f32 and round once: bf16 within one bf16 step at the largest
 output, f32 within 1e-4 of the output scale; on the decoder's two-part input G1 is held to
@@ -279,6 +280,90 @@ def test_q1_tensor_core_modes_are_bit_identical_to_plain(device, n, h, w, c1, c2
         qconv.qconv3x3_requant(x, wgt, scale, offset, x2, packed=packed[..., :16].contiguous())
 
 
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout",
+    [(1, 18, 66, 6, 40), (3, 10, 34, 16, 8),  # the int8 s2 shapes above, packed
+     (2, 14, 70, 12, 20),  # two row taps a step, 7 x 35 outputs: ragged rows and columns
+     (2, 32, 100, 16, 32), (1, 16, 36, 32, 64), (1, 20, 44, 64, 128),  # enc1-3/conv0
+     (1, 12, 40, 40, 36), (2, 8, 218, 64, 128), (1, 6, 20, 24, 136), (1, 4, 4, 3, 4)],
+)
+def test_q2_tensor_cores_are_bit_identical_to_plain(device, n, h, w, cin, cout):
+    """Q2 (the int8 tensor cores at stride 2) at the edges of its implicit
+    GEMM, with the packed weights passed as the int8 net passes them: cin <=
+    16 (two row taps a k32 step) at output tiles cut on both edges, the
+    flagship's three layers in small, zero-padded channel chunks (24, 40),
+    cout that is no multiple of 16 or spans two slabs, the width 218 of the
+    872-px plan's half resolution, and a 2 x 2 output."""
+    from annonet_tpu_torch.ops import qconv
+
+    x = _int8((n, h, w, cin), device, 1)
+    wgt = _int8((3, 3, cin, cout), device, 3, -127)
+    packed = qconv.pack_q1_weights(wgt)
+    scale, offset = _requant_args((cout,), device, 4)
+    before = qconv.qconv3x3_s2_requant.launches
+    got = qconv.qconv3x3_s2_requant(x, wgt, scale, offset, packed=packed)
+    assert qconv.qconv3x3_s2_requant.launches == before + 1
+    want = qconv.qconv3x3_s2_requant_plain(x, wgt, scale, offset)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, h // 2, w // 2, cout) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert (want == 0).any() and (want > 0).any()
+    with pytest.raises(ValueError, match="packed"):
+        qconv.qconv3x3_s2_requant(x, wgt, scale, offset, packed=packed[..., :16].contiguous())
+
+
+def _blend_stress_case(kind, k, device, seed):
+    """Blend inputs whose tiles form no grid: random positions, several
+    tiles over most pixels ("random"), or 200 small tiles at nearly one
+    position, more than the kernel lists at a time over one patch
+    ("overflow")."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        n, th, tw, hp, wp = 23, 37, 53, 90, 150
+        yx = np.stack([rng.integers(0, hp - th + 1, n), rng.integers(0, wp - tw + 1, n)], 1)
+    else:
+        n, th, tw, hp, wp = 200, 6, 9, 24, 140
+        yx = np.stack([rng.integers(3, 6, n), rng.integers(60, 64, n)], 1)
+    args = (
+        torch.randn((n, th, tw, k), device=device),
+        torch.from_numpy(yx.astype(np.int32)).to(device),
+        _rand((th, tw), device, seed + 1),
+        _rand((hp, wp), device, seed + 2, 0.5),
+        torch.from_numpy(rng.normal(0, 0.2, k).astype(np.float32)).to(device),
+        torch.from_numpy(np.abs(rng.normal(0, 0.5, k)).astype(np.float32)).to(device),
+    )
+    factors = tuple(torch.from_numpy(rng.random(d).astype(np.float32) + 0.5).to(device)
+                    for d in (hp, wp))
+    return args, factors
+
+
+@pytest.mark.parametrize("k", [3, 300])
+@pytest.mark.parametrize("kind", ["random", "overflow"])
+@pytest.mark.parametrize("blend_dtype", [torch.float32, torch.bfloat16])
+def test_blend_is_exact_for_any_tile_list(device, kind, k, blend_dtype):
+    """K4 lists the tiles over each pixel patch: on tiles that form no grid
+    and on more candidates over one patch than it lists at a time, with
+    more classes than it sums in one walk, labels and seeds stay
+    bit-identical to the plain version in every mode."""
+    from annonet_tpu_torch.ops.blend import blend_argmax, blend_argmax_plain
+
+    args, factors = _blend_stress_case(kind, k, device, 30 + k)
+    for detection, reference, fold in ((True, False, False), (False, False, False),
+                                       (True, True, False), (False, False, True)):
+        kw = dict(with_detection=detection, reference_blend=reference,
+                  blend_dtype=blend_dtype, wsum_factors=factors if fold else None)
+        before = blend_argmax.launches
+        labels, seeds = blend_argmax(*args, **kw)
+        assert blend_argmax.launches == before + 1
+        want_labels, want_seeds = blend_argmax_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert labels.dtype == want_labels.dtype and torch.equal(labels, want_labels)
+        if detection:
+            assert torch.equal(seeds, want_seeds)
+    if k == 3:
+        assert len(set(want_labels.flatten().tolist())) == 3
+
+
 @pytest.mark.parametrize("m,k", [(1, 3), (2, 5), (1, 300)])
 @pytest.mark.parametrize("blend_dtype", [torch.bfloat16, torch.float32])
 def test_blend_modes_are_bit_identical_to_plain(device, m, k, blend_dtype):
@@ -475,3 +560,36 @@ def test_cuda_tensors_never_reach_the_plain_versions(device, monkeypatch):
     torch.cuda.synchronize()
     # one forward: 7 stride-1 layers at folds above 1 (the flagship's)
     assert gemm_conv.conv3x3_gemm_aligned.launches == before + 7
+
+
+def test_int8_path_never_reaches_the_plain_versions(device, monkeypatch):
+    """The int8 inferer on the card, calibrating and then calibrated, with
+    detection and in both blend dtypes, runs no plain version of an int8
+    kernel, of K3's requant mode or of the blend."""
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
+    from annonet_tpu_torch.ops import blend, conv, qconv
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for module, name in ((qconv, "qconv3x3_requant_plain"), (qconv, "qconv3x3_acc_plain"),
+                         (qconv, "qconv3x3_s2_requant_plain"), (qconv, "qup2x2_requant_plain"),
+                         (conv, "up2x2_requant_plain"), (blend, "blend_argmax_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    config = SegNetConfig(class_count=3, level_count=3, base_width=16)
+    params = init_runtime_params(config, 2)
+    image = np.random.default_rng(2).integers(0, 256, (200, 256, 3), dtype=np.uint8)
+    before = {f: f.launches for f in (qconv.qconv3x3_requant, qconv.qconv3x3_s2_requant,
+                                      conv.up2x2_requant, blend.blend_argmax)}
+    for blend_dtype in ("bfloat16", "float32"):
+        inferer = TiledInferer(params, config, device=device, quantize="int8",
+                               blend_dtype=blend_dtype)
+        inferer.infer_arrays(image, None, [0.0, 0.5, 0.2])  # calibrates on this image
+        inferer.infer_arrays(image)  # int8, no detection: the argmax fold
+        assert inferer._quantized and inferer.float_fallbacks == 0
+    torch.cuda.synchronize()
+    runs = {f: f.launches - n for f, n in before.items()}
+    # two int8 forwards of each inferer: 8 Q1, 3 Q2 and 3 K3-requant layers
+    assert runs[qconv.qconv3x3_requant] >= 4 * 8 and runs[qconv.qconv3x3_s2_requant] >= 4 * 3
+    assert runs[conv.up2x2_requant] >= 4 * 3 and runs[blend.blend_argmax] == 4

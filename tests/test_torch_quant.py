@@ -231,6 +231,80 @@ def test_q2_plain_equals_qconv3x3_s2_requant():
     np.testing.assert_array_equal(got, _unfold(np.asarray(want), cout))
 
 
+@pytest.mark.parametrize("n,h,w,c,cout,rows", [(2, 16, 32, 16, 32, 4), (1, 8, 48, 6, 40, 4),
+                                               (2, 12, 32, 32, 64, 2), (1, 8, 16, 64, 20, 2)])
+def test_q2_with_packed_weights_equals_qconv3x3_s2_requant(n, h, w, c, cout, rows):
+    """The Q2 wrapper with its packed weights (as the int8 net passes them)
+    on CPU tensors equals the Pallas Q2 in interpret mode: the cin <= 16
+    two-row-tap layout (6, 16) and the 32-channel chunks (32, 64)."""
+    rng = np.random.default_rng(20 + c)
+    x = rng.integers(0, 128, (n, h, w, c), dtype=np.int8)
+    w_q = rng.integers(-127, 128, (3, 3, c, cout), dtype=np.int8)
+    scale, offset = _requant_args(rng, cout)
+    wt = torch.from_numpy(w_q)
+    packed = qconv.pack_q1_weights(wt)
+    assert tuple(packed.shape) == ((1, 6, cout, 32) if c <= qconv.Q1_PAIR_CIN
+                                   else (-(-c // 32), 9, cout, 32))
+    before = qconv.qconv3x3_s2_requant.launches
+    got = qconv.qconv3x3_s2_requant(torch.from_numpy(x), wt, torch.from_numpy(scale),
+                                    torch.from_numpy(offset), packed=packed).numpy()
+    assert qconv.qconv3x3_s2_requant.launches == before  # the plain version ran
+    w0, w1 = build_tap_gemms_s2(_fold_s2_kernel(w_q, FOLD))
+    want = qconv3x3_s2_requant(
+        jnp.asarray(_fold_act(x, FOLD)), w0, w1, np.tile(scale, FOLD // 2),
+        np.tile(offset, FOLD // 2), rows=rows, interpret=True,
+    )
+    want = _unfold(np.asarray(want), cout)
+    assert 0 < (want == 0).sum() and 0 < (want > 0).sum()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fn", ["qconv3x3_requant", "qconv3x3_acc", "qconv3x3_s2_requant"])
+@pytest.mark.parametrize("bad", ["other_cin", "truncated", "int32", "strided"])
+def test_wrongly_packed_weights_raise(fn, bad):
+    """A packed copy that cannot be ``pack_q1_weights(w)`` is refused on
+    either device, before any launch."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.integers(0, 128, (1, 8, 8, 24), dtype=np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (3, 3, 24, 16), dtype=np.int8))
+    scale, offset = (torch.from_numpy(a) for a in _requant_args(rng, 16))
+    packed = {
+        "other_cin": qconv.pack_q1_weights(w_q[:, :, :16]),  # the two-row-tap layout
+        "truncated": qconv.pack_q1_weights(w_q)[..., :16].contiguous(),
+        "int32": qconv.pack_q1_weights(w_q).to(torch.int32),
+        "strided": qconv.pack_q1_weights(w_q).transpose(2, 3).contiguous().transpose(2, 3),
+    }[bad]
+    args = (x, w_q) if fn == "qconv3x3_acc" else (x, w_q, scale, offset)
+    with pytest.raises(ValueError, match="packed"):
+        getattr(qconv, fn)(*args, packed=packed)
+    getattr(qconv, fn)(*args, packed=qconv.pack_q1_weights(w_q))  # the right copy runs
+
+
+@pytest.mark.parametrize("level_count,grayscale", [(2, False), (3, True)])
+def test_quantized_net_packs_the_stride_2_weights_once(level_count, grayscale, monkeypatch):
+    """QuantizedSegNet holds pack_q1_weights of every enc*/conv0 (Q2) as of
+    every Q1 layer, and passes that buffer at each Q2 call."""
+    config = SegNetConfig(class_count=3, level_count=level_count, base_width=8,
+                          grayscale=grayscale)
+    _jcfg, tree, x, calib, *_ = _setup(config, seed=6, shape=(1, 32, 32))
+    net = pq.QuantizedSegNet(pq.quantize_net(tree, config, calib), config, device="cpu")
+    assert net.q2_layers() == [f"enc{i}/conv0" for i in range(1, level_count + 1)]
+    buffers = dict(net.named_buffers())
+    for layer in net.q1_layers() + net.q2_layers():
+        w_q = net._layer(layer)[0]
+        packed = buffers[f"{layer.replace('/', '_')}_w_packed"]
+        assert tuple(packed.shape) == qconv._q1_shape(w_q.shape[2], w_q.shape[3])
+        assert torch.equal(packed, qconv.pack_q1_weights(w_q))
+    seen = []
+    q2 = pq.qconv3x3_s2_requant
+    monkeypatch.setattr(pq, "qconv3x3_s2_requant",
+                        lambda x, w, s, o, packed=None: seen.append(packed) or q2(x, w, s, o, packed))
+    with torch.inference_mode():
+        net(pq.quantize_input(torch.from_numpy(x)))
+    assert len(seen) == level_count
+    assert all(p is buffers[f"enc{i}_conv0_w_packed"] for i, p in enumerate(seen, 1))
+
+
 def test_q3_plain_equals_qup_requant():
     rng = np.random.default_rng(13)
     f, n, h, w, c, cout = 4, 2, 8, 32, 32, 16
