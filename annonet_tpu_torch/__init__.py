@@ -5,7 +5,7 @@ The JAX package ``annonet_tpu`` stays the reference; this package keeps its
 structure and names so each module's counterpart is easy to find:
 
   models/segnet.py     SegNetConfig, the BN-folded runtime net
-  models/quantized.py  the int8 net (Q1-Q3: csrc/qconv_igemm.cu, qconv.cu)
+  models/quantized.py  the int8 net (Q1-Q3: csrc/qconv_igemm.cu, qup_igemm.cu)
   models/folded_runtime.py  the folded net of use_pallas_conv (G1)
   serialization.py     the annonet.dnn npz artifact (same keys and checks)
   ops/conv.py          K1-K3: fused conv + bias + ReLU (CUDA, csrc/conv.cu,
@@ -17,7 +17,9 @@ structure and names so each module's counterpart is easy to find:
   infer/               tile planning, TiledInferer, confusion matrices
   data/                dataset scan, image/mask reading, label codec
   classes.py, native.py  the class palette codec and the native host module
-  cli/infer.py         annonet_infer
+  utils/               process priority, the torch.profiler trace
+  cli/infer.py         annonet_infer (reader and writer threads, groups in
+                       flight on the device)
 
 This package imports neither ``jax`` nor anything of ``annonet_tpu``; it
 keeps its own copies of what it needs from the JAX package's jax-free

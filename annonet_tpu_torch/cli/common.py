@@ -1,6 +1,7 @@
 """Shared CLI helpers: the reference-parity parser, class-specific value
-parsing (copies of annonet_tpu/cli/_parser.py and cli/common.py, whose
-package imports pull in JAX) and device selection."""
+parsing, the in-order buffer of the reader threads (copies of
+annonet_tpu/cli/_parser.py and cli/common.py, whose package imports pull
+in JAX) and device selection."""
 
 from __future__ import annotations
 
@@ -60,6 +61,32 @@ def parse_class_specific_values(
             )
         values[index] = value
     return values
+
+
+class IndexOrderedResults:
+    """Reorder (index, item) pairs from a queue into 0,1,2,... order.
+
+    Reader threads complete out of order; inference must still process
+    images in find_image_files order (the reference's sequential loop,
+    annonet_infer_main.cpp:440-494) so result ordering and the
+    "excluding the first image" timing are deterministic. The buffer is
+    bounded only if the PRODUCERS bound their read-ahead (cli/infer.py's
+    read_ahead semaphore): without that, one slow in-order item would let
+    the other readers race ahead and this buffer would absorb them all.
+    """
+
+    def __init__(self, results_queue):
+        self._queue = results_queue
+        self._pending = {}
+        self._next = 0
+
+    def next(self):
+        while self._next not in self._pending:
+            index, item = self._queue.get()
+            self._pending[index] = item
+        item = self._pending.pop(self._next)
+        self._next += 1
+        return item
 
 
 def resolve_device(device_index=None):

@@ -9,25 +9,38 @@ original size, and accumulate the per-pixel and per-region confusion
 matrices when ground truth exists; finally print the timing report and
 the matrices.
 
-The loop runs sequentially on one CUDA device (``--device``, default 0;
-ANNONET_TPU_TORCH_DEVICE=cpu runs it on the CPU). ``--pipeline-depth``
-and the reader/writer thread counts are accepted and have no effect:
-reading, inference and writing take turns. ``--no-compilation-cache`` has
-nothing to disable (the kernels are built once per source hash).
-``--quantize int8`` runs the int8 net, with ``--calibration-images``,
-``--calibration`` / ``--save-calibration`` (files either package reads)
-and ``--blend-dtype``; after the loop it prints the calibration overshoot
-of the last image, as the JAX CLI does. Flags whose feature is not ported
-yet exit with code 2 and name the roadmap item: ``--mesh``,
-``--coordinator``, ``--num-processes``, ``--process-id``,
-``--plan-autotune``, ``--profile``.
+The loop is the JAX CLI's pipeline on one CUDA device (``--device``,
+default 0; ANNONET_TPU_TORCH_DEVICE=cpu runs it on the CPU):
+``--full-image-reader-thread-count`` reader threads decode images ahead,
+within a read-ahead window, into a buffer consumed in file order;
+``--result-image-writer-thread-count`` writer threads resize, colour and
+encode the result PNGs; up to ``--pipeline-depth`` groups of
+``--image-batch`` same-size images are in flight on the device: a group's
+forward is queued with the copy of its labels and seeds to the host, and
+the next group is queued before that copy is waited for, so the host's
+blob veto and confusion matrices of one group overlap the device's work
+on the next. Depth 1 with one reader and one writer is the reference's
+sequential loop; the results are the same at any depth and thread count.
+The inferer stays on the main thread; the threads touch numpy and PIL
+only. ``--profile DIR`` writes a torch.profiler trace of the loop.
+``--no-compilation-cache`` has nothing to disable (the kernels are built
+once per source hash). ``--quantize int8`` runs the int8 net, with
+``--calibration-images``, ``--calibration`` / ``--save-calibration``
+(files either package reads) and ``--blend-dtype``; after the loop it
+prints the calibration overshoot of the last image, as the JAX CLI does.
+Flags whose feature is not ported yet exit with code 2 and name the
+roadmap item: ``--mesh``, ``--coordinator``, ``--num-processes``,
+``--process-id``, ``--plan-autotune``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import os
+import queue
 import sys
+import threading
 import time
 
 from annonet_tpu_torch.cli.common import ReferenceParser
@@ -60,16 +73,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", "--primary-cuda-device", dest="device",
                    type=int, default=None, help="CUDA device index")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="Capture a profiler trace of the inference loop "
-                        "(not ported yet)")
+                   help="Capture a torch.profiler trace of the inference "
+                        "loop (a Chrome trace file in DIR)")
     p.add_argument("--report-json", default=None, metavar="PATH",
                    help="Write a machine-readable run report: per-image "
                         "timings, the timing summary, and — when ground "
                         "truth exists — both confusion matrices with "
                         "per-class recall/precision and total accuracy")
     p.add_argument("--pipeline-depth", type=int, default=2,
-                   help="Images in flight on the device (this port runs "
-                        "one at a time)")
+                   help="Images in flight on the device: the next image is "
+                        "dispatched before the current result is read back "
+                        "(1 = fully sequential like the reference). At "
+                        "depth > 1 the per-image timing stats report "
+                        "device-busy time (overlap with host work is not "
+                        "double-counted)")
     p.add_argument("--image-batch", type=int, default=1, metavar="N",
                    help="Forward up to N consecutive SAME-SIZE images as "
                         "one tile batch; per-image timings become the "
@@ -115,7 +132,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_CLI = 'ROADMAP.md queue 1 item 4, "Inference CLIs and serving"'
+_CLI = 'ROADMAP.md queue 1 item 3, "Inference CLIs and serving"'
 _UNSET = object()
 # (flag, dest): refused whenever the flag appears on the command line
 _UNPORTED = (
@@ -124,7 +141,6 @@ _UNPORTED = (
     ("--num-processes", "num_processes"),
     ("--process-id", "process_id"),
     ("--plan-autotune", "plan_autotune"),
-    ("--profile", "profile"),
 )
 
 
@@ -184,6 +200,7 @@ def _run(args, input_directory) -> int:
     from annonet_tpu_torch.classes import parse_anno_classes
     from annonet_tpu_torch import serialization
     from annonet_tpu_torch.cli.common import (
+        IndexOrderedResults,
         parse_class_specific_values,
         resolve_device,
     )
@@ -194,7 +211,7 @@ def _run(args, input_directory) -> int:
         resize_label_image,
         save_png_rgba,
     )
-    from annonet_tpu_torch.infer.core import TiledInferer, detection_veto
+    from annonet_tpu_torch.infer.core import HostReadback, TiledInferer, detection_veto
     from annonet_tpu_torch.infer.evaluation import (
         format_confusion_matrix,
         new_confusion_matrix,
@@ -203,6 +220,7 @@ def _run(args, input_directory) -> int:
     )
     from annonet_tpu_torch.infer.tiling import TilingParameters, default_tile_max
     from annonet_tpu_torch.models.segnet import required_input_dimension
+    from annonet_tpu_torch.utils import profiler_trace, set_low_priority
 
     runtime_params, model_config, anno_classes_json, downscaling_factor = (
         serialization.load_model(args.model)
@@ -258,7 +276,75 @@ def _run(args, input_directory) -> int:
     )
 
     files = find_image_files(input_directory, require_ground_truth=False)
+    pipeline_depth = max(1, args.pipeline_depth)
     image_batch = max(1, args.image_batch)
+
+    # ---- reader threads: paths -> samples (annonet_infer_main.cpp:382-401).
+    # Each result is tagged with its file index and the consumer reorders,
+    # so images are processed in find_image_files order whatever the
+    # reader count. The read-ahead window (``read_ahead``): a reader takes
+    # a new request only while fewer samples than the window are taken and
+    # not consumed, so one slow image cannot let the others decode the
+    # whole list into the reorder buffer; requests are taken in index
+    # order, so the needed index is always inside the window: no deadlock.
+    read_requests: "queue.Queue" = queue.Queue()
+    for index, filenames in enumerate(files):
+        read_requests.put((index, filenames))
+    reader_count = max(1, args.full_image_reader_thread_count)
+    read_results: "queue.Queue" = queue.Queue(maxsize=reader_count)
+    stop = threading.Event()
+    read_ahead = threading.Semaphore(reader_count + pipeline_depth * image_batch + 2)
+
+    def reader():
+        while not stop.is_set():
+            if not read_ahead.acquire(timeout=0.1):
+                continue
+            try:
+                index, filenames = read_requests.get_nowait()
+            except queue.Empty:
+                read_ahead.release()
+                return
+            try:
+                sample = read_sample(
+                    filenames, anno_classes, require_ground_truth=False,
+                    downscaling_factor=downscaling_factor,
+                    grayscale=model_config.grayscale,
+                )
+            except Exception as e:  # noqa: BLE001 — raised by the consumer
+                sample = e
+            read_results.put((index, sample))
+
+    readers = [threading.Thread(target=reader, daemon=True) for _ in range(reader_count)]
+    for t in readers:
+        t.start()
+    ordered_samples = IndexOrderedResults(read_results)
+
+    # ---- writer threads: results -> PNGs (annonet_infer_main.cpp:403-419)
+    writer_count = max(1, args.result_image_writer_thread_count)
+    write_requests: "queue.Queue" = queue.Queue(maxsize=writer_count)
+    write_results: "queue.Queue" = queue.Queue()
+
+    def writer():
+        while True:
+            item = write_requests.get()
+            if item is None:
+                return
+            filename, original_w, original_h, result = item
+            try:
+                label_image = resize_label_image(result, original_w, original_h)
+                save_png_rgba(
+                    filename, index_label_image_to_rgba_label_image(label_image, anno_classes)
+                )
+                write_results.put(True)
+            except Exception as e:  # noqa: BLE001 — raised by the main thread
+                write_results.put(e)
+
+    writers = [threading.Thread(target=writer, daemon=True) for _ in range(writer_count)]
+    for t in writers:
+        t.start()
+
+    set_low_priority()  # annonet_infer_main.cpp:375
+
     per_image_records: list = []
     confusion_matrix_per_pixel = new_confusion_matrix(len(anno_classes))
     confusion_matrix_per_region = new_confusion_matrix(len(anno_classes))
@@ -268,56 +354,91 @@ def _run(args, input_directory) -> int:
     max_inference_excl_first = 0.0
     excl_first_count = 0
 
-    def read(index):
-        sample = read_sample(
-            files[index], anno_classes, require_ground_truth=False,
-            downscaling_factor=downscaling_factor,
-            grayscale=model_config.grayscale,
-        )
+    # The device pipeline: the next group's forward is dispatched before
+    # the previous group's labels are taken, so the device's work overlaps
+    # the host's blob veto and confusion matrices. Each group's copy to the
+    # host is queued at the end of its own dispatch and waited for by its
+    # own event (HostReadback): on one CUDA stream a plain copy in
+    # complete_group would queue behind the next group's forward. Depth 1
+    # is the reference's sequential loop (annonet_infer_main.cpp:440-494).
+    in_flight: "collections.deque" = collections.deque()
+    completed = 0
+    dispatched = 0
+    pending_sample = [None]  # one-sample pushback for size-group breaks
+    last_image = [None]  # the most recent pixels, for the int8 overshoot line
+
+    def next_sample():
+        if pending_sample[0] is not None:
+            sample, pending_sample[0] = pending_sample[0], None
+            return sample
+        sample = ordered_samples.next()
+        read_ahead.release()  # one consumed -> one more may be read ahead
+        if isinstance(sample, Exception):
+            raise sample
         if sample.error:
             raise RuntimeError(sample.error)
         return sample
 
-    t0 = time.monotonic()
-    index = 0
-    last_image = None
-    pending = None  # a sample read ahead that closed a same-size group
-    first_group = True
-    while index < len(files):
-        # up to --image-batch consecutive same-size images share one forward
-        group = [pending if pending is not None else read(index)]
-        pending = None
-        index += 1
-        while len(group) < image_batch and index < len(files):
-            sample = read(index)
-            if sample.input_image.shape != group[0].input_image.shape:
-                pending = sample
+    def dispatch_group():
+        # up to --image-batch CONSECUTIVE same-size images share one
+        # forward; a size change closes the group (the odd sample is pushed
+        # back, order preserved)
+        nonlocal dispatched
+        group = [next_sample()]
+        dispatched += 1
+        shape = group[0].input_image.shape
+        while len(group) < image_batch and dispatched < len(files):
+            sample = next_sample()
+            if sample.input_image.shape != shape:
+                pending_sample[0] = sample
                 break
             group.append(sample)
-            index += 1
-        print(f"\rProcessing image {index - (pending is not None)} of {len(files)}...",
-              end="", flush=True)
-
+            dispatched += 1
         t_start = time.monotonic()
         if len(group) == 1:
-            labels_np, seeds_np = inferer.infer_arrays(
-                group[0].input_image, gains, detection_levels
-            )
-            labels_np, seeds_np = labels_np[None], (
-                None if seeds_np is None else seeds_np[None]
+            labels, seeds = inferer.infer_arrays(
+                group[0].input_image, gains, detection_levels, device_output=True,
             )
         else:
-            labels_np, seeds_np = inferer.infer_arrays_batch(
-                np.stack([s.input_image for s in group]),
-                gains, detection_levels,
+            labels, seeds = inferer.infer_arrays_batch(
+                np.stack([s.input_image for s in group]), gains, detection_levels,
+                device_output=True,
             )
-        share = (time.monotonic() - t_start) / len(group)
+        readback = HostReadback(labels, seeds, shape[0], shape[1])
+        in_flight.append((group, readback, t_start))
 
-        last_image = group[-1].input_image
+    # the end of the previous group's measured interval (complete_group)
+    prev_group_done = [None]
+    completed_groups = [0]
+
+    def complete_group():
+        nonlocal total_inference, total_inference_excl_first
+        nonlocal max_inference_excl_first, ground_truth_count, completed
+        nonlocal excl_first_count
+        group, readback, t_start = in_flight.popleft()
+        labels_np, seeds_np = readback.wait()
+        t_done = time.monotonic()
+        # The reference times each inference strictly sequentially
+        # (annonet_infer_main.cpp:466-480). With groups in flight, the wall
+        # time from dispatch to readback would count overlap twice, so each
+        # group is charged only the interval after the previous group
+        # finished: the device runs groups in dispatch order, so t_done -
+        # max(t_start, prev_done) is this group's device-busy time (+ its
+        # readback); at depth 1 it is t_done - t_start.
+        if prev_group_done[0] is None:
+            duration = t_done - t_start
+        else:
+            duration = t_done - max(t_start, prev_group_done[0])
+        prev_group_done[0] = t_done
+        # the whole first group pays one-time costs (library load, plan
+        # constants, calibration), like the reference's first image: none
+        # of its images counts in the excluding-first statistics
+        first_group = completed_groups[0] == 0
+        completed_groups[0] += 1
+        share = duration / len(group)
         for j, sample in enumerate(group):
-            result = detection_veto(
-                labels_np[j], None if seeds_np is None else seeds_np[j]
-            )
+            sel = (j,) if len(group) > 1 else ()
+            result = detection_veto(labels_np[sel], None if seeds_np is None else seeds_np[sel])
             if args.report_json:
                 per_image_records.append({
                     "image": sample.image_filenames.image_filename,
@@ -327,8 +448,6 @@ def _run(args, input_directory) -> int:
                     "first_group": first_group,
                 })
             total_inference += share
-            # the first group pays one-time costs (library load, cuDNN and
-            # cuBLAS setup), like the reference's first image
             if not first_group:
                 total_inference_excl_first += share
                 max_inference_excl_first = max(max_inference_excl_first, share)
@@ -345,31 +464,60 @@ def _run(args, input_directory) -> int:
                     sample.label_image,
                     result,
                 )
-            label_image = resize_label_image(
-                result, sample.original_width, sample.original_height
-            )
-            save_png_rgba(
+            write_requests.put((
                 sample.image_filenames.image_filename + "_result.png",
-                index_label_image_to_rgba_label_image(label_image, anno_classes),
+                sample.original_width,
+                sample.original_height,
+                result,
+            ))
+            last_image[0] = sample.input_image
+            completed += 1
+
+    t0 = time.monotonic()
+    try:
+        with profiler_trace(args.profile, device):
+            while dispatched < len(files):
+                dispatch_group()
+                print(f"\rProcessing image {dispatched} of {len(files)}...",
+                      end="", flush=True)
+                if len(in_flight) >= pipeline_depth:
+                    complete_group()
+            while in_flight:
+                complete_group()
+        t1 = time.monotonic()
+        print(f"\nAll {len(files)} images processed in {t1 - t0:.3f} seconds!"
+              f" (actual inference: {total_inference:.6f} seconds)")
+        if len(files) > 1 and excl_first_count > 0:
+            print(
+                "Processing time excluding the first image: "
+                f"average = {total_inference_excl_first * 1000.0 / excl_first_count:.3f} ms, "
+                f"max = {max_inference_excl_first * 1000.0:.3f} ms"
             )
-        first_group = False
+        for _ in range(completed):
+            ok = write_results.get()
+            if isinstance(ok, Exception):
+                raise ok
+        print("All result images written!")
+    finally:
+        # clean shutdown on success and on error: stop the readers (draining
+        # read_results so that none stays blocked on the full queue), then
+        # send the writers their sentinels and join everything
+        stop.set()
+        while any(t.is_alive() for t in readers):
+            try:
+                read_results.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        for _ in writers:
+            write_requests.put(None)
+        for t in writers + readers:
+            t.join(timeout=5.0)
 
-    t1 = time.monotonic()
-    print(f"\nAll {len(files)} images processed in {t1 - t0:.3f} seconds!"
-          f" (actual inference: {total_inference:.6f} seconds)")
-    if len(files) > 1 and excl_first_count > 0:
-        print(
-            "Processing time excluding the first image: "
-            f"average = {total_inference_excl_first * 1000.0 / excl_first_count:.3f} ms, "
-            f"max = {max_inference_excl_first * 1000.0:.3f} ms"
-        )
-    print("All result images written!")
-
-    if args.quantize == "int8" and last_image is not None:
+    if args.quantize == "int8" and last_image[0] is not None:
         # clip-saturation telemetry: how far the last image's activations
         # exceed the frozen calibration range (above ~1.2x the calibration
         # images were unrepresentative)
-        overshoot = inferer.calibration_overshoot(last_image)
+        overshoot = inferer.calibration_overshoot(last_image[0])
         if overshoot > 0.0:
             print(
                 "int8 calibration: "
@@ -407,7 +555,7 @@ def _run(args, input_directory) -> int:
             "processes": 1,
             "quantize": args.quantize,
             "image_batch": image_batch,
-            "pipeline_depth": 1,
+            "pipeline_depth": pipeline_depth,
             "device": str(device),
             "gains": [float(g) for g in gains],
             "detection_levels": [float(d) for d in detection_levels],

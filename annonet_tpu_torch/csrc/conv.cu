@@ -31,7 +31,7 @@
 // scale s_in, rounded to the compute dtype, goes through the same
 // transpose conv with f32 accumulation; the sum is rounded to the compute
 // dtype (as XLA's bf16 conv output is) and requantized to int8 with one
-// fused multiply-add, clip [0, 127] and truncation (see qconv.cu).
+// fused multiply-add, clip [0, 127] and truncation (see ops/qconv.py).
 
 #include "common.cuh"
 

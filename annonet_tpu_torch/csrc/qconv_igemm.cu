@@ -9,13 +9,13 @@
 //     2o + d, and
 //   scripts/repro_mosaic_s1.py:136 bisect._acc_kernel (pallas_call at :160),
 //     the raw int32 accumulator of the TPU diagnostic script (ACC below).
-// Q3 (the 2x2 transpose conv) stays on qconv.cu's __dp4a kernel.
+// Q3 (the 2x2 transpose conv) is qup_igemm.cu's GEMM on the same tensor cores.
 //
 // What it computes: acc[n, o, co] = the exact int32 sum over the 9 taps and
 // all input channels of the virtual concat [x (c1), x2 (c2)] of x * w, zero
 // padding (1, 1) at stride 1 and (0, 1) at stride 2; then q =
 // int8(clip(fma(float(acc), scale[co], offset[co]), 0, 127)), truncating
-// (__fmaf_rn, one rounding, as XLA's contracted FMA; see qconv.cu). ACC
+// (__fmaf_rn, one rounding, as XLA's contracted FMA; ops/qconv.py). ACC
 // (stride 1 only) writes acc itself, int32, instead. Integer sums are exact
 // in any order, so every mode equals its plain version bit for bit.
 //

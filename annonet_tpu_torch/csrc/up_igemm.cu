@@ -22,7 +22,7 @@
 //   float:   out = bf16(relu(C + bias)), one rounding after the f32 bias
 //   requant: A = bf16(int8 x * bf16(s_in[c])) on the way into shared
 //            memory, r = bf16(C), out = int8(trunc(clip(fma(r, scale,
-//            offset), 0, 127))) (conv.cu's f32 kernel, qconv.cu)
+//            offset), 0, 127))) (conv.cu's f32 kernel, qup_igemm.cu)
 //
 // What bounds it on an H100. On the flagship's 25-tile 896^2 batch (bytes =
 // input + output once; bound = max(bytes / 3.35 TB/s, FLOPs / 989

@@ -17,7 +17,10 @@ and int8 paths:
      bf16 when ``blend_dtype`` says so (the int8 path's default), with the
      argmax fold on the int8 net without detection;
   4. crop back to H x W, copy to the host, and there veto seedless
-     blobs (``detection_veto``).
+     blobs (``detection_veto``). With ``device_output=True`` the labels
+     and seeds of the padded canvas stay on the device, as the JAX
+     package returns them; ``HostReadback`` then crops them there and
+     starts their copy to the host without waiting for it.
 
 int8 (``quantize="int8"``, models/quantized.py): the first
 ``calibration_images`` images of each fold key run the float net and
@@ -244,7 +247,8 @@ class TiledInferer:
 
     def _blend(self, logits, plan: TilePlan, gains, detection_levels,
                with_detection: bool, quantized: bool = False):
-        """K4 on the tile logits: (labels [M, Hp, Wp], seeds or None).
+        """K4 on the tile logits: (labels [M, Hp, Wp], seeds or None);
+        ``gains`` and ``detection_levels`` are [K] float32 on the device.
 
         As in the JAX package, the bf16 blend and the argmax fold exist
         only on the folded layout: they apply when the plan folds and its
@@ -257,9 +261,7 @@ class TiledInferer:
             and not self.reference_blend_semantics and factors is not None
         )
         return blend_argmax(
-            logits, tile_yx, ramp, inv_wsum,
-            torch.from_numpy(gains).to(self.device),
-            torch.from_numpy(detection_levels).to(self.device),
+            logits, tile_yx, ramp, inv_wsum, gains, detection_levels,
             with_detection=with_detection,
             reference_blend=self.reference_blend_semantics,
             blend_dtype=self.blend_dtype if folded else torch.float32,
@@ -432,34 +434,52 @@ class TiledInferer:
         image,  # (H, W, C) uint8
         gains: Optional[Sequence[float]] = None,
         detection_levels: Optional[Sequence[float]] = None,
+        device_output: bool = False,
     ):
         """One image: (labels [H, W] int32, seeds [H, W] bool or None).
-        Seeds are produced only when a detection level is positive."""
+        Seeds are produced only when a detection level is positive. With
+        ``device_output=True`` the results of the padded canvas stay on the
+        inferer's device, [Hp, Wp] tensors (labels uint8, or int32 above
+        255 classes), as the JAX package returns them: for pipelines that
+        start the copy to the host themselves (``HostReadback``)."""
         if image.ndim != 3 or image.shape[2] != self.config.in_channels:
             raise ValueError(
                 f"expected (H, W, {self.config.in_channels}) input, "
                 f"got {tuple(image.shape)}"
             )
-        return self._infer(image, False, gains, detection_levels)
+        return self._infer(image, False, gains, detection_levels, device_output)
 
     def infer_arrays_batch(
         self,
         images,  # (M, H, W, C) uint8, same-size images
         gains: Optional[Sequence[float]] = None,
         detection_levels: Optional[Sequence[float]] = None,
+        device_output: bool = False,
+        pad_to_bucket=True,  # True | False | int target size: see below
     ):
         """M same-size images as one tile batch: (labels [M, H, W],
-        seeds [M, H, W] or None). Per-image results equal infer_arrays."""
+        seeds [M, H, W] or None). Per-image results equal infer_arrays.
+        ``device_output=True`` keeps them on the device, [M, Hp, Wp] of the
+        padded canvas, as infer_arrays does.
+
+        ``pad_to_bucket`` is accepted, and validated, as the JAX package
+        takes it (an int below M raises ValueError), and does nothing: the
+        JAX inferer pads M up to a bucket so that odd batch sizes reuse
+        compiled XLA programs, and PyTorch compiles nothing."""
         if images.ndim != 4 or images.shape[3] != self.config.in_channels:
             raise ValueError(
                 f"expected (M, H, W, {self.config.in_channels}) input, "
                 f"got {tuple(images.shape)}"
             )
-        if images.shape[0] < 1:
+        m = images.shape[0]
+        if m < 1:
             raise ValueError("image batch must contain at least one image")
-        return self._infer(images, True, gains, detection_levels)
+        if not isinstance(pad_to_bucket, bool) and int(pad_to_bucket) < m:
+            raise ValueError(f"pad_to_bucket target {int(pad_to_bucket)} is below the "
+                             f"batch size {m}")
+        return self._infer(images, True, gains, detection_levels, device_output)
 
-    def _infer(self, image, batched, gains, detection_levels):
+    def _infer(self, image, batched, gains, detection_levels, device_output=False):
         h, w = image.shape[-3:-1]
         k = self.config.class_count
         gains_arr = np.zeros(k, np.float32) if gains is None else np.asarray(
@@ -477,20 +497,59 @@ class TiledInferer:
         plan = self.plan(h, w)
         images = image if batched else image[None]
         with torch.inference_mode():
+            # the small copies first: a pageable copy to the card waits for
+            # the work queued before it, so queued after the forward it
+            # would hold the host until the forward ends
+            gains_t, det_t = (torch.from_numpy(v).to(self.device) for v in (gains_arr, det_arr))
             qnet = self._int8_net(images, plan)
             tiles = self._tile_batch(images, plan, quantized=qnet is not None)
             logits = self._forward(tiles, plan, qnet)
             del tiles
             labels, seeds = self._blend(
-                logits, plan, gains_arr, det_arr, with_detection,
+                logits, plan, gains_t, det_t, with_detection,
                 quantized=qnet is not None,
             )
+        if device_output:
+            return (labels, seeds) if batched else (labels[0], None if seeds is None else seeds[0])
         # crop the canvas back to H x W before the copy to the host
         labels = labels[:, :h, :w].cpu().numpy().astype(np.int32)
         seeds = None if seeds is None else seeds[:, :h, :w].cpu().numpy()
         if not batched:
             labels, seeds = labels[0], None if seeds is None else seeds[0]
         return labels, seeds
+
+
+class HostReadback:
+    """The copy to the host of a ``device_output`` call's labels and seeds
+    ([..., Hp, Wp] on the inferer's device), started at once: cropped to
+    H x W on the device, then on a CUDA device copied without blocking into
+    pinned host memory, with an event recorded behind the copies on the
+    current stream. ``wait`` waits for that event only, not for the work
+    queued after it (the next image's forward), so a pipeline can start
+    image i + 1 before it takes image i's results."""
+
+    def __init__(self, labels: torch.Tensor, seeds: Optional[torch.Tensor],
+                 height: int, width: int):
+        crop = (..., slice(0, height), slice(0, width))
+        cropped = [t[crop].contiguous() for t in (labels, seeds) if t is not None]
+        self._with_seeds = seeds is not None
+        self._event = None
+        if labels.device.type == "cuda":
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in cropped]
+            for host, t in zip(self._host, cropped):
+                host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(labels.device))
+        else:
+            self._host = cropped
+
+    def wait(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """(labels [..., H, W] int32, seeds [..., H, W] bool or None) on
+        the host, as infer_arrays returns them."""
+        if self._event is not None:
+            self._event.synchronize()
+        labels = self._host[0].numpy().astype(np.int32)
+        return labels, self._host[1].numpy() if self._with_seeds else None
 
 
 def annonet_infer(

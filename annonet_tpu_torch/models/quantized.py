@@ -25,8 +25,9 @@ Scheme (symmetric static post-training quantization):
     weights (width(0) * 127 * 127 < 2**24), then ``acc * s_w + b``.
 
 Layer kernels: Q1 (stride-1 convs, the decoder's with the skip as a second
-input), Q2 (stride-2 convs; the weights of both also packed once, as their
-tensor-core kernel reads them), K3's requant mode or Q3 (up layers).
+input), Q2 (stride-2 convs), K3's requant mode or Q3 (up layers); the
+weights of Q1, Q2 and Q3 also packed once, as their tensor-core kernels
+read them.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from annonet_tpu_torch.models.segnet import (
 from annonet_tpu_torch.ops.conv import up2x2_requant
 from annonet_tpu_torch.ops.qconv import (
     pack_q1_weights,
+    pack_q3_weights,
     qconv3x3_requant,
     qconv3x3_s2_requant,
     qup2x2_requant,
@@ -244,11 +246,14 @@ class QuantizedSegNet(nn.Module):
                 self.register_buffer(name, t.to(device).contiguous())
                 names.append(name)
             self._names[layer] = names
-        # the weights of Q1 and Q2 as their kernel reads them, packed once
-        # per layer
+        # the weights of Q1, Q2 and Q3 as their kernels read them, packed
+        # once per layer
         for layer in self.q1_layers() + self.q2_layers():
             self.register_buffer(f"{layer.replace('/', '_')}_w_packed",
                                  pack_q1_weights(self._layer(layer)[0]))
+        for layer in self.q3_layers():
+            self.register_buffer(f"{layer.replace('/', '_')}_w_packed",
+                                 pack_q3_weights(self._layer(layer)[0]))
 
     def q1_layers(self) -> List[str]:
         """The stride-1 int8 convs (Q1), in forward order."""
@@ -259,6 +264,13 @@ class QuantizedSegNet(nn.Module):
     def q2_layers(self) -> List[str]:
         """The stride-2 int8 convs (Q2), in forward order."""
         return [f"enc{i}/conv0" for i in range(1, self.config.level_count + 1)]
+
+    def q3_layers(self) -> List[str]:
+        """The int8 up layers (Q3), in forward order: none without
+        ``quantize_up``."""
+        if not self.quantize_up:
+            return []
+        return [f"dec{i}/up" for i in range(self.config.level_count, 0, -1)]
 
     def _layer(self, layer: str):
         return [getattr(self, n) for n in self._names[layer]]
@@ -310,7 +322,7 @@ class QuantizedSegNet(nn.Module):
         for i in range(L, 0, -1):
             up = self._layer(f"dec{i}/up")
             if self.quantize_up:
-                x = qup2x2_requant(x, *up)
+                x = qup2x2_requant(x, *up, packed=self._packed(f"dec{i}/up"))
             else:
                 w, s_in, scale, offset = up
                 x = up2x2_requant(x, s_in, w, scale, offset)

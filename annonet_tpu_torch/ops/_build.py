@@ -60,9 +60,9 @@ _SIGNATURES = {
     "annonet_qconv3x3_s2_requant": [
         _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P,
     ],
-    # x, w, scale, offset, out, n, h, w, cin, cout, words, stream
+    # x, packed w, scale, offset, out, n, h, w, cin, cout, stream
     "annonet_qup2x2_requant": [
-        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P,
     ],
     # x, wc, wl, wr, bias, table, out, n, h, wb, k1, nc, cout, bf16, stream
     "annonet_conv3x3_gemm": [

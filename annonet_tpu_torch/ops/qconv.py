@@ -4,18 +4,19 @@ Each op has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper checks its arguments; for tensors on the CPU it returns the plain
 version, for CUDA tensors it launches the hand-written kernel
 (``csrc/qconv_igemm.cu`` for Q1, its accumulator mode and Q2,
-``csrc/qconv.cu`` for Q3) on the current stream (or raises: there is no
-fallback from a CUDA tensor to the plain version) and adds one to its
-``launches`` count.
+``csrc/qup_igemm.cu`` for Q3, all on the int8 tensor cores) on the current
+stream (or raises: there is no fallback from a CUDA tensor to the plain
+version) and adds one to its ``launches`` count.
 
 Layouts: activations NHWC int8 ([N, H, W, C], contiguous, the post-ReLU
 grid [0, 127] except the input image's [-127, 127]), weights HWIO int8,
-requant scale and offset f32. Output NHWC int8. The kernels of Q1 and Q2
-read their weights as ``pack_q1_weights`` lays them out (each output
-channel's K contiguous, the tensor cores' "col" B operand; the same at
-either stride); their wrappers take the HWIO weights and, optionally, that
-packed copy made once per layer (``models/quantized.py``), checked on
-either device, else they pack on each call.
+requant scale and offset f32. Output NHWC int8. The kernels read their
+weights packed as the tensor cores' "col" B operand wants them, each
+output column's K contiguous: Q1 and Q2 as ``pack_q1_weights`` lays them
+out (the same at either stride), Q3 as ``pack_q3_weights``. The wrappers
+take the HWIO weights and, optionally, that packed copy made once per
+layer (``models/quantized.py``), checked on either device, else they pack
+on each call.
 
 Every op is ``requant(acc)`` of an exact int32 conv sum ``acc``:
 
@@ -144,11 +145,6 @@ def _check(x, w, scale, offset, kh, kw, cin, scale_shape, what):
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def _words(x) -> int:
-    """1 when the activation holds whole aligned 4-channel words."""
-    return int(x.shape[3] % 4 == 0 and x.data_ptr() % 4 == 0)
-
-
 # layers of at most this many input channels fill half of an int8 k32 step:
 # two row taps share one (csrc/qconv_igemm.cu, PAIR; Q1 and Q2)
 Q1_PAIR_CIN = 16
@@ -184,18 +180,42 @@ def _q1_shape(cin: int, cout: int):
     return (1, 6, cout, 32) if cin <= Q1_PAIR_CIN else (-(-cin // 32), 9, cout, 32)
 
 
+def _checked_packed(x, packed, shape, what):
+    """``packed`` if it is a contiguous int8 ``shape`` on x's device, else
+    raises."""
+    if (packed.dtype != torch.int8 or tuple(packed.shape) != tuple(shape)
+            or packed.device != x.device or not packed.is_contiguous()):
+        raise ValueError(f"{what}: packed weights must be contiguous int8 "
+                         f"{list(shape)} on {x.device}, got "
+                         f"{tuple(packed.shape)} {packed.dtype} on {packed.device}")
+    return packed
+
+
 def _q1_packed(x, c2, w, packed, what):
     """The packed weights of a launch: ``packed`` checked (on either
     device), or made here."""
-    cin, cout = x.shape[3] + c2, w.shape[3]
     if packed is None:
         return pack_q1_weights(w)
-    if (packed.dtype != torch.int8 or tuple(packed.shape) != _q1_shape(cin, cout)
-            or packed.device != x.device or not packed.is_contiguous()):
-        raise ValueError(f"{what}: packed weights must be contiguous int8 "
-                         f"{list(_q1_shape(cin, cout))} on {x.device}, got "
-                         f"{tuple(packed.shape)} {packed.dtype} on {packed.device}")
-    return packed
+    return _checked_packed(x, packed, _q1_shape(x.shape[3] + c2, w.shape[3]), what)
+
+
+def pack_q3_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO [2, 2, cin, cout] int8 -> Q3's B operand [4 cout, kp] int8, kp =
+    cin rounded up to 32 (whole int8 k32 steps), zero-padded: row (2u + v)
+    * cout + co holds the flipped tap w[1-u, 1-v, :, co], the weights of
+    output pixel (2i + u, 2j + v)."""
+    if w.dim() != 4 or tuple(w.shape[:2]) != (2, 2) or w.dtype != torch.int8:
+        raise ValueError(f"pack_q3_weights: expected int8 [2,2,cin,cout], got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    cin, cout = w.shape[2], w.shape[3]
+    cols = torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2).reshape(4 * cout, cin)
+    p = w.new_zeros(_q3_shape(cin, cout))
+    p[:, :cin] = cols
+    return p
+
+
+def _q3_shape(cin: int, cout: int):
+    return (4 * cout, -(-cin // 32) * 32)
 
 
 def _launch_q1(x, x2, packed, scale, offset):
@@ -290,21 +310,24 @@ def qconv3x3_s2_requant(x, w, scale, offset, packed: Optional[torch.Tensor] = No
 qconv3x3_s2_requant.launches = 0
 
 
-def qup2x2_requant(x, w, scale, offset):
+def qup2x2_requant(x, w, scale, offset, packed: Optional[torch.Tensor] = None):
     """Q3: the int8 2x2 stride-2 transpose conv + requant: [N,H,W,C] ->
     [N,2H,2W,C'] int8; scale and offset are [2, C'], row v serving the
-    output columns 2j+v."""
+    output columns 2j+v; ``packed`` is ``pack_q3_weights(w)``, made once by
+    the caller, or None."""
     _check(x, w, scale, offset, 2, 2, x.shape[3], (2,), "qup2x2_requant")
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    packed = (pack_q3_weights(w) if packed is None
+              else _checked_packed(x, packed, _q3_shape(cin, cout), "qup2x2_requant"))
     if x.device.type == "cpu":
         return qup2x2_requant_plain(x, w, scale, offset)
     qup2x2_requant.launches += 1
-    n, h, wd, cin = x.shape
-    cout = w.shape[3]
     out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         code = _build.lib().annonet_qup2x2_requant(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, cout, _words(x),
+            x.data_ptr(), packed.data_ptr(), scale.data_ptr(), offset.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, cout,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(code, "annonet_qup2x2_requant")

@@ -1,16 +1,23 @@
 """``annonet_infer`` of the port (annonet_tpu_torch/cli/infer.py) against
 the JAX package's CLI: the same flags, the same result PNGs (>= 99.9% of
 pixels; identical is expected) and the same confusion matrices on a
-synthetic anno dataset, the int8 flags with calibration files either
+synthetic anno dataset, the threaded pipeline (reader and writer threads,
+groups in flight) against the port's sequential loop (byte-equal PNGs) and
+the JAX CLI on images of mixed sizes, the in-order buffer of the readers,
+the ``--profile`` trace, the int8 flags with calibration files either
 package reads, an exit code of 2 for each flag whose feature is not ported
 yet, no silent CPU run, and a package that imports and runs both paths
 without jax.
 """
 
+import json
 import os
+import queue
+import random
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -20,14 +27,26 @@ from PIL import Image
 from annonet_tpu import serialization as jax_serialization
 from annonet_tpu.classes import parse_anno_classes
 from annonet_tpu.cli import infer as jax_cli
+from annonet_tpu.cli.common import IndexOrderedResults as JaxIndexOrderedResults
 from annonet_tpu.models.segnet import SegNetConfig as JaxSegNetConfig
 from annonet_tpu_torch.cli import infer as cli
-from annonet_tpu_torch.cli.common import DEVICE_ENV
+from annonet_tpu_torch.cli.common import DEVICE_ENV, IndexOrderedResults
 from annonet_tpu_torch.models.segnet import SegNetConfig
+from annonet_tpu_torch.utils import TRACE_FILE
 from tests.test_end_to_end import write_synthetic_dataset
 from tests.test_torch_model import jax_runtime_tree
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _save_model(tmp_path, anno_json):
+    """A JAX-written artifact of a small f32 net for the dataset's classes."""
+    config = SegNetConfig(class_count=len(parse_anno_classes(anno_json)), level_count=1,
+                          base_width=4, compute_dtype="float32")
+    model = str(tmp_path / "annonet.dnn")
+    jax_serialization.save_model(model, jax_runtime_tree(config, seed=8),
+                                 JaxSegNetConfig(**config.to_dict()), anno_json, 1.0)
+    return model
 
 
 @pytest.fixture
@@ -36,13 +55,29 @@ def dataset(tmp_path):
     (tmp_path / "jax").mkdir()
     write_synthetic_dataset(tmp_path / "jax", n_images=3, size=48)
     shutil.copytree(tmp_path / "jax", tmp_path / "port")
-    anno_json = (tmp_path / "jax" / "anno_classes.json").read_text()
-    config = SegNetConfig(class_count=len(parse_anno_classes(anno_json)), level_count=1,
-                          base_width=4, compute_dtype="float32")
-    model = str(tmp_path / "annonet.dnn")
-    jax_serialization.save_model(model, jax_runtime_tree(config, seed=8),
-                                 JaxSegNetConfig(**config.to_dict()), anno_json, 1.0)
-    return tmp_path, model
+    return tmp_path, _save_model(tmp_path, (tmp_path / "jax" / "anno_classes.json").read_text())
+
+
+# the sizes of the mixed dataset's images, in file order: with --image-batch
+# 2 the groups are [48, 48], [64] (the next 48 pushed back), [48], [64, 64]
+_MIXED = ((48, 0), (48, 1), (64, 0), (48, 2), (64, 1), (64, 2))
+
+
+@pytest.fixture
+def mixed_dataset(tmp_path):
+    """Three copies (jax, pipelined, sequential) of six images of two
+    sizes in the order of _MIXED, and a JAX-written artifact."""
+    for size, seed in ((48, 0), (64, 1)):
+        (tmp_path / "src" / str(size)).mkdir(parents=True)
+        write_synthetic_dataset(tmp_path / "src" / str(size), n_images=3, size=size, seed=seed)
+    for copy in ("jax", "pipelined", "sequential"):
+        (tmp_path / copy).mkdir()
+        shutil.copy(tmp_path / "src" / "48" / "anno_classes.json", tmp_path / copy)
+        for k, (size, i) in enumerate(_MIXED):
+            for suffix in ("", "_mask.png"):
+                shutil.copy(tmp_path / "src" / str(size) / f"img{i}.png{suffix}",
+                            tmp_path / copy / f"a{k}.png{suffix}")
+    return tmp_path, _save_model(tmp_path, (tmp_path / "jax" / "anno_classes.json").read_text())
 
 
 def _confusion_blocks(text):
@@ -71,8 +106,6 @@ def test_results_and_confusion_match_the_jax_cli(dataset, capsys, monkeypatch):
 
 
 def test_image_batch_and_report_json(dataset, capsys, monkeypatch):
-    import json
-
     root, model = dataset
     monkeypatch.setenv(DEVICE_ENV, "cpu")
     report = root / "report.json"
@@ -83,6 +116,111 @@ def test_image_batch_and_report_json(dataset, capsys, monkeypatch):
     assert doc["images"] == 3 and doc["device"] == "cpu"
     assert [r["first_group"] for r in doc["per_image"]] == [True, True, False]
     assert doc["confusion_per_pixel"]["total"] == 3 * 48 * 48
+
+
+def test_pipelined_cli_equals_the_sequential_loop_and_the_jax_cli(mixed_dataset, capsys,
+                                                                  monkeypatch):
+    """3 groups in flight, 3 readers and 2 writers against depth 1 with
+    one reader and one writer, and against the JAX CLI, on images of two
+    sizes with --image-batch 2 (full groups, a group closed by a size
+    change, the odd image pushed back): byte-equal result PNGs, the same
+    confusion blocks, the report's pipeline depth, and the first-group
+    flags as JAX sets them."""
+    root, model = mixed_dataset
+    flags = ["--model", model, "-g", "1:0.2", "-d", "1:0.1", "--image-batch", "2"]
+    runs = {
+        "pipelined": ["--pipeline-depth", "3", "--full-image-reader-thread-count", "3",
+                      "--result-image-writer-thread-count", "2"],
+        "sequential": ["--pipeline-depth", "1", "--full-image-reader-thread-count", "1",
+                       "--result-image-writer-thread-count", "1"],
+    }
+    assert jax_cli.main([str(root / "jax"), *flags, "--report-json",
+                         str(root / "jax.json")]) == 0
+    outs = {"jax": capsys.readouterr().out}
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    for name, extra in runs.items():
+        assert cli.main([str(root / name), *flags, *extra, "--report-json",
+                         str(root / f"{name}.json")]) == 0
+        outs[name] = capsys.readouterr().out
+        assert "All 6 images processed" in outs[name]
+        assert outs[name].index("All 6 images processed") < outs[name].index(
+            "All result images written!")
+    assert _confusion_blocks(outs["pipelined"]) == _confusion_blocks(outs["sequential"]) \
+        == _confusion_blocks(outs["jax"])
+    for k, (size, _i) in enumerate(_MIXED):
+        name = f"a{k}.png_result.png"
+        assert (root / "pipelined" / name).read_bytes() == (root / "sequential" / name).read_bytes()
+        ours = np.asarray(Image.open(root / "pipelined" / name))
+        theirs = np.asarray(Image.open(root / "jax" / name))
+        assert ours.shape == theirs.shape == (size, size, 4)
+        assert (ours == theirs).all(axis=-1).mean() >= 0.999
+    reports = {name: json.loads((root / f"{name}.json").read_text())
+               for name in ("jax", "pipelined", "sequential")}
+    assert reports["pipelined"]["pipeline_depth"] == 3
+    assert reports["sequential"]["pipeline_depth"] == 1
+    flags_of = {name: [(os.path.basename(r["image"]), r["first_group"]) for r in doc["per_image"]]
+                for name, doc in reports.items()}
+    assert flags_of["pipelined"] == flags_of["sequential"] == flags_of["jax"]
+    assert [first for _name, first in flags_of["jax"]] == [True, True] + [False] * 4
+
+
+def test_pipeline_under_thread_stress(mixed_dataset, capsys, monkeypatch):
+    """More reader and writer threads than cores, 4 groups in flight and a
+    short switch interval: the run ends within its time bound and writes
+    the sequential loop's PNGs byte for byte."""
+    root, model = mixed_dataset
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    flags = ["--model", model, "-d", "1:0.1", "--image-batch", "2"]
+    assert cli.main([str(root / "sequential"), *flags, "--pipeline-depth", "1",
+                     "--full-image-reader-thread-count", "1",
+                     "--result-image-writer-thread-count", "1"]) == 0
+    threads = str(2 * (os.cpu_count() or 1) + 1)
+    codes = []
+    run = threading.Thread(target=lambda: codes.append(cli.main([
+        str(root / "pipelined"), *flags, "--pipeline-depth", "4",
+        "--full-image-reader-thread-count", threads,
+        "--result-image-writer-thread-count", threads])))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        run.start()
+        run.join(timeout=240)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not run.is_alive() and codes == [0]
+    capsys.readouterr()
+    for k in range(len(_MIXED)):
+        name = f"a{k}.png_result.png"
+        assert (root / "pipelined" / name).read_bytes() == (root / "sequential" / name).read_bytes()
+
+
+def test_index_ordered_results_behaves_as_the_jax_class():
+    """Items put out of order come out 0, 1, 2, ...; the port's class and
+    the JAX class give the same sequence for the same queue contents."""
+    order = list(range(40))
+    random.Random(3).shuffle(order)
+    got = []
+    for cls in (IndexOrderedResults, JaxIndexOrderedResults):
+        q = queue.Queue()
+        for index in order:
+            q.put((index, f"item{index}"))
+        results = cls(q)
+        got.append([results.next() for _ in order])
+        assert q.empty()
+    assert got[0] == got[1] == [f"item{i}" for i in range(40)]
+
+
+def test_profile_writes_a_trace(dataset, capsys, monkeypatch):
+    """--profile DIR on the CPU: exit 0 and a Chrome trace that parses, with
+    the loop's torch operations in it."""
+    root, model = dataset
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    trace_dir = root / "trace"
+    assert cli.main([str(root / "port"), "--model", model, "--profile", str(trace_dir)]) == 0
+    assert "All result images written!" in capsys.readouterr().out
+    events = json.loads((trace_dir / TRACE_FILE).read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" and str(e.get("name", "")).startswith("aten::")
+               for e in events)
 
 
 def test_parser_has_the_jax_flags():
@@ -96,10 +234,11 @@ def test_parser_has_the_jax_flags():
     assert table(cli.build_parser()) == table(jax_cli.build_parser())
 
 
-# the int8 flags are ported; they stay in the list to show they are no
-# longer refused (no model in the directory: the run fails with 1, not 2)
+# the int8 flags and --profile are ported; they stay in the list to show
+# they are no longer refused (no model in the directory: the run fails with
+# 1, not 2)
 _PORTED = ("--quantize", "--blend-dtype", "--calibration", "--save-calibration",
-           "--calibration-images")
+           "--calibration-images", "--profile")
 
 
 @pytest.mark.parametrize(
@@ -116,7 +255,7 @@ def test_unported_flags_exit_2(tmp_path, capsys, flag, monkeypatch):
     if flag[0] in _PORTED:
         assert code == 1 and "not ported" not in err
     else:
-        assert code == 2 and flag[0] in err and "ROADMAP.md" in err
+        assert code == 2 and flag[0] in err and "ROADMAP.md queue 1 item 3" in err
 
 
 def test_int8_flags_and_calibration_files(dataset, capsys, monkeypatch):

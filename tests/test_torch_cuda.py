@@ -17,7 +17,7 @@ the output scale); the blend's labels and seeds are bit-identical, in f32
 and in bf16, with and without the argmax fold, for any tile list; the int8
 kernels Q1-Q3 sum integers exactly and requantize with one FMA, as their
 plain versions do, so they are bit-identical, as is Q1's accumulator mode
-(the int32 sums; Q1, it and Q2 on the int8 tensor cores); K3's requant
+(the int32 sums; all on the int8 tensor cores); K3's requant
 mode sums floats in another order
 than cuDNN, so it is held within one requant step. G1 and its plain version
 both sum in f32 and round once: bf16 within one bf16 step at the largest
@@ -312,6 +312,79 @@ def test_q2_tensor_cores_are_bit_identical_to_plain(device, n, h, w, cin, cout):
         qconv.qconv3x3_s2_requant(x, wgt, scale, offset, packed=packed[..., :16].contiguous())
 
 
+_Q3_CHANNELS = [(8, 4), (16, 8), (24, 12), (32, 16), (48, 40), (64, 32), (128, 64)]
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout",
+    [(n, h, w, cin, cout) for n, h, w in ((1, 13, 29), (3, 13, 29), (1, 109, 109))
+     for cin, cout in _Q3_CHANNELS]
+    + [(3, 7, 9, 3, 4), (2, 5, 6, 20, 9), (2, 5, 6, 300, 40), (1, 6, 10, 512, 256),
+       (2, 9, 13, 768, 16), (1, 3, 5, 1120, 8)],
+)
+def test_q3_tensor_cores_are_bit_identical_to_plain(device, n, h, w, cin, cout):
+    """Q3 (the int8 tensor cores) at the edges of its GEMM, with the packed
+    weights passed as the int8 net passes them: odd H and W, pixel counts
+    that are no multiple of its 128-pixel tile, tiles across image rows
+    and images (N = 3), channel counts below one k32 step (8, 16, 24), a
+    zero-padded half step (48), cout that is no multiple of 8 (byte
+    stores) or of 16, the flagship's three layers (128 -> 64, 64 -> 32,
+    32 -> 16), the RGB width 3 and 20 (byte gathers), 300 (sums past
+    2**22), 512 -> 256 (column slabs), 768 (B and two A buffers exceed
+    shared memory: one A buffer) and 1120 (the widest that fits)."""
+    from annonet_tpu_torch.ops import qconv
+
+    x = _int8((n, h, w, cin), device, 1, -127 if cin == 3 else 0)
+    wgt = _int8((2, 2, cin, cout), device, 3, -127)
+    packed = qconv.pack_q3_weights(wgt)
+    scale, offset = _requant_args((2, cout), device, 4)
+    scale = scale * (32.0 / max(32, cin)) ** 0.5  # the sums grow with cin
+    before = qconv.qup2x2_requant.launches
+    got = qconv.qup2x2_requant(x, wgt, scale, offset, packed=packed)
+    assert qconv.qup2x2_requant.launches == before + 1
+    want = qconv.qup2x2_requant_plain(x, wgt, scale, offset)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, 2 * h, 2 * w, cout) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert (want == 0).any() and (want > 0).any()
+    with pytest.raises(ValueError, match="packed"):
+        qconv.qup2x2_requant(x, wgt, scale, offset, packed=qconv.pack_q1_weights(
+            _int8((3, 3, cin, cout), device, 5)))
+
+
+def test_q3_refuses_inputs_wider_than_its_shared_memory(device):
+    """One A buffer of 128 rows and B's 64-column slab, each row cin
+    padded to 32 plus 16 bytes, fit in the H100's 227 KiB of shared memory
+    up to cin 1120; a wider input is refused, not computed in part."""
+    from annonet_tpu_torch.ops import qconv
+
+    x = _int8((1, 3, 5, 1152), device, 1, 0)
+    wgt = _int8((2, 2, 1152, 8), device, 3, -127)
+    scale, offset = _requant_args((2, 8), device, 4)
+    with pytest.raises(RuntimeError, match="annonet_qup2x2_requant"):
+        qconv.qup2x2_requant(x, wgt, scale, offset)
+
+
+@pytest.mark.parametrize("cin", [256, 264])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_q3_requant_is_exact_at_the_largest_sums(device, cin, sign):
+    """All inputs -128 and all weights -128 or 127: |sum| = 16384 * cin,
+    2**22 at 256 channels and past it at 264, of both signs: the extreme
+    sums convert to float and requantize exactly."""
+    from annonet_tpu_torch.ops import qconv
+
+    x = torch.full((1, 3, 5, cin), -128, dtype=torch.int8, device=device)
+    wgt = torch.full((2, 2, cin, 8), -128 if sign > 0 else 127, dtype=torch.int8, device=device)
+    scale = _rand((2, 8), device, 6, 1.0, 1e-5)
+    offset = _rand((2, 8), device, 7, -0.5, 40.0)
+    if sign < 0:  # negative sums: only a negative scale reaches the grid
+        scale = -scale
+    got = qconv.qup2x2_requant(x, wgt, scale, offset)
+    want = qconv.qup2x2_requant_plain(x, wgt, scale, offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and (want > 0).any()
+
+
 def _blend_stress_case(kind, k, device, seed):
     """Blend inputs whose tiles form no grid: random positions, several
     tiles over most pixels ("random"), or 200 small tiles at nearly one
@@ -565,7 +638,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(device, monkeypatch):
 def test_int8_path_never_reaches_the_plain_versions(device, monkeypatch):
     """The int8 inferer on the card, calibrating and then calibrated, with
     detection and in both blend dtypes, runs no plain version of an int8
-    kernel, of K3's requant mode or of the blend."""
+    kernel, of K3's requant mode or of the blend; nor does a forward of the
+    int8 net with int8 up layers (Q3)."""
     from annonet_tpu_torch.infer.core import TiledInferer
     from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
     from annonet_tpu_torch.ops import blend, conv, qconv
@@ -581,15 +655,26 @@ def test_int8_path_never_reaches_the_plain_versions(device, monkeypatch):
     params = init_runtime_params(config, 2)
     image = np.random.default_rng(2).integers(0, 256, (200, 256, 3), dtype=np.uint8)
     before = {f: f.launches for f in (qconv.qconv3x3_requant, qconv.qconv3x3_s2_requant,
-                                      conv.up2x2_requant, blend.blend_argmax)}
+                                      conv.up2x2_requant, blend.blend_argmax,
+                                      qconv.qup2x2_requant)}
     for blend_dtype in ("bfloat16", "float32"):
         inferer = TiledInferer(params, config, device=device, quantize="int8",
                                blend_dtype=blend_dtype)
         inferer.infer_arrays(image, None, [0.0, 0.5, 0.2])  # calibrates on this image
         inferer.infer_arrays(image)  # int8, no detection: the argmax fold
         assert inferer._quantized and inferer.float_fallbacks == 0
+    # the int8 up layers (quantize_up): Q3 on the same calibration
+    from annonet_tpu_torch.models.quantized import QuantizedSegNet, quantize_input, quantize_net
+
+    net_up = QuantizedSegNet(quantize_net(params, config, inferer.export_calibration(),
+                                          quantize_up=True), config, device=device)
+    with torch.inference_mode():
+        logits = net_up(quantize_input(torch.from_numpy(image[None, :64, :64].copy()).to(device)))
     torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
     runs = {f: f.launches - n for f, n in before.items()}
-    # two int8 forwards of each inferer: 8 Q1, 3 Q2 and 3 K3-requant layers
-    assert runs[qconv.qconv3x3_requant] >= 4 * 8 and runs[qconv.qconv3x3_s2_requant] >= 4 * 3
+    # two int8 forwards of each inferer: 8 Q1, 3 Q2 and 3 K3-requant layers;
+    # then one forward with 3 Q3 layers
+    assert runs[qconv.qconv3x3_requant] >= 4 * 8 + 8 and runs[qconv.qconv3x3_s2_requant] >= 4 * 3
     assert runs[conv.up2x2_requant] >= 4 * 3 and runs[blend.blend_argmax] == 4
+    assert runs[qconv.qup2x2_requant] == 3

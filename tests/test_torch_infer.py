@@ -17,6 +17,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from annonet_tpu.infer import core as jax_core
 from annonet_tpu.infer.tiling import TilingParameters as JaxTilingParameters
@@ -170,6 +171,49 @@ def test_image_batch_agrees_with_jax_and_with_single_images(tree, image):
     result = core.annonet_infer_batch(ours, batch, GAINS, LEVELS)
     want = jax_core.annonet_infer_batch(theirs, batch, GAINS, LEVELS)
     assert result.shape == batch.shape[:3] and _agree(result, want) >= 0.999
+
+
+@pytest.mark.parametrize("levels", [None, LEVELS], ids=["plain", "detection"])
+def test_device_output_is_the_padded_canvas_as_in_jax(tree, image, levels):
+    """device_output=True keeps the labels and seeds of the padded canvas
+    on the inferer's device, in the shapes and dtypes of JAX's
+    device_output (single and batched); cropped (on the device, or by
+    HostReadback) they equal the default call's results. pad_to_bucket is
+    accepted as True, False or an int >= M, and an int < M raises, as in
+    JAX."""
+    ours, theirs = _pair(tree)
+    h, w = SHAPE[:2]
+    labels, seeds = ours.infer_arrays(image, GAINS, levels, device_output=True)
+    want_labels, want_seeds = theirs.infer_arrays(image, GAINS, levels, device_output=True)
+    assert isinstance(labels, torch.Tensor) and labels.device == ours.device
+    assert tuple(labels.shape) == want_labels.shape == (256, 256)
+    assert labels.numpy().dtype == want_labels.dtype
+    if levels is None:
+        assert seeds is None and want_seeds is None
+    else:
+        assert tuple(seeds.shape) == want_seeds.shape and seeds.dtype == torch.bool
+    crop_labels, crop_seeds = ours.infer_arrays(image, GAINS, levels)
+    np.testing.assert_array_equal(labels[:h, :w].numpy(), crop_labels)
+    host_labels, host_seeds = core.HostReadback(labels, seeds, h, w).wait()
+    assert host_labels.dtype == np.int32
+    np.testing.assert_array_equal(host_labels, crop_labels)
+    if levels is not None:
+        np.testing.assert_array_equal(seeds[:h, :w].numpy(), crop_seeds)
+        np.testing.assert_array_equal(host_seeds, crop_seeds)
+
+    batch = np.stack([image, 255 - image])
+    want_batch = theirs.infer_arrays_batch(batch, GAINS, levels, device_output=True)[0]
+    crop_batch = ours.infer_arrays_batch(batch, GAINS, levels)[0]
+    for pad in (True, False, 2, 5):
+        got, got_seeds = ours.infer_arrays_batch(batch, GAINS, levels, device_output=True,
+                                                 pad_to_bucket=pad)
+        assert tuple(got.shape) == want_batch.shape == (2, 256, 256)
+        assert (got_seeds is None) == (levels is None)
+        np.testing.assert_array_equal(core.HostReadback(got, got_seeds, h, w).wait()[0],
+                                      crop_batch)
+    for impl in (ours, theirs):
+        with pytest.raises(ValueError, match="pad_to_bucket"):
+            impl.infer_arrays_batch(batch, GAINS, levels, device_output=True, pad_to_bucket=1)
 
 
 def test_labels_agree_with_the_default_folded_jax_inferer(tree, image):

@@ -322,6 +322,70 @@ def test_q3_plain_equals_qup_requant():
         scale[parity].reshape(-1), offset[parity].reshape(-1), rows=8, interpret=True,
     )
     np.testing.assert_array_equal(got, _unfold(np.asarray(want), cout))
+    # the wrapper on CPU tensors, given the packed weights as the int8 net
+    # passes them, is the plain version
+    w_t = torch.from_numpy(w_q)
+    wrapped = qconv.qup2x2_requant(
+        torch.from_numpy(x), w_t, torch.from_numpy(scale), torch.from_numpy(offset),
+        packed=qconv.pack_q3_weights(w_t),
+    ).numpy()
+    np.testing.assert_array_equal(wrapped, got)
+
+
+@pytest.mark.parametrize("cin,cout", [(8, 4), (24, 12), (32, 16), (128, 64)])
+def test_q3_packed_weights_are_the_flipped_taps(cin, cout):
+    """pack_q3_weights, read back column by column, is the flipped HWIO
+    taps zero-padded to whole k32 steps, and the kernel's GEMM over it,
+    column (2u + v) * cout + co stored at output pixel (2i + u, 2j + v), is
+    the exact transpose conv. A packed copy of another shape is refused."""
+    rng = np.random.default_rng(cin + cout)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (2, 2, cin, cout), dtype=np.int8))
+    packed = qconv.pack_q3_weights(w_q)
+    kp = -(-cin // 32) * 32
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tuple(packed.shape) == (4 * cout, kp) and not packed[:, cin:].any()
+    for u in range(2):
+        for v in range(2):
+            for co in range(cout):
+                assert torch.equal(packed[(2 * u + v) * cout + co, :cin], w_q[1 - u, 1 - v, :, co])
+    n, h, w = 2, 5, 7
+    x = rng.integers(0, 128, (n, h, w, cin), dtype=np.int8)
+    a = np.zeros((n * h * w, kp), np.int64)
+    a[:, :cin] = x.reshape(-1, cin)
+    c = a @ packed.numpy().astype(np.int64).T  # [pixels, 4 cout]
+    got = c.reshape(n, h, w, 2, 2, cout).transpose(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
+    taps = w_q.numpy().astype(np.int64)[::-1, ::-1]  # taps[u, v] = w_q[1-u, 1-v]
+    want = np.einsum("nijc,uvcd->niujvd", x.astype(np.int64), taps).reshape(got.shape)
+    np.testing.assert_array_equal(got, want)
+    scale, offset = _requant_args(rng, cout, (2,))
+    args = (torch.from_numpy(x), w_q, torch.from_numpy(scale), torch.from_numpy(offset))
+    with pytest.raises(ValueError, match="packed"):
+        qconv.qup2x2_requant(*args, packed=packed[:, :16].contiguous())
+
+
+def test_quantized_net_packs_the_up_weights_once(monkeypatch):
+    """QuantizedSegNet(quantize_up) holds pack_q3_weights of every int8 up
+    layer (Q3) and passes that buffer at each Q3 call; without quantize_up
+    it holds none."""
+    config = SegNetConfig(class_count=3, level_count=2, base_width=8)
+    _jcfg, tree, x, calib, *_ = _setup(config, seed=7, shape=(1, 32, 32))
+    assert pq.QuantizedSegNet(pq.quantize_net(tree, config, calib), config,
+                              device="cpu").q3_layers() == []
+    net = pq.QuantizedSegNet(pq.quantize_net(tree, config, calib, quantize_up=True), config,
+                             device="cpu")
+    assert net.q3_layers() == ["dec2/up", "dec1/up"]
+    buffers = dict(net.named_buffers())
+    for layer in net.q3_layers():
+        w_q = net._layer(layer)[0]
+        assert torch.equal(buffers[f"{layer.replace('/', '_')}_w_packed"],
+                           qconv.pack_q3_weights(w_q))
+    seen = []
+    q3 = pq.qup2x2_requant
+    monkeypatch.setattr(pq, "qup2x2_requant",
+                        lambda x, w, s, o, packed=None: seen.append(packed) or q3(x, w, s, o, packed))
+    with torch.inference_mode():
+        net(pq.quantize_input(torch.from_numpy(x)))
+    assert [p is buffers[f"dec{i}_up_w_packed"] for i, p in zip((2, 1), seen)] == [True, True]
 
 
 def _unpack_q1_weights(packed: torch.Tensor, cin: int) -> torch.Tensor:
