@@ -191,6 +191,22 @@ class TiledInferer:
         # int8 calls that ran the float net because their plan does not fold
         self.float_fallbacks = 0
 
+    def update_params(self, runtime_params) -> None:
+        """Swap in a runtime tree of the same architecture (a new
+        checkpoint: annonet_train's validation after each save). The plan
+        constants stay; what the old weights made goes: the folded nets,
+        the int8 nets, the calibration (it restarts as in a fresh
+        inferer) and any preloaded calibration, which was fingerprinted
+        to the old weights."""
+        self.runtime_params = runtime_params
+        self.net = RuntimeSegNet(runtime_params, self.config, device=self.device)
+        self._folded.clear()
+        self._quantized.clear()
+        self._calib_accum.clear()
+        self._calib_seen.clear()
+        self._calib_frozen.clear()
+        self._preloaded_calib = None
+
     def plan(self, image_height: int, image_width: int) -> TilePlan:
         return plan_image(image_height, image_width, self.config, self.tiling)
 

@@ -1,11 +1,13 @@
-"""SegmentationNet runtime (inference) net in PyTorch.
+"""SegmentationNet in PyTorch: the runtime (inference) net and the
+training net.
 
 The port of ``annonet_tpu/models/segnet.py``: the architecture config and
 its dimension queries (pure Python, copied), a numpy initializer for the
 BN-folded runtime tree (He init plus the BN fold, so an artifact can be
 written on a machine without JAX), the conversion of that tree to device
 tensors laid out as the kernels take them, and ``RuntimeSegNet``, the
-counterpart of ``apply_runtime``.
+counterpart of ``apply_runtime``. The training half (``init_state``,
+``apply_train``, ``fold_batchnorm``) is at the end of the file.
 
 Layout: NHWC activations, HWIO conv weights ([kh, kw, cin, cout], the JAX
 layout, which is also what the hand-written kernels read), f32 biases.
@@ -24,11 +26,14 @@ Topology (``L = level_count``):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from annonet_tpu_torch.ops.conv import (
     conv3x3_bias_relu,
@@ -289,3 +294,257 @@ class RuntimeSegNet(nn.Module):
         # head: compute-dtype product (f32 accumulation inside), then the
         # f32 bias promotes the logits to f32 (segnet.py:459-462)
         return torch.matmul(x, self.head_w).to(torch.float32) + self.head_b
+
+
+# --------------------------------------------------------------------------
+# Training: the BN net's state, its forward with batch statistics, the fold
+# --------------------------------------------------------------------------
+#
+# The training tree is the JAX package's (segnet.py:171-219), numpy f32
+# leaves with the same names and shapes, so a sync file carries across:
+#   params[block] = {conv: HWIO kernel, bn: {"gamma", "beta"}, ...},
+#   params["head"] = {"w": [1, 1, w0, K], "b": [K]},
+#   bn_stats[block] = {bn: {"mean", "var"}, ...}.
+# On the device the same trees hold f32 tensors (the master parameters);
+# the convs run in the compute dtype on casts of them.
+
+
+def _bn_name(conv: str) -> str:
+    """The BN layer after a conv: conv0 -> bn0, conv1 -> bn1, up -> bnu."""
+    return "bnu" if conv == "up" else conv.replace("conv", "bn")
+
+
+def train_state_shapes(config: SegNetConfig) -> Dict[str, Dict[str, tuple]]:
+    """{"params": {"block/leaf path": shape}, "bn_stats": {...}}: the keys
+    and shapes (all f32) of the training tree; the velocity tree has the
+    params' (the JAX package's ``init_state`` layout)."""
+    params: Dict[str, tuple] = {}
+    stats: Dict[str, tuple] = {}
+    for block, conv, shape in conv_layers(config):
+        bn, c = _bn_name(conv), shape[-1]
+        params[f"{block}/{conv}"] = shape
+        params[f"{block}/{bn}/gamma"] = params[f"{block}/{bn}/beta"] = (c,)
+        stats[f"{block}/{bn}/mean"] = stats[f"{block}/{bn}/var"] = (c,)
+    params["head/w"] = (1, 1, config.width(0), config.class_count)
+    params["head/b"] = (config.class_count,)
+    return {"params": params, "bn_stats": stats}
+
+
+def init_state(config: SegNetConfig, seed: int) -> Tuple[Params, Params]:
+    """(params, bn_stats) numpy trees of a fresh training net: He-normal
+    conv kernels (std sqrt(2 / fan_in), drawn in forward order from
+    ``np.random.default_rng(seed)``), BN gamma 1 and beta 0, running mean
+    0 and variance 1, head bias 0. The layout, names, shapes and dtypes
+    are the JAX ``init_state``'s; the draws are numpy's, not jax.random's
+    (carry a JAX state across with ``train_state_from_numpy``)."""
+    rng = np.random.default_rng(seed)
+
+    def he(shape):
+        std = (2.0 / (shape[0] * shape[1] * shape[2])) ** 0.5
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    params: Params = {}
+    stats: Params = {}
+    for block, conv, shape in conv_layers(config):
+        c = shape[-1]
+        params.setdefault(block, {})[conv] = he(shape)
+        params[block][_bn_name(conv)] = {
+            "gamma": np.ones(c, np.float32), "beta": np.zeros(c, np.float32),
+        }
+        stats.setdefault(block, {})[_bn_name(conv)] = {
+            "mean": np.zeros(c, np.float32), "var": np.ones(c, np.float32),
+        }
+    params["head"] = {
+        "w": he((1, 1, config.width(0), config.class_count)),
+        "b": np.zeros(config.class_count, np.float32),
+    }
+    return params, stats
+
+
+def tree_items(tree: Params, prefix: str = "") -> List[Tuple[str, Any]]:
+    """[("block/leaf path", leaf)] in the tree's own order."""
+    out: List[Tuple[str, Any]] = []
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.extend(tree_items(v, key))
+        else:
+            out.append((key, v))
+    return out
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Params) -> Params:
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_to_numpy(tree: Params) -> Params:
+    """A tree of tensors (any device) -> the same tree of numpy arrays
+    (copies: later in-place updates of the tensors do not reach them)."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def train_state_from_numpy(
+    params: Params, bn_stats: Params, velocity: Optional[Params], device
+) -> Tuple[Params, Params, Params]:
+    """Numpy (or JAX-array) trees -> f32 tensor trees on ``device``: the
+    params as leaves that require grad, the BN statistics and the velocity
+    (zeros when None) as plain tensors. How a JAX ``init_state`` or a sync
+    file's state enters the port."""
+    device = torch.device(device)
+
+    def to(requires_grad):
+        def convert(a):
+            t = torch.tensor(np.asarray(a, np.float32), device=device)
+            return t.requires_grad_(True) if requires_grad else t
+        return convert
+
+    p = tree_map(to(True), params)
+    v = tree_map(to(False), velocity) if velocity is not None else tree_map(
+        lambda t: torch.zeros_like(t, requires_grad=False), p
+    )
+    return p, tree_map(to(False), bn_stats), v
+
+
+def _conv_train(x, w, stride: int, dtype):
+    """SAME conv of NCHW ``x`` with an HWIO f32 kernel cast to ``dtype``;
+    stride 2 pads (0, 1) as XLA's SAME does on even sizes."""
+    wt = w.permute(3, 2, 0, 1).to(dtype)
+    if stride == 2:
+        return F.conv2d(F.pad(x, (0, 1, 0, 1)), wt, stride=2)
+    return F.conv2d(x, wt, padding=w.shape[0] // 2)
+
+
+def _conv_transpose_train(x, w, dtype):
+    """The 2x2 stride-2 transpose conv: out[2i+u, 2j+v] = x[i, j] .
+    w[1-u, 1-v] (lax.conv_transpose flips nothing; conv_transpose2d's
+    kernel is the flipped one)."""
+    wt = torch.flip(w, dims=(0, 1)).permute(2, 3, 0, 1).to(dtype)
+    return F.conv_transpose2d(x, wt, stride=2)
+
+
+def _bn_train(h, gamma, beta):
+    """Batch norm of NCHW ``h`` over (N, H, W), as segnet.py's _bn_train:
+    f32 statistics of the compute-dtype activations, var = max(E[h^2] -
+    E[h]^2, 0), scale and shift rounded to the compute dtype once per
+    channel, the normalisation in the compute dtype. Returns (out, mean,
+    var). Not F.batch_norm: its running statistics take the unbiased
+    variance."""
+    h32 = h.to(torch.float32)
+    mean = h32.mean(dim=(0, 2, 3))
+    mean_sq = h32.square().mean(dim=(0, 2, 3))
+    var = torch.clamp(mean_sq - mean.square(), min=0.0)
+    inv = torch.rsqrt(var + _BN_EPS)
+    scale = (inv * gamma).to(h.dtype)
+    shift = (beta - mean * inv * gamma).to(h.dtype)
+    return h * scale[:, None, None] + shift[:, None, None], mean, var
+
+
+def _bn_update(stats: Params, mean, var, momentum: float) -> Params:
+    return {
+        "mean": stats["mean"] * momentum + mean.detach() * (1.0 - momentum),
+        "var": stats["var"] * momentum + var.detach() * (1.0 - momentum),
+    }
+
+
+def _unit(x, w, gamma, beta, *, up: bool, stride: int, dtype):
+    """conv (or transpose conv) -> BN with batch statistics -> ReLU."""
+    with torch.profiler.record_function("conv_forward"):
+        h = _conv_transpose_train(x, w, dtype) if up else _conv_train(x, w, stride, dtype)
+    with torch.profiler.record_function("bn"):
+        h, mean, var = _bn_train(h, gamma, beta)
+        return torch.relu(h).to(dtype), mean, var
+
+
+def apply_train(
+    params: Params,
+    bn_stats: Params,
+    x_uint8: torch.Tensor,
+    config: SegNetConfig,
+    bn_momentum: float = 0.99,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, Params]:
+    """Training forward with batch-stat BN: [N,H,W,C] uint8 -> (logits
+    [N,H,W,K] f32, new running statistics); the counterpart of the JAX
+    ``apply_train``. ``params`` and ``bn_stats`` are trees of f32 tensors
+    on the input's device; the convs run in the compute dtype on casts of
+    the f32 kernels (through autograd: cuDNN on the card, not the
+    inference kernels K1-K3, which have no backward). ``remat``
+    recomputes each conv + BN + ReLU unit in the backward pass
+    (torch.utils.checkpoint, as jax.checkpoint per unit)."""
+    _check_train_input(x_uint8, config)
+    dtype = compute_dtype(config)
+    L = config.level_count
+    new_stats: Params = {k: dict(v) for k, v in bn_stats.items()}
+
+    def run_unit(x, p, name, stride):
+        up = name == "bnu"
+        w = p["up" if up else name.replace("bn", "conv")]
+        fn = functools.partial(_unit, up=up, stride=stride, dtype=dtype)
+        if remat:
+            return checkpoint(fn, x, w, p[name]["gamma"], p[name]["beta"],
+                              use_reentrant=False)
+        return fn(x, w, p[name]["gamma"], p[name]["beta"])
+
+    def block(x, p, s, names, strides):
+        for name, stride in zip(names, strides):
+            x, mean, var = run_unit(x, p, name, stride)
+            s[name] = _bn_update(s[name], mean, var, bn_momentum)
+        return x
+
+    # NHWC uint8 -> NCHW view (channels_last in memory): cuDNN's NHWC convs
+    x = normalize_input(x_uint8, dtype).permute(0, 3, 1, 2)
+    x = block(x, params["stem"], new_stats["stem"], ["bn0", "bn1"], [1, 1])
+    skips = [x]
+    for i in range(1, L + 1):
+        x = block(x, params[f"enc{i}"], new_stats[f"enc{i}"], ["bn0", "bn1"], [2, 1])
+        if i < L:
+            skips.append(x)
+    for i in range(L, 0, -1):
+        p, s = params[f"dec{i}"], new_stats[f"dec{i}"]
+        x = block(x, p, s, ["bnu"], [2])
+        x = torch.cat([x, skips[i - 1]], dim=1)
+        x = block(x, p, s, ["bn0"], [1])
+    with torch.profiler.record_function("conv_forward"):
+        # compute-dtype head, then the f32 bias promotes the logits to f32
+        logits = _conv_train(x, params["head"]["w"], 1, dtype) + params["head"]["b"][:, None, None]
+    return logits.to(torch.float32).permute(0, 2, 3, 1), new_stats
+
+
+def _check_train_input(x: torch.Tensor, config: SegNetConfig) -> None:
+    if x.dim() != 4 or x.shape[-1] != config.in_channels:
+        raise ValueError(
+            f"expected input [N,H,W,{config.in_channels}] "
+            f"({'grayscale' if config.grayscale else 'RGB'}), got {tuple(x.shape)}"
+        )
+    align = 2**config.level_count
+    if x.shape[1] % align or x.shape[2] % align:
+        raise ValueError(
+            f"input H,W {x.shape[1]}x{x.shape[2]} must be multiples of "
+            f"{align} (= 2**level_count); round sizes up with "
+            f"recommended_input_dimension()"
+        )
+
+
+def fold_batchnorm(params: Params, bn_stats: Params, config: SegNetConfig) -> Params:
+    """Fold the running BN statistics into the conv kernels and biases:
+    the BN-folded runtime tree (numpy f32, the JAX layout) that
+    ``RuntimeSegNet``, ``TiledInferer`` and ``serialization.save_model``
+    take. conv(W * gamma / sqrt(var + eps)) + (beta - mean * scale), as the
+    JAX ``fold_batchnorm``; leaves may be tensors or numpy arrays."""
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32)) if not isinstance(
+            a, torch.Tensor) else a.detach().to("cpu", torch.float32)
+
+    folded: Params = {}
+    for block, conv, _shape in conv_layers(config):
+        bn = params[block][_bn_name(conv)]
+        st = bn_stats[block][_bn_name(conv)]
+        scale = t(bn["gamma"]) / torch.sqrt(t(st["var"]) + _BN_EPS)
+        folded.setdefault(block, {})[conv] = {
+            "w": (t(params[block][conv]) * scale).numpy(),
+            "b": (t(bn["beta"]) - t(st["mean"]) * scale).numpy(),
+        }
+    folded["head"] = {"w": t(params["head"]["w"]).numpy().copy(),
+                      "b": t(params["head"]["b"]).numpy().copy()}
+    return folded

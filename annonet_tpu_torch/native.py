@@ -5,8 +5,9 @@ The port's own ctypes loader for the C++ sources at the repository root
 with the JAX package as source files, not as a Python module). On first use
 it compiles them with g++ into ``annonet_tpu_torch/_build/native_<hash>/``
 (git-ignored; the name carries a hash of the sources), without the image
-codecs when libpng or libjpeg is missing, and binds the four entry points
-the port calls. Every caller keeps a pure-numpy (or PIL) fallback, so a
+codecs when libpng or libjpeg is missing, and binds the entry points the
+port calls (blob labelling, bilinear resize, crop extraction, image decode
+and encode). Every caller keeps a pure-numpy (or PIL) fallback, so a
 missing compiler costs speed, not function; ``ANNONET_TPU_NO_NATIVE=1``
 forces the fallbacks, as it does for the JAX package.
 """
@@ -72,6 +73,27 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
     ]
+    lib.annonet_extract_crop.restype = None
+    lib.annonet_extract_crop.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.annonet_extract_crops_batch.restype = ctypes.c_int32
+    lib.annonet_extract_crops_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),  # images
+        ctypes.POINTER(ctypes.c_void_p),  # labels
+        ctypes.POINTER(ctypes.c_int64),  # hs
+        ctypes.POINTER(ctypes.c_int64),  # ws
+        ctypes.POINTER(ctypes.c_int64),  # tops
+        ctypes.POINTER(ctypes.c_int64),  # lefts
+        ctypes.c_int64, ctypes.c_int64,  # n, ch
+        ctypes.c_int64, ctypes.c_int64,  # crop_h, crop_w
+        ctypes.POINTER(ctypes.c_void_p),  # out_images (per slot)
+        ctypes.POINTER(ctypes.c_void_p),  # out_labels (per slot)
+        ctypes.c_int32,  # thread_count
+    ]
     lib.annonet_resize_bilinear_u8.restype = None
     lib.annonet_resize_bilinear_u8.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -122,6 +144,83 @@ def label_connected_blobs_native(
         int(ignore_is_background), out.ctypes.data,
     )
     return out, int(count)
+
+
+def extract_crop_native(
+    image: np.ndarray,  # (H, W, C) uint8
+    labels: Optional[np.ndarray],  # (H, W) uint16 or None
+    top: int,
+    left: int,
+    crop_h: int,
+    crop_w: int,
+) -> Optional[Tuple[np.ndarray, Optional[np.ndarray]]]:
+    """Native crop with replicate (image) and ignore (labels) padding
+    outside the image; None when the native module is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w, ch = image.shape
+    out_image = np.empty((crop_h, crop_w, ch), dtype=np.uint8)
+    out_labels = labels_ptr = out_labels_ptr = None
+    if labels is not None:
+        labels = np.ascontiguousarray(labels, dtype=np.uint16)
+        out_labels = np.empty((crop_h, crop_w), dtype=np.uint16)
+        labels_ptr = labels.ctypes.data
+        out_labels_ptr = out_labels.ctypes.data
+    lib.annonet_extract_crop(
+        image.ctypes.data, labels_ptr, h, w, ch,
+        top, left, crop_h, crop_w,
+        out_image.ctypes.data, out_labels_ptr,
+    )
+    return out_image, out_labels
+
+
+def extract_crops_batch_native(
+    sources,  # sequence of (image (H,W,C) uint8, labels (H,W) uint16) pairs
+    rects,  # sequence of (top, left) crop origins
+    crop_h: int,
+    crop_w: int,
+    out_image_slots,  # sequence of (crop_h, crop_w, C) uint8 views
+    out_label_slots,  # sequence of (crop_h, crop_w) uint16 views
+    thread_count: int = 1,
+) -> bool:
+    """A batch of crops in one native call (extract_crop_native per crop,
+    on a C++ thread pool with the GIL released), written into the caller's
+    per-slot views; False when the native module is unavailable (the
+    caller extracts per crop). ``sources`` stay alive and every array is
+    C-contiguous for the call (data/pipeline.py guarantees both)."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    n = len(sources)
+    img_ptrs = (ctypes.c_void_p * n)()
+    lbl_ptrs = (ctypes.c_void_p * n)()
+    out_img_ptrs = (ctypes.c_void_p * n)()
+    out_lbl_ptrs = (ctypes.c_void_p * n)()
+    hs = (ctypes.c_int64 * n)()
+    ws = (ctypes.c_int64 * n)()
+    tops = (ctypes.c_int64 * n)()
+    lefts = (ctypes.c_int64 * n)()
+    channels = out_image_slots[0].shape[2]
+    for i, ((image, labels), (top, left)) in enumerate(zip(sources, rects)):
+        assert image.flags["C_CONTIGUOUS"] and image.dtype == np.uint8
+        assert labels.flags["C_CONTIGUOUS"] and labels.dtype == np.uint16
+        out_i, out_l = out_image_slots[i], out_label_slots[i]
+        assert out_i.flags["C_CONTIGUOUS"] and out_l.flags["C_CONTIGUOUS"]
+        img_ptrs[i] = image.ctypes.data
+        lbl_ptrs[i] = labels.ctypes.data
+        out_img_ptrs[i] = out_i.ctypes.data
+        out_lbl_ptrs[i] = out_l.ctypes.data
+        hs[i], ws[i] = labels.shape
+        tops[i], lefts[i] = top, left
+    lib.annonet_extract_crops_batch(
+        img_ptrs, lbl_ptrs, hs, ws, tops, lefts,
+        n, channels, crop_h, crop_w,
+        out_img_ptrs, out_lbl_ptrs,
+        max(1, thread_count),
+    )
+    return True
 
 
 def resize_bilinear_native(

@@ -1,12 +1,12 @@
-"""The inference artifact (``annonet.dnn``) and the int8 calibration file:
-save and load, without JAX.
+"""The inference artifact (``annonet.dnn``), the trainer's synchronization
+file and the int8 calibration file: save and load, without JAX.
 
-The port of the runtime-net and calibration halves of
-``annonet_tpu/serialization.py``: the same container (a NumPy .npz with a
-JSON ``__meta__`` entry and one array per leaf: ``params/<block>/<conv>/
-<leaf>`` for the model, ``layer/NNN`` for the calibration), the same meta
-fields, the same weights fingerprint and the same validation, so each
-package reads what the other writes. The files are untrusted: the
+The port of ``annonet_tpu/serialization.py``: the same container (a NumPy
+.npz with a JSON ``__meta__`` entry and one array per leaf: ``params/
+<block>/<conv>/<leaf>`` for the model; ``params/...``, ``bn_stats/...``
+and ``velocity/...`` for the trainer state; ``layer/NNN`` for the
+calibration), the same meta fields, the same weights fingerprint and the
+same validation, so each package reads what the other writes. The files are untrusted: the
 container, the meta fields and every declared array shape are checked
 before any array data is decompressed.
 
@@ -30,13 +30,21 @@ from typing import Any, Dict, Tuple
 import numpy as np
 from numpy.lib import format as npformat
 
-from annonet_tpu_torch.models.segnet import SegNetConfig, runtime_param_shapes
+from annonet_tpu_torch.models.segnet import (
+    SegNetConfig,
+    runtime_param_shapes,
+    train_state_shapes,
+)
 
 _FORMAT = "annonet-tpu-npz-v1"
 _SEP = "/"
 _KIND = "runtime_net"
+_TRAINER = "trainer_state"
 _CALIBRATION = "int8_calibration"
-_KIND_NAMES = {_KIND: "model file", _CALIBRATION: "calibration file"}
+_KIND_NAMES = {
+    _KIND: "model file", _TRAINER: "trainer state file", _CALIBRATION: "calibration file",
+}
+_TREE_NAMES = ["bn_stats", "params", "velocity"]
 _MAX_META_BYTES = 16 << 20  # __meta__ carries anno_classes.json; cap it
 _CONFIG_FIELDS = {
     "class_count", "level_count", "width_scaler", "min_filter_count",
@@ -149,11 +157,11 @@ def _scan_npz(path, kind: str = _KIND):
     return meta, headers
 
 
-def _validated_config(raw, path: str) -> SegNetConfig:
+def _validated_config(raw, path: str, kind: str = _KIND) -> SegNetConfig:
     """SegNetConfig from untrusted meta: reject unknown fields, wrong types
     and absurd ranges before any shape computation keys off them."""
     if not isinstance(raw, dict):
-        raise _corrupt(path, "model_config is not an object")
+        raise _corrupt(path, "model_config is not an object", kind)
     unknown = set(raw) - _CONFIG_FIELDS
     missing = _CONFIG_FIELDS - set(raw)
     if unknown or missing:
@@ -161,12 +169,13 @@ def _validated_config(raw, path: str) -> SegNetConfig:
             path,
             f"model_config fields unknown={sorted(unknown)} "
             f"missing={sorted(missing)}",
+            kind,
         )
 
     def _int(name, lo, hi):
         v = raw[name]
         if not isinstance(v, int) or isinstance(v, bool) or not lo <= v <= hi:
-            raise _corrupt(path, f"model_config.{name}={v!r} outside [{lo}, {hi}]")
+            raise _corrupt(path, f"model_config.{name}={v!r} outside [{lo}, {hi}]", kind)
 
     _int("class_count", 1, 65535)
     _int("level_count", 0, 8)
@@ -176,20 +185,17 @@ def _validated_config(raw, path: str) -> SegNetConfig:
     if not isinstance(ws, (int, float)) or isinstance(ws, bool) or not (
         0.0 < float(ws) <= 1024.0 and np.isfinite(ws)
     ):
-        raise _corrupt(path, f"model_config.width_scaler={ws!r}")
+        raise _corrupt(path, f"model_config.width_scaler={ws!r}", kind)
     if not isinstance(raw["grayscale"], bool):
-        raise _corrupt(path, "model_config.grayscale is not a bool")
+        raise _corrupt(path, "model_config.grayscale is not a bool", kind)
     if raw["compute_dtype"] not in ("bfloat16", "float32"):
-        raise _corrupt(path, f"model_config.compute_dtype={raw['compute_dtype']!r}")
+        raise _corrupt(path, f"model_config.compute_dtype={raw['compute_dtype']!r}", kind)
     return SegNetConfig.from_dict(raw)
 
 
-def _check_tree_headers(path, headers, config: SegNetConfig) -> None:
-    """Every expected parameter present with the declared shape and a
-    numeric dtype, nothing extra, and a bounded total size."""
-    expected = {
-        "params" + _SEP + k: v for k, v in runtime_param_shapes(config).items()
-    }
+def _check_tree_headers(path, headers, expected, kind: str = _KIND) -> None:
+    """Every expected member ({name: shape}) present with the declared
+    shape and a numeric dtype, nothing extra, and a bounded total size."""
     stored = {k: v for k, v in headers.items() if k != "__meta__"}
     missing = sorted(set(expected) - set(stored))
     extra = sorted(set(stored) - set(expected))
@@ -199,6 +205,7 @@ def _check_tree_headers(path, headers, config: SegNetConfig) -> None:
             f"parameter tree mismatch vs declared architecture "
             f"(missing {missing[:4]}{'...' if len(missing) > 4 else ''}, "
             f"unexpected {extra[:4]}{'...' if len(extra) > 4 else ''})",
+            kind,
         )
     total = 0
     for name, shape in expected.items():
@@ -208,10 +215,11 @@ def _check_tree_headers(path, headers, config: SegNetConfig) -> None:
                 path,
                 f"parameter {name!r} has shape {got_shape} dtype "
                 f"{got_dtype}, architecture expects shape {shape}",
+                kind,
             )
         total += int(np.prod(got_shape, dtype=np.int64)) * got_dtype.itemsize
     if total > (8 << 30):
-        raise _corrupt(path, f"declared parameter tree is {total} bytes")
+        raise _corrupt(path, f"declared parameter tree is {total} bytes", kind)
 
 
 def save_model(
@@ -255,7 +263,9 @@ def load_model(path: str) -> Tuple[Any, SegNetConfig, str, float]:
         or not 0.0 < float(downscaling) <= 1e6
     ):
         raise _corrupt(path, f"downscaling_factor={downscaling!r}")
-    _check_tree_headers(path, headers, config)
+    _check_tree_headers(path, headers, {
+        "params" + _SEP + k: v for k, v in runtime_param_shapes(config).items()
+    })
     with np.load(path, allow_pickle=False) as z:
         flat = {
             k[len("params" + _SEP):]: z[k]
@@ -263,6 +273,81 @@ def load_model(path: str) -> Tuple[Any, SegNetConfig, str, float]:
             if k.startswith("params" + _SEP)
         }
     return unflatten_tree(flat), config, anno_classes_json, float(downscaling)
+
+
+# --------------------------------------------------------------------------
+# The trainer's synchronization file (params, BN statistics, velocity)
+# --------------------------------------------------------------------------
+
+
+def save_trainer_state(path: str, trees: Dict[str, Any], meta: Dict[str, Any]) -> None:
+    """Write the full training state: ``trees`` maps params / bn_stats /
+    velocity to numpy trees; ``meta`` holds JSON scalars (learning rate,
+    step count, loss window, model config, weights fingerprint). The JAX
+    package's file, member for member."""
+    arrays: Dict[str, np.ndarray] = {}
+    for name, tree in trees.items():
+        for k, v in flatten_tree(tree).items():
+            arrays[name + _SEP + k] = v
+    payload = {"format": _FORMAT, "kind": _TRAINER, "meta": meta,
+               "tree_names": sorted(trees.keys())}
+    arrays["__meta__"] = np.frombuffer(
+        json.dumps(payload).encode("utf-8"), dtype=np.uint8
+    )
+    _atomic_savez(path, **arrays)
+
+
+def load_trainer_meta(path: str) -> Dict[str, Any]:
+    """Only the meta dict of a trainer-state file (one bounded member
+    read; no parameter is decompressed)."""
+    payload, _headers = _scan_npz(path, _TRAINER)
+    meta = payload.get("meta")
+    if not isinstance(meta, dict):
+        raise _corrupt(path, "meta is not an object", _TRAINER)
+    return meta
+
+
+def load_trainer_state(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Read back (trees, meta) written by save_trainer_state, by either
+    package. Untrusted input: the container, the tree names, the meta's
+    scalars and every declared shape (against the architecture the file
+    declares; the trainer also requires it to equal its own) are checked
+    before any array is decompressed."""
+    payload, headers = _scan_npz(path, _TRAINER)
+
+    def corrupt(why):
+        return _corrupt(path, why, _TRAINER)
+
+    meta = payload.get("meta")
+    if not isinstance(meta, dict):
+        raise corrupt("meta is not an object")
+    if payload.get("tree_names") != _TREE_NAMES:
+        raise corrupt(f"tree_names={payload.get('tree_names')!r}")
+    config = _validated_config(meta.get("model_config"), path, _TRAINER)
+    shapes = train_state_shapes(config)
+    shapes["velocity"] = shapes["params"]
+    _check_tree_headers(path, headers, {
+        name + _SEP + k: v for name in _TREE_NAMES for k, v in shapes[name].items()
+    }, _TRAINER)
+    losses = meta.get("previous_loss_values", [])
+    if not isinstance(losses, list) or len(losses) > 1_000_000 or any(
+        not isinstance(v, (int, float)) or isinstance(v, bool) for v in losses
+    ):
+        raise corrupt("previous_loss_values is malformed")
+    step = meta.get("step_count")
+    if not isinstance(step, int) or isinstance(step, bool) or not 0 <= step <= 10**12:
+        raise corrupt(f"step_count={step!r}")
+    lr = meta.get("learning_rate")
+    if not isinstance(lr, (int, float)) or isinstance(lr, bool) or not np.isfinite(lr):
+        raise corrupt(f"learning_rate={lr!r}")
+    with np.load(_rewound(path), allow_pickle=False) as z:
+        trees: Dict[str, Any] = {}
+        for name in _TREE_NAMES:
+            flat = {
+                k[len(name + _SEP):]: z[k] for k in z.files if k.startswith(name + _SEP)
+            }
+            trees[name] = unflatten_tree(flat)
+    return trees, meta
 
 
 # --------------------------------------------------------------------------

@@ -19,8 +19,9 @@ TRACE_FILE = "annonet_infer.pt.trace.json"
 
 
 @contextlib.contextmanager
-def profiler_trace(trace_dir: Optional[str], device=None) -> Iterator[None]:
-    """Trace the block into ``trace_dir/TRACE_FILE`` (a no-op when
+def profiler_trace(trace_dir: Optional[str], device=None,
+                   file_name: str = TRACE_FILE) -> Iterator[None]:
+    """Trace the block into ``trace_dir/file_name`` (a no-op when
     ``trace_dir`` is None or empty); CUDA activity is recorded when
     ``device`` is a CUDA device. The file is written when the block ends
     without an exception."""
@@ -36,4 +37,4 @@ def profiler_trace(trace_dir: Optional[str], device=None) -> Iterator[None]:
     os.makedirs(trace_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
+    prof.export_chrome_trace(os.path.join(trace_dir, file_name))

@@ -87,6 +87,39 @@ Phases (any failure raises, and the exit code is then nonzero):
  10. repro_qconv_s1 the diagnostic tool's sweep (unsigned and signed) and
               bisect at all its configurations: Q1 and its accumulator mode
               against the exact conv, no mismatch, the accumulator launched
+ 11. train_step one train_step_decisions step of the flagship from one
+              init_state (seed 0), 4 crops of 192² from a synthetic
+              dataset of four 1024x1024 images, the augmentation drawn
+              once on the CPU and fed to both sides, in f32 and in bf16:
+              on the card and on the CPU the pool gathers bit-identical
+              crops; in f32 the losses and every updated tensor agree
+              within 5e-3 (of the tensor's largest update); in bf16 the
+              losses within 1e-2 relative and each updated tensor within
+              5e-2 (or within the distance of the CPU's bf16 step from its
+              f32 step, where bf16 is coarser)
+ 12. train     annonet_train in-process at the flagship's width and depth
+              (--level-count 3: 192² crops), -b 128, 40 steps, the device
+              image pool, -l -u -n 2 -o, brightness p 0.5, --deterministic-
+              data, float validation on two 1024x1024 images every 20
+              steps: exit 0, finite losses, the artifact loads into
+              TiledInferer, K1-K4 launched by the validation; then resumed
+              from its sync file for 10 steps with --validation-quantize
+              int8: it starts at step 40, and Q1, Q2, K3-requant and K4
+              are launched
+ 12b. train_timing annonet_train's own loop, without validation: a run
+              of 40 steps with ANNONET_TPU_STEP_TIMING=1 gives ms per step
+              and crops/s (its wall clock between two loss readbacks), the
+              main thread's CPU time and peak device memory; a --profile
+              run of 15 steps gives its trace's kernel time of the last 5
+              split by stage (the trainer's ranges: gather, augment,
+              weighting, conv forward, BN, loss, backward convs and the
+              rest of the backward, SGD) and the device's busy share
+ 13. detection tools/measure_detection.run_benchmark on seed 0
+              (PARITY_TARGETS.json's recipe, f32): it stops at its min LR
+              and its pixel accuracy clears the pinned floor; its region
+              recalls are printed against the pinned floors with those
+              they fall under, and not held (the recipe's seed-to-seed
+              spread straddles them, JAX's own too)
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}. Scratch files go to a
@@ -902,12 +935,13 @@ def write_dataset(root: str, sizes, anno_classes, seed: int) -> None:
         Image.fromarray(mask, mode="RGBA").save(path + "_mask.png", compress_level=1)
 
 
-def run_cli(argv) -> int:
-    """annonet_infer's main(argv) in this process, then this thread's
-    priority back where it was: annonet_infer lowers its own
-    (set_low_priority, os.nice(10)), and the phases after it are timed at
+def run_cli(argv, cli=None) -> int:
+    """annonet_infer's (or ``cli``'s) main(argv) in this process, then this
+    thread's priority back where it was: the CLIs lower their own
+    (set_low_priority, os.nice(10)), and the phases after them are timed at
     the priority of those before."""
-    from annonet_tpu_torch.cli import infer as cli
+    if cli is None:
+        from annonet_tpu_torch.cli import infer as cli
 
     before = os.getpriority(os.PRIO_PROCESS, 0)
     try:
@@ -1486,6 +1520,421 @@ def breakdown(params_np, config, device, data: str, name: str, reps: int = 5):
         print(f"    {stage:34s} {s * 1e3:9.1f} ms", flush=True)
 
 
+
+# --------------------------------------------------------------------------
+# Training: the card against the CPU, annonet_train, the detection floors
+# --------------------------------------------------------------------------
+
+# annonet_train's crop side at --level-count 3 (required 62, x3, rounded to
+# a multiple of 8) and the bench's train batch
+TRAIN_BATCH = 128
+TRAIN_STEPS = 40
+# the --profile run's steps: the last 5 are the stage table's window
+PROFILE_STEPS = 15
+TRAIN_SIZES = tuple((f"t{i}_1024x1024", 1024, 1024) for i in range(4))
+VALIDATION_SIZES = tuple((f"v{i}_1024x1024", 1024, 1024) for i in range(2))
+# one train step on the card against the same step on the CPU, from one
+# state with the same draws. In f32, the loss and every updated tensor
+# within 5e-3 (of that tensor's largest update on the CPU): the forward and
+# backward's math, where a wrong term moves a tensor by a large part of its
+# update, and summation order alone moves a BN beta's (a sum that cancels)
+# by ~1e-3: on an H100 80GB HBM3 at 700 W up to 8.7e-4 at enc1's betas, and
+# 2.4e-3 between the two packages' f32 steps on the CPU at level 1, width
+# 8. In bf16, the training default, the loss within 1e-2
+# relative and every updated tensor within 5e-2, or, where bf16 itself is
+# that coarse, no further from the CPU's bf16 step than the CPU's own bf16
+# step is from its f32 step (cuDNN and the CPU sum each conv in another
+# order, and the bf16 roundings that follow differ: on an H100 80GB HBM3 at
+# 700 W up to 5.9e-2 at enc3's BN betas, which see 2304 pixels a channel,
+# where bf16 and f32 stand 0.10-0.25 apart)
+TRAIN_F32_TOL = 5e-3
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_UPDATE_TOL = 5e-2
+# the detection benchmark's seed (the first of PARITY_TARGETS.json's runs)
+DETECTION_SEED = 0
+# the profiler window's stages: the trainer's record_function ranges, with
+# the backward's kernels split by name into the convs' and the rest's
+STAGES = ("gather", "augment", "weighting", "conv_forward", "bn", "loss",
+          "backward_conv", "backward_other", "sgd", "other")
+_CONV_KERNEL = re.compile(r"conv|dgrad|wgrad|xmma|cudnn|implicit|cutlass|gemm", re.I)
+
+
+def train_crop_dim(config) -> int:
+    from annonet_tpu_torch.models.segnet import (
+        recommended_input_dimension, required_input_dimension,
+    )
+
+    return recommended_input_dimension(config, int(round(3.0 * required_input_dimension(config))))
+
+
+def read_samples(data: str, sizes):
+    from annonet_tpu_torch.data import default_anno_classes
+    from annonet_tpu_torch.data.dataset import ImageFilenames
+    from annonet_tpu_torch.data.sample import read_sample
+
+    out = []
+    for name, _h, _w in sizes:
+        path = os.path.join(data, name + ".png")
+        out.append(read_sample(ImageFilenames(path, path + "_mask.png"),
+                               default_anno_classes(), True, 1.0))
+    return out
+
+
+def augmentations() -> dict:
+    """The CropOptions fields of the CLI phase's augmentation flags
+    (-l -u -n 2 --multiplicative-brightness-change-probability 0.5 -o)."""
+    return dict(allow_flip_left_right=True, allow_flip_upside_down=True,
+                multiplicative_brightness_change_probability=0.5,
+                noise_level_stddev=2.0, allow_random_color_offset=True)
+
+
+def check_train_step(device, data: str) -> None:
+    """One train_step_decisions step of the flagship from one init_state,
+    4 crops of 192² (one reaching past the image's corner), on the card and
+    on the CPU with the same augmentation draws (made once, on the CPU), in
+    f32 and in bf16: the pool gathers bit-identical crops on both; in f32
+    the losses and every updated tensor agree within TRAIN_F32_TOL; in bf16
+    the losses within TRAIN_LOSS_RTOL and every updated tensor within
+    TRAIN_UPDATE_TOL of its largest update, or within the distance between
+    the CPU's bf16 step and its f32 step."""
+    from annonet_tpu_torch.data.crop import CropOptions
+    from annonet_tpu_torch.models.segnet import tree_items, tree_to_numpy
+    from annonet_tpu_torch.ops.augment import draw_augmentations
+    from annonet_tpu_torch.ops.crop_gather import gather_crops
+    from annonet_tpu_torch.train import DeviceImagePool, Trainer, TrainerConfig
+
+    config = flagship_config()
+    dim = train_crop_dim(config)
+    samples = read_samples(data, TRAIN_SIZES[:2])
+    rects = [(-40, -25), (300, 200), (1024 - dim + 60, 1024 - dim + 90), (700, 10)]
+    rects = [(x, y, x + dim - 1, y + dim - 1) for x, y in rects]
+    crop_samples = [samples[0], samples[1], samples[0], samples[1]]
+    options = CropOptions(dim=dim, **augmentations())
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    draws = draw_augmentations(gen, len(rects), (dim, dim, 3), options)
+    sides = (("card", device), ("cpu", torch.device("cpu")))
+    crops, losses, params, before = {}, {}, {}, None
+    for dtype in ("float32", "bfloat16"):
+        for side, d in sides:
+            trainer = Trainer(dataclasses.replace(config, compute_dtype=dtype),
+                              TrainerConfig(), seed=SEED, device=d)
+            before = dict(tree_items(tree_to_numpy(trainer.params)))
+            pool = DeviceImagePool(2, device=d)
+            slots = pool.ensure(crop_samples)
+            hs, ws = pool.valid_dims(slots)
+            crops[side] = [t.cpu() for t in gather_crops(
+                pool.images, pool.labels, torch.from_numpy(slots),
+                torch.tensor([r[1] for r in rects]), torch.tensor([r[0] for r in rects]),
+                torch.from_numpy(hs), torch.from_numpy(ws), dim,
+                flip_lr=draws.flip_lr, flip_ud=draws.flip_ud)]
+            t = time.monotonic()
+            losses[dtype, side] = trainer.train_step_decisions(pool, crop_samples, rects,
+                                                               options, draws=draws)
+            print(f"  one {dtype} step on {d}: loss {losses[dtype, side]:.6f}, "
+                  f"{time.monotonic() - t:.2f} s wall (first call)", flush=True)
+            params[dtype, side] = dict(tree_items(tree_to_numpy(trainer.params)))
+    same = all(torch.equal(a, b) for a, b in zip(crops["card"], crops["cpu"]))
+    print(f"  pool gather of {len(rects)} crops of {dim}² (flips, past the corner): card "
+          f"and CPU bit-identical: {same}", flush=True)
+    if not same:
+        raise AssertionError("the card's pool gather differs from the CPU's")
+
+    def distance(dtype, a, b):
+        """{tensor: max |a - b| over the largest update of the CPU's step in
+        ``dtype``}"""
+        out = {}
+        for key, cpu in params[dtype, "cpu"].items():
+            update = max(float(np.abs(cpu - before[key]).max()), 1e-30)
+            out[key] = float(np.abs(params[a][key] - params[b][key]).max()) / update
+        return out
+
+    def worst(gaps, beside=None, n=4):
+        keys = sorted(gaps, key=lambda k: -gaps[k])[:n]
+        return ", ".join(f"{k} {gaps[k]:.3e}" + (f" ({beside[k]:.3e})" if beside else "")
+                         for k in keys)
+
+    failed = []
+    f32 = distance("float32", ("float32", "card"), ("float32", "cpu"))
+    f32_loss = (abs(losses["float32", "card"] - losses["float32", "cpu"])
+                / abs(losses["float32", "cpu"]))
+    print(f"  f32: loss gap {f32_loss:.3e} relative, largest update gaps card - CPU "
+          f"{worst(f32)} (limit {TRAIN_F32_TOL})", flush=True)
+    if f32_loss > TRAIN_F32_TOL:
+        failed.append("the f32 loss")
+    failed += [f"f32 {k}" for k, g in f32.items() if g > TRAIN_F32_TOL]
+    bf16 = distance("bfloat16", ("bfloat16", "card"), ("bfloat16", "cpu"))
+    cpu_coarse = distance("bfloat16", ("bfloat16", "cpu"), ("float32", "cpu"))
+    card_coarse = distance("bfloat16", ("bfloat16", "card"), ("float32", "card"))
+    bf16_loss = (abs(losses["bfloat16", "card"] - losses["bfloat16", "cpu"])
+                 / abs(losses["bfloat16", "cpu"]))
+    print(f"  bf16: loss gap {bf16_loss:.3e} relative (limit {TRAIN_LOSS_RTOL}); largest "
+          f"update gaps card - CPU (limit {TRAIN_UPDATE_TOL}, or the CPU's bf16 - f32 "
+          f"distance beside it): {worst(bf16, cpu_coarse)}", flush=True)
+    print(f"  bf16 - f32 distance, medians: the CPU's {np.median(list(cpu_coarse.values())):.3e}"
+          f", the card's {np.median(list(card_coarse.values())):.3e}; card - CPU median "
+          f"{np.median(list(bf16.values())):.3e}; the card's largest: "
+          f"{worst(card_coarse, cpu_coarse)}", flush=True)
+    if bf16_loss > TRAIN_LOSS_RTOL:
+        failed.append("the bf16 loss")
+    failed += [f"bf16 {k}" for k, g in bf16.items()
+               if g > max(TRAIN_UPDATE_TOL, cpu_coarse[k])]
+    if failed:
+        raise AssertionError(f"the card's train step disagrees with the CPU's at {failed}")
+
+
+def int8_validation_wrappers():
+    """{name: wrapper} of the kernels of the int8 validation: Q1, Q2,
+    K3-requant and K4."""
+    from annonet_tpu_torch.ops import blend, conv, qconv
+
+    return {
+        "qconv3x3_requant": qconv.qconv3x3_requant,
+        "qconv3x3_s2_requant": qconv.qconv3x3_s2_requant,
+        "up2x2_requant": conv.up2x2_requant,
+        "blend_argmax": blend.blend_argmax,
+    }
+
+
+class StepStamps(io.StringIO):
+    """A stdout capture that stamps each step-timing line of annonet_train
+    (ANNONET_TPU_STEP_TIMING=1: "[step i] ...", printed by the thread that
+    trains, after the step) with that thread's wall and CPU clocks."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = {}  # step: (monotonic s, thread CPU s, line)
+
+    def write(self, text):
+        if text.startswith("[step "):
+            self.stamps[int(text[6:text.index("]")])] = (
+                time.monotonic(), time.thread_time(), text.strip())
+        return super().write(text)
+
+
+def run_train_cli(argv, wrappers=None, env=None):
+    """annonet_train's main(argv) in-process with its stdout captured (a
+    StepStamps), ``env`` set around it and the ``wrappers``' launch counts
+    zeroed first; prints the run's summary lines and fails on a nonzero
+    exit. Returns the capture."""
+    from annonet_tpu_torch.cli import train as train_cli
+
+    wrappers = wrappers or {}
+    out = StepStamps()
+    for fn in wrappers.values():
+        fn.launches = 0
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    t, cpu = time.monotonic(), time.thread_time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run_cli(argv, train_cli)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall, cpu = time.monotonic() - t, time.thread_time() - cpu
+    text = out.getvalue()
+    shown = [line for line in text.splitlines()
+             if line.startswith(("validation", "resumed", "saving", "step"))]
+    if shown:
+        print("  | " + "\n  | ".join(shown))
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"  exit code {rc}, {wall:.2f} s wall, main thread CPU {cpu:.2f} s"
+          + (f"; launches {launches}" if wrappers else ""), flush=True)
+    if rc != 0:
+        raise AssertionError(f"annonet_train {' '.join(argv[1:])} exited with {rc}:\n{text}")
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f"annonet_train's validation launched no {missing}")
+    return out
+
+
+def train_cli_phase(work: str, data: str, validation: str, device) -> dict:
+    """annonet_train at full width in-process: 40 steps at batch 128 on
+    192² crops with the pool, augmentation and float validation every 20
+    steps, then once more resumed from the sync file with int8 validation.
+    Returns the int8 run's launch counts."""
+    from annonet_tpu_torch import serialization
+    from annonet_tpu_torch.infer.core import TiledInferer
+
+    model, sync = os.path.join(work, "trained.dnn"), os.path.join(work, "sync.dat")
+    metrics = os.path.join(work, "metrics.jsonl")
+    common = train_argv(data) + [
+        "--save-interval", "20", "--validation-directory", validation, "--output", model,
+        "--sync-file", sync, "--metrics-jsonl", metrics, "--metrics-interval", "1"]
+    run_train_cli(common + ["--max-total-steps", str(TRAIN_STEPS)], float_wrappers())
+    with open(metrics, encoding="utf-8") as f:
+        events = [json.loads(line) for line in f]
+    losses = [e["loss"] for e in events if e["event"] == "loss"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"annonet_train recorded {len(losses)} losses: {losses}")
+    print(f"  losses: first {losses[0]:.4f}, step {TRAIN_STEPS // 2} "
+          f"{losses[TRAIN_STEPS // 2 - 1]:.4f}, last {losses[-1]:.4f}, all finite", flush=True)
+    params, config, _classes, _ds = serialization.load_model(model)
+    labels = TiledInferer(params, config, device=device).infer_arrays(
+        read_samples(validation, VALIDATION_SIZES[:1])[0].input_image)[0]
+    print(f"  the artifact loads into TiledInferer: {config}, label map "
+          f"{labels.shape}, classes {np.unique(labels).tolist()}", flush=True)
+    wrappers = int8_validation_wrappers()
+    out = run_train_cli(common + ["--max-total-steps", "10", "--validation-quantize", "int8"],
+                        wrappers)
+    if f"resumed from {sync} at step {TRAIN_STEPS}" not in out.getvalue():
+        raise AssertionError("the second run did not resume at the saved step")
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def train_argv(data: str) -> list:
+    """annonet_train's flags of the training phases: the flagship's depth,
+    the bench's batch, the deterministic crop stream and the augmentation
+    of augmentations()."""
+    return [data, "--level-count", "3", "-b", str(TRAIN_BATCH), "--deterministic-data",
+            "-l", "-u", "-n", "2", "--multiplicative-brightness-change-probability", "0.5",
+            "-o"]
+
+
+def stage_shares(events, t0: float, t1: float) -> dict:
+    """Device ms per stage of the kernels of a Chrome trace launched
+    between host times ``t0`` and ``t1`` (us): each goes to the innermost
+    trainer range (record_function) open when it was launched, the
+    backward's kernels by name to its convs or the rest."""
+    ranges = sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                     for e in events if e.get("cat") == "user_annotation"
+                     and e.get("name") in STAGES + ("backward",)), key=lambda r: r[1] - r[0])
+    launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    out = dict.fromkeys(STAGES, 0.0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launches.get(e.get("args", {}).get("correlation"))
+        if ts is None or not t0 <= ts <= t1:
+            continue
+        stage = next((name for a, b, name in ranges if a <= ts <= b), "other")
+        if stage == "backward":
+            stage = "backward_conv" if _CONV_KERNEL.search(e["name"]) else "backward_other"
+        out[stage] += float(e["dur"]) / 1e3
+    return out
+
+
+def train_timing(work: str, data: str, device) -> None:
+    """annonet_train's own loop at batch 128, 192², flagship, with no
+    validation and no save after step 0: a run of TRAIN_STEPS steps with
+    ANNONET_TPU_STEP_TIMING=1 gives ms per step, crops/s and the main
+    thread's CPU time per step between the loss readbacks of steps 16 and
+    40 (each waits for the step 8 before it, so the device has done steps
+    9-32 between them; loss_sync_interval 8), the pool's uploads and
+    peak device memory; then --profile on a run of PROFILE_STEPS steps: its
+    trace's kernels of the last 5 steps, split by stage."""
+    from annonet_tpu_torch.cli.train import TRAIN_TRACE_FILE
+
+    first, last = 15, TRAIN_STEPS - 1
+    torch.cuda.reset_peak_memory_stats(device)
+    out = run_train_cli(train_argv(data) + [
+        "--max-total-steps", str(TRAIN_STEPS), "--save-interval", "1000",
+        "--output", os.path.join(work, "timed.dnn"), "--sync-file",
+        os.path.join(work, "timed.dat")], env={"ANNONET_TPU_STEP_TIMING": "1"})
+    (t0, c0, _), (t1, c1, line) = out.stamps[first], out.stamps[last]
+    steps = last - first
+    ms = (t1 - t0) * 1e3 / steps
+    dim = train_crop_dim(flagship_config())
+    print(f"  steps {first + 2}-{last + 1} at batch {TRAIN_BATCH}, {dim}²: {ms:.3f} ms per "
+          f"step (the CLI's wall clock between loss readbacks), {TRAIN_BATCH * 1e3 / ms:.1f} crops/s; main thread CPU {(c1 - c0) * 1e3 / steps:.3f} "
+          f"ms per step; last step's line: {line!r}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB", flush=True)
+    trace_dir = os.path.join(work, "profile")
+    run_train_cli(train_argv(data) + [
+        "--max-total-steps", str(PROFILE_STEPS), "--save-interval", "1000",
+        "--profile", trace_dir, "--output", os.path.join(work, "profiled.dnn"),
+        "--sync-file", os.path.join(work, "profiled.dat")])
+    with open(os.path.join(trace_dir, TRAIN_TRACE_FILE), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    starts = sorted(float(e["ts"]) for e in events
+                    if e.get("cat") == "user_annotation" and e.get("name") == "gather")
+    ends = sorted(float(e["ts"]) + float(e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation" and e.get("name") == "sgd")
+    if len(starts) != PROFILE_STEPS or len(ends) != PROFILE_STEPS:
+        raise AssertionError(f"the trace holds {len(starts)} gather and {len(ends)} sgd "
+                             f"ranges for {PROFILE_STEPS} steps")
+    window = 5
+    t0, t1 = starts[-window], ends[-1]
+    shares = stage_shares(events, t0, t1)
+    total = sum(shares.values())
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and t0 <= float(e["ts"]) <= t1
+                and "correlation" in e.get("args", {})}
+    busy, span = busy_share([
+        e for e in events if e.get("ph") == "X" and "dur" in e
+        and (e.get("args", {}).get("correlation") in launched
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+             else t0 <= float(e["ts"]) <= t1)])
+    print(f"  profiler trace of the CLI, steps {PROFILE_STEPS - window + 1}-{PROFILE_STEPS}: "
+          f"kernels {total / window:.3f} ms per step, device busy {busy:.3f} of {span:.3f} "
+          f"ms ({busy / span:.2%}); by stage (ms per step, share):", flush=True)
+    for stage in STAGES:
+        print(f"    {stage:15s} {shares[stage] / window:9.3f} ms  "
+              f"{shares[stage] / max(total, 1e-9):7.2%}", flush=True)
+
+
+def detection_phase(device) -> None:
+    """tools/measure_detection.run_benchmark on the card at seed 0: the run
+    stops at its min LR and its pixel accuracy clears PARITY_TARGETS.json's
+    pinned floor. Its region recalls are printed against the pinned floors
+    with the floors they fall under; they are not held: seed 0 of the
+    port's random stream falls one background region under its floor, and
+    JAX's own recipe falls under a floor at about one seed in four on the
+    CPU (PERF.md, section 6)."""
+    from annonet_tpu_torch.tools import measure_detection
+
+    recall_floor, pixel_floor = measure_detection.pinned_floors()
+    t = time.monotonic()
+    run = measure_detection.run_benchmark(DETECTION_SEED, device=device, verbose=False)
+    missed = measure_detection.below_floors(run)
+    print(f"  seed {DETECTION_SEED}: {run['steps']} steps, stopped at min LR "
+          f"{run['stopped_at_min_lr']}, LR shrinks at steps "
+          f"{[e['step'] for e in run['lr_shrinks']]}, loss {run['loss_first']:.4f} -> "
+          f"{run['loss_last']:.4f}; region recall {run['region_recall']} (floors "
+          f"{recall_floor}), pixel accuracy {run['pixel_accuracy']:.5f} (floor {pixel_floor}), "
+          f"region precision {run['region_precision']}, region confusion {run['region_cm']}; "
+          f"{time.monotonic() - t:.1f} s", flush=True)
+    print(f"  seed {DETECTION_SEED} clears every pinned floor: {not missed}"
+          + (f" (not met: {'; '.join(missed)})" if missed else ""), flush=True)
+    if not run["stopped_at_min_lr"]:
+        raise AssertionError("the detection run did not reach its min-LR stop")
+    if run["pixel_accuracy"] < pixel_floor:
+        raise AssertionError("the detection run's pixel accuracy falls under its floor")
+
+
+def training_phases(device) -> dict:
+    """The training slice's phases in one scratch directory; returns the
+    int8 validation's launch counts."""
+    from annonet_tpu_torch.data import default_anno_classes
+
+    work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_REPO)
+    try:
+        data, validation = os.path.join(work, "train"), os.path.join(work, "validation")
+        for path, sizes, seed in ((data, TRAIN_SIZES, SEED + 2),
+                                  (validation, VALIDATION_SIZES, SEED + 3)):
+            os.makedirs(path)
+            write_dataset(path, sizes, default_anno_classes(), seed)
+        print("[train_step] one train step of the flagship, card against CPU", flush=True)
+        check_train_step(device, data)
+        print(f"[train] annonet_train --level-count 3 -b {TRAIN_BATCH} --max-total-steps "
+              f"{TRAIN_STEPS}, float validation, then resumed with int8 validation", flush=True)
+        launches = train_cli_phase(work, data, validation, device)
+        print(f"[train_timing] annonet_train's loop at batch {TRAIN_BATCH}: steady state, "
+              "then the stages of a --profile run", flush=True)
+        train_timing(work, data, device)
+        print(f"[detection] tools/measure_detection.run_benchmark, seed {DETECTION_SEED}",
+              flush=True)
+        detection_phase(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; "
@@ -1588,6 +2037,9 @@ def main() -> int:
     print("[repro_qconv_s1] the diagnostic tool's sweep and bisect on the card",
           flush=True)
     acc_launches = repro_qconv_phase(device)
+    torch.cuda.empty_cache()
+    train_launches = training_phases(device)
+    print(f"  int8 validation launches: {train_launches}", flush=True)
     for label, records in (("float", per_image), ("int8", int8_per_image)):
         for rec in records:
             mpx = rec["width"] * rec["height"] / 1e6

@@ -678,3 +678,101 @@ def test_int8_path_never_reaches_the_plain_versions(device, monkeypatch):
     assert runs[qconv.qconv3x3_requant] >= 4 * 8 + 8 and runs[qconv.qconv3x3_s2_requant] >= 4 * 3
     assert runs[conv.up2x2_requant] >= 4 * 3 and runs[blend.blend_argmax] == 4
     assert runs[qconv.qup2x2_requant] == 3
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_samples(seed=0):
+    from annonet_tpu_torch.data.sample import Sample
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for h, w in [(90, 120), (60, 50)]:
+        labels = rng.integers(0, 3, (h, w)).astype(np.uint16)
+        labels[:5] = 65535
+        out.append(Sample(input_image=rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                          label_image=labels))
+    return out
+
+
+def test_pool_gather_bit_identical_on_the_card(device):
+    from annonet_tpu_torch.ops.crop_gather import gather_crops
+    from annonet_tpu_torch.train import DeviceImagePool
+
+    samples = _train_samples()
+    which = [0, 1, 0, 1, 1]
+    corners = [(-7, -3), (30, 20), (100, 70), (-20, 40), (10, -15)]
+    dim = 40
+    rng = np.random.default_rng(1)
+    flip_lr = torch.from_numpy(rng.random(len(which)) < 0.5)
+    flip_ud = torch.from_numpy(rng.random(len(which)) < 0.5)
+    out = []
+    for d in (device, torch.device("cpu")):
+        pool = DeviceImagePool(2, device=d)
+        slots = pool.ensure([samples[i] for i in which])
+        hs, ws = pool.valid_dims(slots)
+        assert int(pool.labels[int(slots[0]), 0, 0]) == 65535  # IGNORE survives the upload
+        out.append([t.cpu() for t in gather_crops(
+            pool.images, pool.labels, torch.from_numpy(slots),
+            torch.tensor([c[1] for c in corners]), torch.tensor([c[0] for c in corners]),
+            torch.from_numpy(hs), torch.from_numpy(ws), dim, flip_lr=flip_lr, flip_ud=flip_ud)])
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+def test_train_step_card_vs_cpu(device):
+    """One pool step, f32 compute (TF32 off), the same draws: the loss within
+    1e-5 relative and each updated tensor within 1e-3 of its largest
+    update (cuDNN and the CPU only reorder f32 sums)."""
+    from annonet_tpu_torch.data.crop import CropOptions
+    from annonet_tpu_torch.models.segnet import SegNetConfig, tree_items, tree_to_numpy
+    from annonet_tpu_torch.ops.augment import draw_augmentations
+    from annonet_tpu_torch.train import DeviceImagePool, Trainer, TrainerConfig
+
+    config = SegNetConfig(class_count=3, level_count=2, base_width=8, compute_dtype="float32")
+    samples = _train_samples(2)
+    dim = 48
+    rects = [(x, y, x + dim - 1, y + dim - 1) for x, y in [(-5, -5), (30, 20), (90, 60),
+                                                          (10, 30)]]
+    crop_samples = [samples[0], samples[1], samples[0], samples[1]]
+    options = CropOptions(dim=dim, allow_flip_left_right=True, allow_flip_upside_down=True,
+                          multiplicative_brightness_change_probability=0.5,
+                          noise_level_stddev=2.0, allow_random_color_offset=True)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    draws = draw_augmentations(gen, len(rects), (dim, dim, 3), options)
+    losses, params = [], []
+    for d in (device, torch.device("cpu")):
+        trainer = Trainer(config, TrainerConfig(), seed=0, device=d)
+        before = dict(tree_items(tree_to_numpy(trainer.params)))
+        losses.append(trainer.train_step_decisions(DeviceImagePool(2, device=d), crop_samples,
+                                                   rects, options, draws=draws))
+        params.append(dict(tree_items(tree_to_numpy(trainer.params))))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    for key, cpu in params[1].items():
+        update = np.abs(cpu - before[key]).max()
+        assert np.abs(params[0][key] - cpu).max() <= 1e-3 * update, key
+
+
+def test_update_params_then_validation_launches_the_kernels(device):
+    from annonet_tpu_torch.infer.core import TiledInferer, annonet_infer
+    from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
+    from annonet_tpu_torch.ops import blend, conv, qconv
+
+    config = SegNetConfig(class_count=3, level_count=2, base_width=16)
+    image = np.random.default_rng(0).integers(0, 256, (300, 260, 3), dtype=np.uint8)
+    old, new = init_runtime_params(config, 0), init_runtime_params(config, 1)
+    float_kernels = (conv.conv3x3_bias_relu, conv.conv3x3_s2_bias_relu, conv.up2x2_bias_relu,
+                     blend.blend_argmax)
+    int8_kernels = (qconv.qconv3x3_requant, qconv.qconv3x3_s2_requant, conv.up2x2_requant,
+                    blend.blend_argmax)
+    for quantize, kernels in ((None, float_kernels), ("int8", int8_kernels)):
+        inferer = TiledInferer(old, config, device=device, quantize=quantize)
+        annonet_infer(inferer, image)
+        inferer.update_params(new)
+        for fn in kernels:
+            fn.launches = 0
+        labels = annonet_infer(inferer, image)
+        assert all(fn.launches > 0 for fn in kernels), [fn.launches for fn in kernels]
+        fresh = annonet_infer(TiledInferer(new, config, device=device, quantize=quantize), image)
+        assert np.array_equal(labels, fresh)
