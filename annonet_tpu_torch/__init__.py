@@ -28,6 +28,10 @@ structure and names so each module's counterpart is easy to find:
   cli/infer.py         annonet_infer (reader and writer threads, groups in
                        flight on the device)
   cli/train.py         annonet_train
+  cli/serve.py         annonet_serve (the JAX server's HTTP protocol, dynamic
+                       batching, hot reload, the int8 calibration endpoint)
+  cli/inspect.py       annonet_inspect
+  client.py            the Python client of annonet_serve (stdlib + numpy)
   tools/               repro_qconv_s1 (Q1's diagnostic), measure_detection
                        (the detection benchmark)
 

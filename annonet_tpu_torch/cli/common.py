@@ -1,13 +1,14 @@
 """Shared CLI helpers: the reference-parity parser, class-specific value
 parsing, the in-order buffer of the reader threads (copies of
 annonet_tpu/cli/_parser.py and cli/common.py, whose package imports pull
-in JAX) and device selection."""
+in JAX), device selection and the bounded device probe."""
 
 from __future__ import annotations
 
 import argparse
 import os
 import sys
+import threading
 from typing import List, Sequence
 
 #: ``cpu`` runs the port on the CPU (the counterpart of the JAX package's
@@ -113,3 +114,62 @@ def resolve_device(device_index=None):
             f"device index {index} out of range; {count} CUDA device(s) available"
         )
     return torch.device("cuda", index)
+
+
+def device_probe(device, timeout_s=None, on_timeout=None, _op=None) -> None:
+    """Bounded first device operation: fail fast, with a message to act
+    on, when the device's runtime is unreachable or wedged, instead of
+    hanging in the first request or image (annonet_tpu/cli/common.py's
+    device_probe on one process).
+
+    One tiny operation and its copy back to the host run on a daemon
+    thread, bounded by ``timeout_s`` (default ANNONET_TPU_DEVICE_PROBE_TIMEOUT
+    or 120 s; 0 disables the probe). ``on_timeout="exit"`` (the default,
+    or ANNONET_TPU_DEVICE_PROBE_ON_TIMEOUT) prints the message and leaves
+    with ``os._exit(1)``: the abandoned thread is stuck in the CUDA runtime,
+    and finalising the interpreter under it is not safe. ``"raise"``
+    raises RuntimeError instead. An error of the operation itself raises
+    RuntimeError. ``_op`` is a test seam."""
+    if timeout_s is None:
+        timeout_s = float(os.environ.get("ANNONET_TPU_DEVICE_PROBE_TIMEOUT", "120"))
+    if on_timeout is None:
+        on_timeout = os.environ.get("ANNONET_TPU_DEVICE_PROBE_ON_TIMEOUT", "exit")
+    if timeout_s <= 0:
+        return
+    if _op is None:
+        import torch  # imported here, on this thread: imports do not hang
+
+        def _op():
+            value = float(torch.full((8, 8), 3.0, device=device).sum().cpu())
+            if value != 192.0:
+                raise RuntimeError(f"device computed {value}, expected 192.0")
+
+    result = {}
+
+    def run():
+        try:
+            _op()
+            result["ok"] = True
+        except Exception as e:  # noqa: BLE001 — raised on the calling thread
+            result["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True, name="annonet-device-probe")
+    thread.start()
+    thread.join(timeout_s)
+    if thread.is_alive():
+        message = (
+            f"device probe did not complete within {timeout_s:g} s: the "
+            "accelerator runtime is unreachable or wedged (context creation "
+            "or the first host<->device transfer stalled). Triage: check "
+            "that the card and its runtime are healthy (nvidia-smi), look for "
+            "leftover processes holding the device, or retry once it "
+            "recovers. ANNONET_TPU_DEVICE_PROBE_TIMEOUT adjusts this "
+            "timeout (0 disables the probe)."
+        )
+        if on_timeout == "raise":
+            raise RuntimeError(message)
+        print(message, flush=True)
+        sys.stderr.flush()
+        os._exit(1)
+    if "error" in result:
+        raise RuntimeError(f"device probe failed: {result['error']}") from result["error"]

@@ -28,9 +28,12 @@ once per source hash). ``--quantize int8`` runs the int8 net, with
 ``--calibration-images``, ``--calibration`` / ``--save-calibration``
 (files either package reads) and ``--blend-dtype``; after the loop it
 prints the calibration overshoot of the last image, as the JAX CLI does.
-Flags whose feature is not ported yet exit with code 2 and name the
-roadmap item: ``--mesh``, ``--coordinator``, ``--num-processes``,
-``--process-id``, ``--plan-autotune``.
+``--plan-autotune`` times the default tile plan and its denser
+neighbours on the first image of each canvas size and runs the fastest,
+and prints the JAX CLI's report line. The device is probed first
+(``cli/common.py::device_probe``). Flags whose feature is not ported yet
+exit with code 2 and name the roadmap item: ``--mesh``, ``--coordinator``,
+``--num-processes``, ``--process-id``.
 """
 
 from __future__ import annotations
@@ -119,7 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8: images whose activation maxima set the "
                         "scales; they run the float net before the freeze")
     p.add_argument("--plan-autotune", action="store_true",
-                   help="Measured tile-plan selection (not ported yet)")
+                   help="Measured tile-plan selection: on the first image "
+                        "of each canvas size, time the default tile plan "
+                        "and its denser neighbouring grids on the device "
+                        "and run the fastest")
     p.add_argument("--blend-dtype", choices=["auto", "float32", "bfloat16"],
                    default="auto",
                    help="Accumulation dtype of the tile-blend epilogue: "
@@ -140,7 +146,6 @@ _UNPORTED = (
     ("--coordinator", "coordinator"),
     ("--num-processes", "num_processes"),
     ("--process-id", "process_id"),
-    ("--plan-autotune", "plan_autotune"),
 )
 
 
@@ -201,6 +206,7 @@ def _run(args, input_directory) -> int:
     from annonet_tpu_torch import serialization
     from annonet_tpu_torch.cli.common import (
         IndexOrderedResults,
+        device_probe,
         parse_class_specific_values,
         resolve_device,
     )
@@ -240,6 +246,7 @@ def _run(args, input_directory) -> int:
         f"{i}:{d:g}" for i, d in enumerate(detection_levels)))
 
     device = resolve_device(args.device)
+    device_probe(device)
 
     if args.tile_max_width is None:
         args.tile_max_width = default_tile_max()
@@ -273,6 +280,7 @@ def _run(args, input_directory) -> int:
         calibration=calibration,
         blend_dtype=None if args.blend_dtype == "auto" else args.blend_dtype,
         reference_blend_semantics=args.reference_blend_semantics,
+        plan_autotune=args.plan_autotune,
     )
 
     files = find_image_files(input_directory, require_ground_truth=False)
@@ -498,6 +506,15 @@ def _run(args, input_directory) -> int:
             if isinstance(ok, Exception):
                 raise ok
         print("All result images written!")
+        if args.plan_autotune:
+            for key, report in sorted(inferer.autotune_reports.items()):
+                parts = ", ".join(
+                    f"{p.tile_height}x{p.tile_width}x{p.tile_count}"
+                    + (f" = {r:.1f} Mpx/s" if r else "")
+                    for p, r in report
+                )
+                print(f"Plan autotune for canvas {key[0]}x{key[1]}: "
+                      f"chose {parts.split(',')[0].strip()} (candidates: {parts})")
     finally:
         # clean shutdown on success and on error: stop the readers (draining
         # read_results so that none stays blocked on the full queue), then

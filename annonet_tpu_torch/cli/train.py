@@ -299,7 +299,7 @@ def _run_impl(args, input_directory, stack) -> int:
 
     from annonet_tpu_torch import serialization
     from annonet_tpu_torch.classes import parse_anno_classes
-    from annonet_tpu_torch.cli.common import resolve_device
+    from annonet_tpu_torch.cli.common import device_probe, resolve_device
     from annonet_tpu_torch.data.crop import CropOptions
     from annonet_tpu_torch.data.dataset import find_image_files, read_anno_classes_file
     from annonet_tpu_torch.data.pipeline import CropPipeline, RegionFilterOptions
@@ -339,6 +339,7 @@ def _run_impl(args, input_directory, stack) -> int:
     anno_classes = parse_anno_classes(anno_classes_json)
     model_config = model_config_for(len(anno_classes))
     device = resolve_device(args.device)
+    device_probe(device)
 
     trainer_config = TrainerConfig(
         initial_learning_rate=args.initial_learning_rate,

@@ -47,6 +47,14 @@ argmax in logit space after normalisation; seeds compare gain-free
 blended margins (annonet_infer.cpp:170-212, PARITY.md's documented
 deviation and its compat mode).
 
+``plan_autotune`` is the JAX inferer's measured plan selection: the first
+image of each canvas bucket times the default plan and the denser grids
+(``plan_for_counts`` at one and two more tiles per axis) on the device,
+and every later image of the bucket runs the fastest. ``compiled_programs``
+counts the plans whose constants the inferer holds, the counterpart of the
+JAX inferer's compiled XLA programs (``len(inferer._compiled)``) that
+``annonet_serve`` reports.
+
 Not ported yet: ``mesh`` tile-parallel inference (ROADMAP.md queue 1
 item 4, "Inference CLIs and serving") raises NotImplementedError.
 """
@@ -54,7 +62,9 @@ item 4, "Inference CLIs and serving") raises NotImplementedError.
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,8 +73,10 @@ import torch
 from annonet_tpu_torch.infer.tiling import (
     TilePlan,
     TilingParameters,
+    bucket_dim,
     default_tile_max,
     inverse_weight_sum,
+    plan_for_counts,
     plan_tiles,
     ramp_weights,
     weight_sum_factors,
@@ -101,17 +113,22 @@ def default_tiling(config: SegNetConfig) -> TilingParameters:
     return TilingParameters(tile_max, tile_max, overlap, overlap)
 
 
+def _lane_align(config: SegNetConfig) -> bool:
+    """JAX's default (folded) inferer rounds tiles up to a multiple of 128
+    only when the config does not fold (``annonet_tpu/infer/core.py:771-780``)."""
+    return not folding_supported(config, 8 * 128)
+
+
 def plan_image(image_height: int, image_width: int, config: SegNetConfig,
                tiling: TilingParameters) -> TilePlan:
-    """The inferer's plan, as JAX's default (folded) inferer makes it
-    (``annonet_tpu/infer/core.py:771-780``): tiles round up to a multiple
-    of 128 only when the config does not fold; a config that folds needs
-    them to divide the fold, so a 4096x4096 image plans to 25 tiles of
-    872x872 with the flagship. JAX's count-cliff bump (``:816-833``) is not
+    """The inferer's plan, as JAX's default (folded) inferer makes it: a
+    config that folds needs tiles that divide the fold, so a 4096x4096
+    image plans to 25 tiles of 872x872 with the flagship. JAX's
+    count-cliff bump (``annonet_tpu/infer/core.py:816-833``) is not
     ported: the two plans differ where an axis has exactly 3 tiles."""
     return plan_tiles(
         image_height, image_width, config, tiling, canvas_bucket=_CANVAS_BUCKET,
-        lane_align_tiles=not folding_supported(config, 8 * 128),
+        lane_align_tiles=_lane_align(config),
     )
 
 
@@ -143,6 +160,7 @@ class TiledInferer:
         reference_blend_semantics: bool = False,
         mesh=None,
         use_pallas_conv: Optional[bool] = None,  # None = False: the folded net (G1)
+        plan_autotune: bool = False,
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
@@ -177,6 +195,13 @@ class TiledInferer:
         self.tiling = tiling
         self.reference_blend_semantics = bool(reference_blend_semantics)
         self._plan_constants: Dict[TilePlan, Tuple] = {}
+        self.plan_autotune = bool(plan_autotune)
+        # canvas bucket (h, w) -> the chosen plan, and the measurements
+        # behind each choice: [(plan, Mpx/s), ...] fastest first
+        self._autotune_cache: Dict[Tuple[int, int], TilePlan] = {}
+        self.autotune_reports: Dict[Tuple[int, int], list] = {}
+        self._plan_override: Optional[TilePlan] = None
+        self._autotuning = False
         # int8 state per fold key, as in the JAX package: calibration
         # maxima accumulate per key and freeze into an int8 net
         self._preloaded_calib = (
@@ -207,8 +232,100 @@ class TiledInferer:
         self._calib_frozen.clear()
         self._preloaded_calib = None
 
+    @property
+    def compiled_programs(self) -> int:
+        """The plans whose constants this inferer holds: what the JAX
+        inferer's compiled programs count (one per plan it has run)."""
+        return len(self._plan_constants)
+
     def plan(self, image_height: int, image_width: int) -> TilePlan:
+        if self._plan_override is not None:
+            return self._plan_override
+        if self.plan_autotune:
+            chosen = self._autotune_cache.get((
+                bucket_dim(image_height, _CANVAS_BUCKET),
+                bucket_dim(image_width, _CANVAS_BUCKET),
+            ))
+            if chosen is not None:
+                return chosen
         return plan_image(image_height, image_width, self.config, self.tiling)
+
+    def autotune_candidates(self, image_height: int, image_width: int) -> List[TilePlan]:
+        """The plans the autotune times for this canvas: the default plan,
+        then the grids with one and with two more tiles per axis that
+        exist under the max-tile cap (JAX ``core.py:861-876``)."""
+        default = self.plan(image_height, image_width)
+        ny = len({y for y, _ in default.tile_yx})
+        nx = len({x for _, x in default.tile_yx})
+        candidates = [default]
+        for dy, dx in ((1, 1), (2, 2)):
+            p = plan_for_counts(
+                image_height, image_width, self.config, self.tiling, ny + dy, nx + dx,
+                canvas_bucket=_CANVAS_BUCKET, lane_align_tiles=_lane_align(self.config),
+            )
+            if p is not None and p not in candidates:
+                candidates.append(p)
+        return candidates
+
+    def _autotune_for(self, image: np.ndarray) -> None:
+        """Time each candidate plan on this image's canvas and cache the
+        fastest for every later image of its bucket (JAX ``core.py:836-925``)."""
+        h, w = image.shape[:2]
+        key = (bucket_dim(h, _CANVAS_BUCKET), bucket_dim(w, _CANVAS_BUCKET))
+        if key in self._autotune_cache:
+            return
+        candidates = self.autotune_candidates(h, w)
+        if len(candidates) == 1:
+            self._autotune_cache[key] = candidates[0]
+            self.autotune_reports[key] = [(candidates[0], 0.0)]
+            return
+        results = self._time_plans(image, candidates)
+        results.sort(key=lambda t: -t[0])
+        self._autotune_cache[key] = results[0][1]
+        self.autotune_reports[key] = [(p, r) for r, p in results]
+
+    def _time_plans(self, image: np.ndarray, plans,
+                    iters: Optional[int] = None) -> List[Tuple[float, TilePlan]]:
+        """[(Mpx/s, plan)] of each plan on this image's canvas, in order.
+
+        The image is edge-padded to its bucket and uploaded once; each
+        plan runs once to warm up (its plan constants, and on the int8
+        path the calibration, on the first plan), then ``iters`` calls
+        (default ANNONET_TPU_AUTOTUNE_ITERS, else 3) are timed: by CUDA
+        events on the card, by the host clock on the CPU."""
+        h, w = image.shape[:2]
+        key = (bucket_dim(h, _CANVAS_BUCKET), bucket_dim(w, _CANVAS_BUCKET))
+        padded = np.pad(image, ((0, key[0] - h), (0, key[1] - w), (0, 0)), mode="edge")
+        on_device = self._upload(padded)
+        if iters is None:
+            iters = int(os.environ.get("ANNONET_TPU_AUTOTUNE_ITERS", "3"))
+        iters = max(1, iters)
+        cuda = self.device.type == "cuda"
+        results = []
+        self._autotuning = True
+        try:
+            for p in plans:
+                self._plan_override = p
+                try:
+                    self._infer(padded, False, None, None, True)
+                    if cuda:
+                        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                        events[0].record(torch.cuda.current_stream(self.device))
+                    t0 = time.perf_counter()
+                    for _ in range(iters):
+                        self._infer(on_device, False, None, None, True)
+                    if cuda:
+                        events[1].record(torch.cuda.current_stream(self.device))
+                        events[1].synchronize()
+                        elapsed = events[0].elapsed_time(events[1]) / 1e3
+                    else:
+                        elapsed = time.perf_counter() - t0
+                finally:
+                    self._plan_override = None
+                results.append((h * w * iters / 1e6 / max(elapsed, 1e-9), p))
+        finally:
+            self._autotuning = False
+        return results
 
     def _constants(self, plan: TilePlan):
         """(ramp, inv_wsum, tile_yx, wsum factors or None) of a plan, on the
@@ -510,6 +627,12 @@ class TiledInferer:
             raise ValueError(f"gains/detection levels must have length {k}")
         with_detection = bool((det_arr > 0.0).any())
 
+        if self.plan_autotune and not self._autotuning and self._plan_override is None:
+            # the first image of a canvas bucket: time the candidate plans now
+            first = image[0] if batched else image
+            if isinstance(first, torch.Tensor):
+                first = first.cpu().numpy()
+            self._autotune_for(np.asarray(first))
         plan = self.plan(h, w)
         images = image if batched else image[None]
         with torch.inference_mode():

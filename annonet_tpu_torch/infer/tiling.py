@@ -24,7 +24,7 @@ the plans, and so the results, equal to the JAX package's.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -180,6 +180,69 @@ def plan_tiles(
         overlap_x=params.overlap_x,
         overlap_y=params.overlap_y,
         tile_yx=tile_yx,
+    )
+
+
+def plan_for_counts(
+    image_height: int,
+    image_width: int,
+    config: SegNetConfig,
+    params: TilingParameters,
+    count_y: int,
+    count_x: int,
+    canvas_bucket: int = 128,
+    lane_align_tiles: bool = True,
+) -> Optional[TilePlan]:
+    """The minimum-area plan with an explicit tile-grid count per axis:
+    the candidates of the measured plan autotune (infer/core.py), which
+    times the default plan against its denser neighbours on the device.
+    None when the count cannot give a distinct covering (a count too large
+    for the overlap, or one that collapses to another count), or when a
+    tile would exceed the caller's max (the max-tile flags stay a hard
+    cap, as in the reference)."""
+
+    def dim_for(canvas: int, count: int, overlap: int, max_tile: int):
+        if count < 1:
+            return None
+        if count == 1:
+            tile = recommended_input_dimension(config, canvas)
+        else:
+            even = -(-(canvas - overlap) // count) + overlap
+            tile = recommended_input_dimension(config, even)
+            if lane_align_tiles and tile > 128:
+                tile = _round_up(tile, 128)
+            else:
+                tile = _round_up(tile, 8)
+            if tile >= canvas:
+                return None  # this count degenerates to one tile
+            if (count - 1) * (tile - overlap) + tile < canvas:
+                return None  # cannot cover: the overlap is too deep
+        if tile > max_tile:
+            return None
+        return tile
+
+    bucketed_w = bucket_dim(image_width, canvas_bucket)
+    bucketed_h = bucket_dim(image_height, canvas_bucket)
+    tile_w = dim_for(bucketed_w, count_x, params.overlap_x, params.max_tile_width)
+    tile_h = dim_for(bucketed_h, count_y, params.overlap_y, params.max_tile_height)
+    if tile_w is None or tile_h is None:
+        return None
+    padded_w = max(tile_w, bucketed_w)
+    padded_h = max(tile_h, bucketed_h)
+    xs = _positions(padded_w, tile_w, params.overlap_x)
+    ys = _positions(padded_h, tile_h, params.overlap_y)
+    if len(xs) != count_x or len(ys) != count_y:
+        return None  # the even grid for this count collapsed to another
+    return TilePlan(
+        image_height=image_height,
+        image_width=image_width,
+        padded_height=padded_h,
+        padded_width=padded_w,
+        tile_height=tile_h,
+        tile_width=tile_w,
+        overlap_x=params.overlap_x,
+        overlap_y=params.overlap_y,
+        tile_yx=tuple((y, x) for y in ys for x in xs),
     )
 
 

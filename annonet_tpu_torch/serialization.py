@@ -443,7 +443,7 @@ def load_calibration(path, config: SegNetConfig, runtime_params: Any = None):
         if meta["weights_sha256"] != weights_fingerprint(runtime_params):
             raise RuntimeError(
                 f"{_describe(path)} was calibrated for different trained "
-                "weights (same architecture, different model; recalibrate "
+                "weights (same architecture, different model — recalibrate "
                 "with --save-calibration)"
             )
     with np.load(_rewound(path), allow_pickle=False) as z:

@@ -61,6 +61,27 @@ Phases (any failure raises, and the exit code is then nonzero):
               Q1, Q2, K3's requant mode and K4 launched in that run, no
               plan fell back to the float net, the label maps agree with
               the float run's
+  6s. serve   annonet_serve in-process (cli/serve.py behind an HTTP server
+              on a thread), driven through the port's client: the float
+              server (--warmup 4096x4096 -d 1:0.5 --max-batch 4) on phase
+              5's artifact: the 4096x4096 image over the raw path (request
+              latency p50/p99) and as a PNG, labels equal to phase 5's; the
+              stages of a raw and of a PNG request as the server timed them
+              (read, decode, batch wait, device section, veto, resize,
+              encode and send); 32 512x512 crops from 8 client threads
+              (fewer device batches than requests, each response equal to
+              its own infer_arrays), images/s against a server without
+              batching; /stats and /metrics; /reload to a seed-1 artifact
+              (the fast swap, labels equal to a fresh inferer's); K1-K4
+              launched by the HTTP requests after the warm-up. The int8
+              server on phase 6's calibration file: labels equal to phase
+              6's, Q1, Q2, K3-requant and K4 launched by its request,
+              /calibration equal to the file. --plan-autotune on the
+              2300x1500 image: the candidates' Mpx/s (CUDA events), labels
+              equal to a twin pinned to the chosen plan, and the default
+              plan timed in turns against JAX's count-cliff bump (3 tiles
+              on an axis made 4). The kernel line's serve_launches are the
+              counts of the requests
   6b. pipeline annonet_infer -d 1:0.5 on four images (phase 5's two and
               two more of the same sizes from seed 1), pipelined (the
               defaults: 2 groups in flight, os.cpu_count() reader and
@@ -1028,7 +1049,7 @@ def run_int8_path(work: str, sizes, float_results):
     """annonet_infer --quantize int8 -d 1:0.5 --save-calibration, then with
     --calibration so that both images run int8. Returns (launch counts of
     the calibrated run, its per-image report, the calibration path)."""
-    from annonet_tpu_torch.ops import blend, conv, qconv
+    from annonet_tpu_torch.ops import qconv
 
     data, model = os.path.join(work, "data"), os.path.join(work, "annonet.dnn")
     calib = os.path.join(work, "calibration.npz")
@@ -1054,13 +1075,7 @@ def run_int8_path(work: str, sizes, float_results):
     if "Saved int8 calibration" not in run(common + ["--calibration-images", "2",
                                                     "--save-calibration", calib]):
         raise AssertionError("the calibrating run saved no calibration")
-    wrappers = {
-        "qconv3x3_requant": qconv.qconv3x3_requant,
-        "qconv3x3_s2_requant": qconv.qconv3x3_s2_requant,
-        "up2x2_requant": conv.up2x2_requant,
-        "blend_argmax": blend.blend_argmax,
-        "qup2x2_requant": qconv.qup2x2_requant,
-    }
+    wrappers = {**int8_wrappers(), "qup2x2_requant": qconv.qup2x2_requant}
     print("  calibrated run (--calibration): both images int8", flush=True)
     for fn in wrappers.values():
         fn.launches = 0
@@ -1095,6 +1110,18 @@ def float_wrappers():
         "conv3x3_bias_relu": conv.conv3x3_bias_relu,
         "conv3x3_s2_bias_relu": conv.conv3x3_s2_bias_relu,
         "up2x2_bias_relu": conv.up2x2_bias_relu,
+        "blend_argmax": blend.blend_argmax,
+    }
+
+
+def int8_wrappers():
+    """{name: wrapper} of the int8 path's kernels: Q1, Q2, K3-requant, K4."""
+    from annonet_tpu_torch.ops import blend, conv, qconv
+
+    return {
+        "qconv3x3_requant": qconv.qconv3x3_requant,
+        "qconv3x3_s2_requant": qconv.qconv3x3_s2_requant,
+        "up2x2_requant": conv.up2x2_requant,
         "blend_argmax": blend.blend_argmax,
     }
 
@@ -1522,6 +1549,311 @@ def breakdown(params_np, config, device, data: str, name: str, reps: int = 5):
 
 
 # --------------------------------------------------------------------------
+# Serving: annonet_serve in-process, driven through the port's client
+# --------------------------------------------------------------------------
+
+# 512x512 crops of the 4096x4096 image, sent by SERVE_CLIENTS threads that
+# each send SERVE_ROUNDS requests, to a server with --max-batch SERVE_BATCH
+# and to one without batching
+SERVE_CROP = 512
+SERVE_BATCH = 4
+SERVE_CLIENTS = 8
+SERVE_ROUNDS = 4
+# 4096x4096 requests timed one at a time (after the warm-up)
+SERVE_LARGE_REQUESTS = 6
+# calls timed per turn when the default plan is held against JAX's
+# count-cliff bump (the autotune's own 3 calls take ~8 ms on the card)
+BUMP_ITERS = 20
+
+
+def start_server(argv):
+    """(service, server, client): annonet_serve's service, warmed at its
+    --warmup sizes, behind an HTTP server on an ephemeral port on a thread
+    of this process, and the port's client of it."""
+    import threading
+
+    from annonet_tpu_torch.cli import serve
+    from annonet_tpu_torch.client import ServeClient
+
+    args = serve.build_parser().parse_args(["--port", "0", *argv])
+    service = serve._ModelService(args)
+    serve._warmup(service, args.warmup)
+    server, _ = serve.make_server(args, service)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    host, port = server.server_address[:2]
+    return service, server, ServeClient(host, port, timeout=600)
+
+
+def stop_server(server) -> None:
+    server.shutdown()
+    server.server_close()
+
+
+def percentile(values, p: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(p * len(ordered)))]
+
+
+def serve_load(client, crops):
+    """SERVE_CLIENTS threads, each sending SERVE_ROUNDS crops in turn:
+    ({(thread, round): (crop index, labels)}, wall seconds)."""
+    import threading
+
+    results, errors = {}, []
+
+    def worker(k):
+        try:
+            for r in range(SERVE_ROUNDS):
+                i = (k + r) % len(crops)
+                results[(k, r)] = (i, client.infer(crops[i]))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(SERVE_CLIENTS)]
+    t = time.monotonic()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.monotonic() - t
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a serving client thread did not finish in 600 s")
+    return results, wall
+
+
+def serve_phase(work: str, sizes, float_labels, int8_labels, calib: str, smi: str):
+    """annonet_serve on the card, in this process, through the port's
+    client (cli/serve.py, client.py): the float server (--warmup 4096x4096
+    -d 1:0.5 --max-batch 4) on phase 5's artifact, the 4096x4096 image over
+    the raw path and as a PNG (labels equal to phase 5's annonet_infer; the
+    stages of each kind of request, as the server timed them), concurrent
+    512x512 crops (fewer device batches than requests, each response equal
+    to its own unbatched infer_arrays, images/s against a server without
+    batching), /stats
+    and /metrics, and /reload to a seed-1 artifact (the fast swap; labels
+    equal to a fresh inferer's); K1-K4 launched by the HTTP requests after
+    the warm-up. Then the int8 server on phase 6's calibration file
+    (labels equal to phase 6's, Q1, Q2, K3-requant and K4 launched by its
+    request, /calibration's bytes equal to the file), and --plan-autotune
+    on the 2300x1500 image (the candidates' Mpx/s, labels equal to a twin
+    pinned to the chosen plan, the default plan timed against JAX's
+    count-cliff bump). Returns the launch counts of the float and the int8
+    server's requests."""
+    from PIL import Image
+
+    from annonet_tpu_torch import serialization
+    from annonet_tpu_torch.data import default_anno_classes
+    from annonet_tpu_torch.infer.core import (
+        _CANVAS_BUCKET, TiledInferer, _lane_align, annonet_infer, detection_veto,
+    )
+    from annonet_tpu_torch.infer.tiling import plan_for_counts
+    from annonet_tpu_torch.models.segnet import init_runtime_params
+
+    data = os.path.join(work, "data")
+    root = os.path.join(work, "serve")
+    os.makedirs(root)
+    model = os.path.join(root, "annonet.dnn")
+    shutil.copy(os.path.join(work, "annonet.dnn"), model)
+    palette = np.array([c.rgba_label for c in default_anno_classes()], np.uint8)
+    (big, big_h, big_w), (small_name, small_h, small_w) = sizes[-1], sizes[0]
+    with open(os.path.join(data, big + ".png"), "rb") as f:
+        big_png = f.read()
+    with Image.open(io.BytesIO(big_png)) as im:
+        image = np.asarray(im.convert("RGB"))
+    spots = [((SERVE_CROP * i) % (big_h - SERVE_CROP + 1),
+              (SERVE_CROP * 3 * i) % (big_w - SERVE_CROP + 1)) for i in range(8)]
+    crops = [np.ascontiguousarray(image[y : y + SERVE_CROP, x : x + SERVE_CROP])
+             for y, x in spots]
+    levels = [0.0, 0.5, 0.0]
+
+    def held(labels, expected, what):
+        same = float((palette[labels] == expected).all(-1).mean())
+        if same != 1.0:
+            raise AssertionError(f"{what}: equal to the reference on {same:.6f} of pixels")
+
+    def stage_line(stages):
+        return ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+
+    # ---- the float server. The launch counts start once it is warm and
+    # the references are made, and are read right after its last request:
+    # they are the HTTP requests' own (and /reload's)
+    wrappers = float_wrappers()
+    t = time.monotonic()
+    service, server, client = start_server(
+        ["--model", model, "--warmup", f"{big_h}x{big_w}", "-d", "1:0.5", "--max-batch",
+         str(SERVE_BATCH)])
+    try:
+        print(f"  float server up, warmed at {big_h}x{big_w}, in {time.monotonic() - t:.1f} s",
+              flush=True)
+        state = service.state
+        expected = [detection_veto(*state.inferer.infer_arrays(c, None, levels)) for c in crops]
+        for fn in wrappers.values():
+            fn.launches = 0
+        calls = service.batches_dispatched
+        walls = []
+        for _ in range(SERVE_LARGE_REQUESTS):
+            t = time.monotonic()
+            labels = client.infer(image)
+            walls.append(time.monotonic() - t)
+        raw_stages = service.last_request_stages
+        held(labels, float_labels[big], f"{big} over the raw path")
+        with Image.open(io.BytesIO(client.infer_png(big_png))) as im:
+            if not np.array_equal(np.asarray(im.convert("RGBA")), float_labels[big]):
+                raise AssertionError(f"{big} as a PNG: the result PNG differs from phase 5's")
+        png_stages = service.last_request_stages
+        stats = client.stats()
+        print(f"  {big}, {SERVE_LARGE_REQUESTS} requests over the raw path (format=labels): "
+              f"client wall p50 {percentile(walls, 0.5) * 1e3:.3f} ms, p99 "
+              f"{percentile(walls, 0.99) * 1e3:.3f} ms; the server's own latency (downscale, "
+              f"device, veto, resize) p50 {stats['latency_ms']['p50']} ms, p99 "
+              f"{stats['latency_ms']['p99']} ms; labels and the PNG equal to phase 5's ({smi})",
+              flush=True)
+        print(f"  the last raw {big} request's stages, timed by the server ({smi}): "
+              + stage_line(raw_stages), flush=True)
+        print(f"  the PNG {big} request's stages, timed by the server ({smi}): "
+              + stage_line(png_stages), flush=True)
+
+        batches = service.batches_dispatched
+        results, wall = serve_load(client, crops)
+        dispatched = service.batches_dispatched - batches
+        for i, labels in results.values():
+            if not np.array_equal(labels, expected[i]):
+                raise AssertionError(f"crop {i}: a batched response differs from infer_arrays")
+        requests = len(results)
+        if not dispatched < requests:
+            raise AssertionError(f"{requests} concurrent requests took {dispatched} device "
+                                 "batches: none was grouped")
+        batched_rate = requests / wall
+
+        metrics = client._request("GET", "/metrics")[0].decode()
+        values = {line.split()[0]: float(line.split()[1])
+                  for line in metrics.splitlines() if line and not line.startswith("#")}
+        if values["annonet_requests_served_total"] != client.stats()["requests_served"]:
+            raise AssertionError("/metrics and /stats disagree on the requests served")
+        print(f"  /stats: {json.dumps(client.stats())}", flush=True)
+        print(f"  /metrics: {len(values)} samples, compiled_programs "
+              f"{values['annonet_compiled_programs']:.0f}", flush=True)
+
+        params = init_runtime_params(service.config, SEED + 1)
+        serialization.save_model(model, params, service.config, state.anno_classes_json, 1.0)
+        t = time.monotonic()
+        info = client.reload()
+        print(f"  /reload to a seed-{SEED + 1} artifact in {time.monotonic() - t:.3f} s: "
+              f"{json.dumps(info)}", flush=True)
+        if not info["fast_swap"] or service.inferer is not state.inferer:
+            raise AssertionError("the same-config reload did not take the fast swap")
+        reloaded = client.infer(image)
+        float_launches = {name: fn.launches for name, fn in wrappers.items()}
+        device_calls = service.batches_dispatched - calls
+    finally:
+        stop_server(server)
+    print(f"  float server launches over its {device_calls} device calls (the HTTP requests "
+          f"after the warm-up): {float_launches}", flush=True)
+    missing = [name for name, count in float_launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f"the float server's requests launched no {missing}")
+    fresh = TiledInferer(params, service.config, device=service.device)
+    if not np.array_equal(reloaded, annonet_infer(fresh, image, None, levels)):
+        raise AssertionError("after /reload the server's labels differ from a fresh "
+                             "inferer's on the new weights")
+    del fresh, service, state
+    torch.cuda.empty_cache()
+
+    # the same crops on phase 5's artifact without batching
+    unbatched = start_server(["--model", os.path.join(work, "annonet.dnn"), "-d", "1:0.5",
+                              "--warmup", f"{SERVE_CROP}x{SERVE_CROP}"])
+    try:
+        unbatched_results, unbatched_wall = serve_load(unbatched[2], crops)
+    finally:
+        stop_server(unbatched[1])
+    for i, labels in unbatched_results.values():
+        if not np.array_equal(labels, expected[i]):
+            raise AssertionError(f"crop {i}: an unbatched response differs from infer_arrays")
+    print(f"  {requests} {SERVE_CROP}x{SERVE_CROP} requests from {SERVE_CLIENTS} client "
+          f"threads: --max-batch {SERVE_BATCH} {batched_rate:.2f} images/s in {dispatched} "
+          f"device batches; --max-batch 1 {requests / unbatched_wall:.2f} images/s; every "
+          f"response equal to its own infer_arrays ({smi})", flush=True)
+    del unbatched
+    torch.cuda.empty_cache()
+
+    # ---- the int8 server on phase 6's calibration file, counted as above
+    wrappers = int8_wrappers()
+    service, server, client = start_server(
+        ["--model", os.path.join(work, "annonet.dnn"), "--quantize", "int8", "--calibration",
+         calib, "-d", "1:0.5", "--warmup", f"{big_h}x{big_w}"])
+    try:
+        for fn in wrappers.values():
+            fn.launches = 0
+        held(client.infer(image), int8_labels[big], f"int8 {big}")
+        int8_launches = {name: fn.launches for name, fn in wrappers.items()}
+        with open(calib, "rb") as f:
+            if client.calibration() != f.read():
+                raise AssertionError("/calibration's bytes differ from the --calibration file")
+        if service.inferer.float_fallbacks:
+            raise AssertionError("an int8 plan fell back to the float net")
+    finally:
+        stop_server(server)
+    print(f"  int8 server: labels equal to phase 6's, /calibration equal to the file; "
+          f"launches of its one request {int8_launches}", flush=True)
+    missing = [name for name, count in int8_launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f"the int8 server's request launched no {missing}")
+    del service
+    torch.cuda.empty_cache()
+
+    # ---- --plan-autotune on the 2300x1500 image
+    with Image.open(os.path.join(data, small_name + ".png")) as im:
+        small = np.asarray(im.convert("RGB"))
+    service, server, client = start_server(
+        ["--model", os.path.join(work, "annonet.dnn"), "--plan-autotune", "-d", "1:0.5",
+         "--warmup", f"{small_h}x{small_w}"])
+    try:
+        labels = client.infer(small)
+        (key, report), = service.inferer.autotune_reports.items()
+        chosen = report[0][0]
+        default = TiledInferer(service.params, service.config, device=service.device)
+        twin = TiledInferer(service.params, service.config, device=service.device)
+        twin._plan_override = chosen
+        if not np.array_equal(labels, annonet_infer(twin, small, None, levels)):
+            raise AssertionError("--plan-autotune's labels differ from a twin pinned to the "
+                                 "chosen plan")
+        plan0 = default.plan(small_h, small_w)
+        print(f"  --plan-autotune on {small_name} (canvas {key[0]}x{key[1]}; the default plan "
+              f"{plan0.tile_height}x{plan0.tile_width}x{plan0.tile_count}): chose "
+              f"{chosen.tile_height}x{chosen.tile_width}x{chosen.tile_count}; candidates "
+              + ", ".join(f"{p.tile_height}x{p.tile_width}x{p.tile_count} "
+                          f"({len({y for y, _ in p.tile_yx})}x{len({x for _, x in p.tile_yx})}"
+                          f" tiles) {r:.1f} Mpx/s" for p, r in report)
+              + f" (CUDA events, {os.environ.get('ANNONET_TPU_AUTOTUNE_ITERS', '3')} calls "
+              f"each); labels equal to the pinned twin's ({smi})", flush=True)
+        # JAX's folded inferer bumps an axis of 3 tiles to 4 (its count-cliff
+        # bump); the port keeps 3 and the autotune does not time the bumped
+        # plan. Time it beside the default, in turns, by the same loop
+        ny, nx = (len({y for y, _ in plan0.tile_yx}), len({x for _, x in plan0.tile_yx}))
+        bumped = plan_for_counts(
+            small_h, small_w, service.config, default.tiling, 4 if ny == 3 else ny,
+            4 if nx == 3 else nx, canvas_bucket=_CANVAS_BUCKET,
+            lane_align_tiles=_lane_align(service.config))
+        if bumped is None or bumped == plan0:
+            raise AssertionError(f"{small_name}: the default plan has no axis of 3 tiles")
+        timed = default._time_plans(small, [plan0, bumped] * 3, iters=BUMP_ITERS)
+        print(f"  the default {ny}x{nx} plan against JAX's bumped "
+              f"{len({y for y, _ in bumped.tile_yx})}x{len({x for _, x in bumped.tile_yx})} "
+              f"({bumped.tile_height}x{bumped.tile_width}x{bumped.tile_count}) on {small_name}, "
+              f"in turns: " + ", ".join(
+                  f"{'default' if p == plan0 else 'bumped'} {r:.1f} Mpx/s" for r, p in timed)
+              + f" (CUDA events, {BUMP_ITERS} calls each; {smi})", flush=True)
+        del default, twin
+    finally:
+        stop_server(server)
+    del service
+    torch.cuda.empty_cache()
+    return float_launches, int8_launches
+
+
+# --------------------------------------------------------------------------
 # Training: the card against the CPU, annonet_train, the detection floors
 # --------------------------------------------------------------------------
 
@@ -1683,19 +2015,6 @@ def check_train_step(device, data: str) -> None:
         raise AssertionError(f"the card's train step disagrees with the CPU's at {failed}")
 
 
-def int8_validation_wrappers():
-    """{name: wrapper} of the kernels of the int8 validation: Q1, Q2,
-    K3-requant and K4."""
-    from annonet_tpu_torch.ops import blend, conv, qconv
-
-    return {
-        "qconv3x3_requant": qconv.qconv3x3_requant,
-        "qconv3x3_s2_requant": qconv.qconv3x3_s2_requant,
-        "up2x2_requant": conv.up2x2_requant,
-        "blend_argmax": blend.blend_argmax,
-    }
-
-
 class StepStamps(io.StringIO):
     """A stdout capture that stamps each step-timing line of annonet_train
     (ANNONET_TPU_STEP_TIMING=1: "[step i] ...", printed by the thread that
@@ -1778,7 +2097,7 @@ def train_cli_phase(work: str, data: str, validation: str, device) -> dict:
         read_samples(validation, VALIDATION_SIZES[:1])[0].input_image)[0]
     print(f"  the artifact loads into TiledInferer: {config}, label map "
           f"{labels.shape}, classes {np.unique(labels).tolist()}", flush=True)
-    wrappers = int8_validation_wrappers()
+    wrappers = int8_wrappers()
     out = run_train_cli(common + ["--max-total-steps", "10", "--validation-quantize", "int8"],
                         wrappers)
     if f"resumed from {sync} at step {TRAIN_STEPS}" not in out.getvalue():
@@ -2013,7 +2332,14 @@ def main() -> int:
         print("[int8] annonet_infer --quantize int8 on the same images", flush=True)
         int8_launches, int8_per_image, calib = run_int8_path(
             work, IMAGE_SIZES, float_results)
-        del float_results
+        int8_labels = read_results(os.path.join(work, "data"), IMAGE_SIZES)
+        print("[serve] annonet_serve in-process: the float server, the int8 server, "
+              "--plan-autotune", flush=True)
+        t = time.monotonic()
+        serve_float, serve_int8 = serve_phase(work, IMAGE_SIZES, float_results, int8_labels,
+                                              calib, smi)
+        print(f"  serve phase: {time.monotonic() - t:.1f} s", flush=True)
+        del float_results, int8_labels
         print("[pipeline] annonet_infer pipelined and sequential on four images, then "
               "--profile", flush=True)
         pipeline_phase(work, IMAGE_SIZES, SEED)
@@ -2078,6 +2404,12 @@ def main() -> int:
         }},
     }
     modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
+    # the serve phase's own counts: the float server's K1-K4, the int8
+    # server's Q1, Q2, K3-requant and K4
+    modes["up2x2_bias_relu"]["requant"]["serve_launches"] = serve_int8["up2x2_requant"]
+    modes["blend_argmax"]["bfloat16_detection"]["serve_launches"] = serve_int8["blend_argmax"]
+    serve_launches = {**{k: serve_int8[k] for k in ("qconv3x3_requant", "qconv3x3_s2_requant")},
+                      **serve_float}
     kernels = []
     for name in _TPU_KERNELS:
         entry = {
@@ -2086,6 +2418,7 @@ def main() -> int:
             "source": _SOURCES[name],
             "replaces": _TPU_KERNELS[name],
             "launches": launches[name],
+            "serve_launches": serve_launches.get(name, 0),
             **numbers(results[name]),
         }
         if name in modes:

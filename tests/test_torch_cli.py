@@ -234,11 +234,11 @@ def test_parser_has_the_jax_flags():
     assert table(cli.build_parser()) == table(jax_cli.build_parser())
 
 
-# the int8 flags and --profile are ported; they stay in the list to show
-# they are no longer refused (no model in the directory: the run fails with
-# 1, not 2)
+# the int8 flags, --profile and --plan-autotune are ported; they stay in the
+# list to show they are no longer refused (no model in the directory: the run
+# fails with 1, not 2)
 _PORTED = ("--quantize", "--blend-dtype", "--calibration", "--save-calibration",
-           "--calibration-images", "--profile")
+           "--calibration-images", "--profile", "--plan-autotune")
 
 
 @pytest.mark.parametrize(
