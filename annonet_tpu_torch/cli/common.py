@@ -1,7 +1,8 @@
 """Shared CLI helpers: the reference-parity parser, class-specific value
 parsing, the in-order buffer of the reader threads (copies of
 annonet_tpu/cli/_parser.py and cli/common.py, whose package imports pull
-in JAX), device selection and the bounded device probe."""
+in JAX), device selection, the bounded device probe, ``--mesh`` and the
+multi-process peer-failure exit."""
 
 from __future__ import annotations
 
@@ -173,3 +174,87 @@ def device_probe(device, timeout_s=None, on_timeout=None, _op=None) -> None:
         os._exit(1)
     if "error" in result:
         raise RuntimeError(f"device probe failed: {result['error']}") from result["error"]
+
+
+def make_cli_mesh(n_devices: int, device=None):
+    """--mesh N -> the mesh ``TiledInferer(mesh=...)`` splits its tiles
+    over: the first N CUDA devices (parallel/mesh.py's ``make_mesh``).
+    Behind ANNONET_TPU_VIRTUAL_MESH=1, N virtual shards on ``device`` (the
+    one ``resolve_device`` picks), for testing the sharded path on one
+    device; an explicit opt-in, so a production --mesh run never lands on
+    fewer devices than it asked for. Runs after ``device_probe``, as in
+    the JAX CLIs; torch needs no flag set before its first device use, so
+    the JAX package's ``prepare_mesh_flags`` has no counterpart."""
+    from annonet_tpu_torch.parallel.mesh import (
+        VIRTUAL_MESH_ENV,
+        ensure_virtual_devices,
+        make_mesh,
+    )
+
+    if os.environ.get(VIRTUAL_MESH_ENV) == "1":
+        return ensure_virtual_devices(n_devices, device)
+    return make_mesh(n_devices)
+
+
+# Substrings that identify a failed PEER (a rank that died, stalled, or
+# became unreachable) in the errors torch's gloo process group raises into
+# this process. Measured with torch 2.13 on the CPU, two ranks over
+# tcp://127.0.0.1: killing a rank (SIGKILL), before or during the
+# survivor's all_gather or broadcast, raises "[.../gloo/transport/tcp/
+# pair.cc:553] Connection closed by peer [127.0.0.1]:<port>. This is
+# typically caused by a remote worker crashing." at once; stopping it
+# (SIGSTOP) raises "[.../unbound_buffer.cc:129] Timed out waiting 5000ms
+# for send operation to complete" (":78" ... "for recv operation to
+# complete") after the group's timeout (ANNONET_TPU_HEARTBEAT_TIMEOUT), and
+# the next collective "Application timeout caused pair closure".
+#
+# As in the JAX package, no generic transport string is a marker ("reset
+# by peer", "connection refused", a bare "timed out"): a rank-LOCAL error
+# that merely contains one (a network-filesystem read, a misconfigured
+# coordinator address timing out at the rendezvous: "The client socket has
+# timed out after 4000ms while trying to connect", measured) must take the
+# rank-local path, not be reported as a dead peer.
+_PEER_FAILURE_MARKERS = (
+    "connection closed by peer",            # pair.cc: the peer's process died
+    "for send operation to complete",       # unbound_buffer.cc: the peer is silent
+    "for recv operation to complete",
+    "application timeout caused pair closure",
+)
+
+
+def peer_failure_diagnosis(exc) -> "str | None":
+    """Classify an exception as a multi-process PEER failure; returns the
+    diagnosis line to act on, or None for unrelated errors."""
+    text = str(exc).lower()
+    if not any(marker in text for marker in _PEER_FAILURE_MARKERS):
+        return None
+    return (
+        "multi-host peer failure detected: a peer process died, was "
+        "preempted, or became unreachable (collective error above). This "
+        "rank is exiting now; restart the job on EVERY host (batch "
+        "inference simply reruns)."
+    )
+
+
+#: The ONE exit code for classified multi-process peer failures, in every
+#: CLI and handler, as in the JAX package (docs/RUNBOOK.md): distinct from
+#: the setup (1) and run-loop (2) codes, so an orchestrator keys "restart
+#: every process" off one value.
+PEER_FAILURE_EXIT_CODE = 3
+
+
+def exit_on_peer_failure(exc, multihost: bool) -> None:
+    """When a collective raised because a PEER failed: print the error and
+    the diagnosis (flushed) and leave at once with PEER_FAILURE_EXIT_CODE,
+    through ``os._exit``: interpreter exit could block on the process
+    group's threads, which wait on the dead peer. No-op when ``multihost``
+    is false or the error is not a peer failure."""
+    if not multihost:
+        return
+    diagnosis = peer_failure_diagnosis(exc)
+    if diagnosis is None:
+        return
+    print(exc, flush=True)
+    print(diagnosis, flush=True)
+    sys.stderr.flush()
+    os._exit(PEER_FAILURE_EXIT_CODE)

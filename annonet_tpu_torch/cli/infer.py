@@ -31,9 +31,21 @@ prints the calibration overshoot of the last image, as the JAX CLI does.
 ``--plan-autotune`` times the default tile plan and its denser
 neighbours on the first image of each canvas size and runs the fastest,
 and prints the JAX CLI's report line. The device is probed first
-(``cli/common.py::device_probe``). Flags whose feature is not ported yet
-exit with code 2 and name the roadmap item: ``--mesh``, ``--coordinator``,
-``--num-processes``, ``--process-id``.
+(``cli/common.py::device_probe``).
+
+``--mesh N`` is tile-parallel inference: each image's tile batch is split
+over the first N CUDA devices (``TiledInferer(mesh=...)``), or, under
+ANNONET_TPU_VIRTUAL_MESH=1, over N virtual shards of the one device.
+``--coordinator HOST:PORT --num-processes P --process-id I`` is
+multi-process batch inference, as in the JAX CLI: every process scans the
+same directory and infers the images ``I, I+P, ...``, on
+``cuda:(I mod device count)`` unless ``--device`` names one (so several
+processes may share a card); one all-gather at the end merges the
+confusion matrices and timings (it is also the exit barrier), and process
+0 alone prints the cluster totals and matrices and writes
+``--report-json`` and the max-merged ``--save-calibration``. The group is
+gloo's over TCP (parallel/mesh.py); a collective that fails because a
+peer died exits with code 3 (``cli/common.py::exit_on_peer_failure``).
 """
 
 from __future__ import annotations
@@ -95,10 +107,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "one tile batch; per-image timings become the "
                         "batch average")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="Tile-parallel inference over N devices (not "
-                        "ported yet)")
+                   help="Tile-parallel inference: split each image's tile "
+                        "batch over N CUDA devices")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="Multi-host batch inference (not ported yet)")
+                   help="Multi-host batch inference: process 0's address "
+                        "(or 'auto' under torchrun); each process infers "
+                        "every P-th image and process 0 reports the merge")
     p.add_argument("--num-processes", type=int, default=None, metavar="P",
                    help="Total process (host) count for --coordinator")
     p.add_argument("--process-id", type=int, default=None, metavar="I",
@@ -138,25 +152,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_CLI = 'ROADMAP.md queue 1 item 3, "Inference CLIs and serving"'
-_UNSET = object()
-# (flag, dest): refused whenever the flag appears on the command line
-_UNPORTED = (
-    ("--mesh", "mesh"),
-    ("--coordinator", "coordinator"),
-    ("--num-processes", "num_processes"),
-    ("--process-id", "process_id"),
-)
-
-
-def _unported(args):
-    """The message for the first unported flag the user passed, or None."""
-    for flag, dest in _UNPORTED:
-        if getattr(args, dest) is not _UNSET:
-            return f"annonet_infer: {flag} is not ported to annonet_tpu_torch yet ({_CLI})"
-    return None
-
-
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -170,11 +165,6 @@ def main(argv=None) -> int:
         return 1
 
     parser = build_parser()
-    # a sentinel default tells "flag given" from "default" for the
-    # unported flags; build_parser itself stays the reference's table
-    parser.set_defaults(**{
-        dest: _UNSET for _flag, dest in _UNPORTED
-    })
     try:
         args = parser.parse_args(argv)
         input_directory = (
@@ -184,17 +174,29 @@ def main(argv=None) -> int:
             parser.error("Option 'input-directory' is required but not present")
     except SystemExit as e:
         return int(e.code or 0)
-    message = _unported(args)
-    if message:
-        print(message, file=sys.stderr)
-        return 2
     # top-level catch: message and exit 1, like the reference's
     # catch(std::exception&) at the tail of annonet_infer_main.cpp
     try:
         return _run(args, input_directory)
     except Exception as e:  # noqa: BLE001
+        from annonet_tpu_torch.cli.common import exit_on_peer_failure
+
+        # a dead PEER surfaces here as a gloo error from the final merge:
+        # report it and leave with the peer-failure code
+        exit_on_peer_failure(e, bool(args.coordinator))
         print(e)
+        if args.coordinator:
+            # a rank-local failure leaves the peers blocked in the final
+            # merge until this process's exit severs their connections
+            print("multi-host: this rank is exiting; peer processes may "
+                  "block in the final merge. Restart the job on every host.")
         return 1
+    finally:
+        if args.coordinator:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 def _run(args, input_directory) -> int:
@@ -207,6 +209,7 @@ def _run(args, input_directory) -> int:
     from annonet_tpu_torch.cli.common import (
         IndexOrderedResults,
         device_probe,
+        make_cli_mesh,
         parse_class_specific_values,
         resolve_device,
     )
@@ -245,8 +248,37 @@ def _run(args, input_directory) -> int:
     print("Using detection levels:", " ".join(
         f"{i}:{d:g}" for i, d in enumerate(detection_levels)))
 
+    # Batch inference over a directory is embarrassingly parallel, so the
+    # multi-process axis is the image list (process i takes images i,
+    # i+P, ...); each process runs its own tiled inference, and only the
+    # final merge is a collective (it doubles as the exit barrier).
+    multihost = bool(args.coordinator)
+    rank, world = 0, 1
+    if multihost:
+        if args.mesh:
+            raise RuntimeError(
+                "--coordinator shards images across processes and does "
+                "not compose with --mesh (tile-parallel inference is the "
+                "in-process axis; for cross-host serving see "
+                "docs/SERVING.md)"
+            )
+        from annonet_tpu_torch.parallel.mesh import initialize_distributed
+
+        rank, world = initialize_distributed(
+            args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id,
+        )
+        print(f"Multi-host inference: process {rank} of {world}")
+    io_process = rank == 0
+
     device = resolve_device(args.device)
+    if multihost and args.device is None and device.type == "cuda":
+        import torch
+
+        # processes beyond the card count share cards
+        device = torch.device("cuda", rank % torch.cuda.device_count())
     device_probe(device)
+    mesh = make_cli_mesh(args.mesh, device) if args.mesh else None
 
     if args.tile_max_width is None:
         args.tile_max_width = default_tile_max()
@@ -274,7 +306,8 @@ def _run(args, input_directory) -> int:
         )
         print(f"Loaded int8 calibration from {args.calibration}")
     inferer = TiledInferer(
-        runtime_params, model_config, tiling, device=device,
+        runtime_params, model_config, tiling,
+        device=device if mesh is None else None, mesh=mesh,
         quantize=None if args.quantize == "none" else args.quantize,
         calibration_images=args.calibration_images,
         calibration=calibration,
@@ -284,6 +317,13 @@ def _run(args, input_directory) -> int:
     )
 
     files = find_image_files(input_directory, require_ground_truth=False)
+    total_image_count = len(files)
+    if multihost:
+        # every process runs the identical scan (a shared filesystem, the
+        # same order) and keeps its stride-P shard
+        files = files[rank::world]
+        print(f"images in dataset: {total_image_count}; this process infers "
+              f"{len(files)} (stride {world} from {rank})")
     pipeline_depth = max(1, args.pipeline_depth)
     image_batch = max(1, args.image_batch)
 
@@ -543,7 +583,28 @@ def _run(args, input_directory) -> int:
                 + (" (consider raising --calibration-images)"
                    if overshoot > 1.2 else "")
             )
-    if args.save_calibration:
+    wall_seconds = t1 - t0
+    if multihost:
+        (ground_truth_count, total_inference, total_inference_excl_first,
+         excl_first_count, max_inference_excl_first, wall_seconds) = _merge_run(
+            world, confusion_matrix_per_pixel, confusion_matrix_per_region,
+            ground_truth_count, total_inference, total_inference_excl_first,
+            excl_first_count, max_inference_excl_first, wall_seconds,
+        )
+        if io_process:
+            print(f"\nCluster totals: {total_image_count} images across {world} "
+                  f"processes in {wall_seconds:.3f} seconds (summed device "
+                  f"inference: {total_inference:.6f} seconds)")
+            if excl_first_count > 0:
+                print(
+                    "Cluster processing time excluding each process's first image: "
+                    f"average = {total_inference_excl_first * 1000.0 / excl_first_count:.3f} ms, "
+                    f"max = {max_inference_excl_first * 1000.0:.3f} ms"
+                )
+        if args.save_calibration:
+            _merge_and_save_calibration(args.save_calibration, inferer, world,
+                                        io_process, model_config, runtime_params)
+    elif args.save_calibration:
         exported = inferer.export_calibration()
         if exported is None:
             print("No int8 net was frozen; nothing to save "
@@ -554,13 +615,16 @@ def _run(args, input_directory) -> int:
             )
             print(f"Saved int8 calibration to {args.save_calibration}")
 
-    if ground_truth_count:
+    if ground_truth_count and io_process:
         print("\nConfusion matrix per pixel:")
         print(format_confusion_matrix(confusion_matrix_per_pixel, anno_classes))
         print("\nConfusion matrix per region (two-way):")
         print(format_confusion_matrix(confusion_matrix_per_region, anno_classes))
 
-    if args.report_json:
+    if args.report_json and not io_process:
+        print("Multi-host: only process 0 writes --report-json "
+              "(it holds the merged matrices and timing)")
+    if args.report_json and io_process:
         import json
 
         from annonet_tpu_torch.infer.evaluation import confusion_matrix_summary
@@ -568,15 +632,17 @@ def _run(args, input_directory) -> int:
         report = {
             "model": args.model,
             "input_directory": input_directory,
-            "images": len(files),
-            "processes": 1,
+            # the whole directory; under --coordinator per_image covers only
+            # this process's shard, the matrices and timings the cluster
+            "images": total_image_count,
+            "processes": world,
             "quantize": args.quantize,
             "image_batch": image_batch,
             "pipeline_depth": pipeline_depth,
-            "device": str(device),
+            "device": str(inferer.device),
             "gains": [float(g) for g in gains],
             "detection_levels": [float(d) for d in detection_levels],
-            "wall_seconds": round(t1 - t0, 6),
+            "wall_seconds": round(wall_seconds, 6),
             "inference_seconds": round(total_inference, 6),
             "excluding_first": (
                 {
@@ -603,6 +669,83 @@ def _run(args, input_directory) -> int:
             fh.write("\n")
         print(f"Report written to {args.report_json}")
     return 0
+
+
+def _all_gather_rows(row, world: int):
+    """[world, len(row)] float64: every process's ``row``, in rank order
+    (one gloo all-gather; counts below 2**53 ride float64 exactly)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    local = torch.from_numpy(np.ascontiguousarray(row, dtype=np.float64))
+    rows = [torch.empty_like(local) for _ in range(world)]
+    dist.all_gather(rows, local)
+    return torch.stack(rows).numpy()
+
+
+def _merge_run(world, cm_pixel, cm_region, ground_truth_count, total_inference,
+               total_inference_excl_first, excl_first_count,
+               max_inference_excl_first, wall_seconds):
+    """The JAX CLI's end-of-run merge: ONE all-gather carries the scalars
+    and both flattened confusion matrices; the matrices are summed in
+    place, and the merged (ground truth count, inference seconds, seconds
+    excluding each first image, their count, max, wall) returned."""
+    import numpy as np
+
+    k2 = cm_pixel.size
+    gathered = _all_gather_rows(np.concatenate([
+        np.asarray([ground_truth_count, total_inference, total_inference_excl_first,
+                    excl_first_count, max_inference_excl_first, wall_seconds],
+                   np.float64),
+        cm_pixel.astype(np.float64).ravel(),
+        cm_region.astype(np.float64).ravel(),
+    ]), world)
+    cm_pixel[...] = gathered[:, 6 : 6 + k2].sum(axis=0).reshape(cm_pixel.shape)
+    cm_region[...] = gathered[:, 6 + k2 :].sum(axis=0).reshape(cm_region.shape)
+    return (int(gathered[:, 0].sum()), float(gathered[:, 1].sum()),
+            float(gathered[:, 2].sum()), int(gathered[:, 3].sum()),
+            float(gathered[:, 4].max()), float(gathered[:, 5].max()))
+
+
+def _merge_and_save_calibration(path, inferer, world, io_process, model_config,
+                                runtime_params):
+    """Merge every process's activation maxima (element-wise max of the
+    per-layer, per-channel vectors, accumulations that have not frozen
+    included) so the saved file covers the whole directory; process 0
+    writes it. Every process joins the fixed-shape all-gather: one with
+    nothing to contribute sends zeros (the identity of a max of post-ReLU
+    maxima) and a trailing flag of 0, so "no process calibrated" stays
+    apart from all-zero activations."""
+    import numpy as np
+
+    from annonet_tpu_torch import serialization
+
+    lengths = inferer.calibration_layer_shapes()
+    if lengths is None:
+        if io_process:
+            print("No int8 net was frozen; nothing to save "
+                  "(this config cannot fold to int8)")
+        return
+    flat = np.zeros(sum(lengths) + 1, np.float64)
+    local = inferer.export_calibration(partial=True)
+    if local is not None:
+        flat[:-1] = np.concatenate([np.asarray(v, np.float64).ravel() for v in local]
+                                   or [np.zeros(0, np.float64)])
+        flat[-1] = 1.0
+    ranks = _all_gather_rows(flat, world)
+    contributed = int(ranks[:, -1].sum())
+    if not io_process:
+        return
+    if contributed == 0:
+        print("No int8 net was frozen; nothing to save "
+              "(fewer images than --calibration-images?)")
+        return
+    merged_flat = ranks[:, :-1].max(axis=0).astype(np.float32)
+    merged = np.split(merged_flat, np.cumsum(lengths)[:-1])
+    serialization.save_calibration(path, merged, model_config, runtime_params)
+    print(f"Saved int8 calibration to {path} (maxima merged across "
+          f"{contributed} of {world} processes)")
 
 
 if __name__ == "__main__":

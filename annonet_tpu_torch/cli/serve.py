@@ -50,8 +50,12 @@ loads the kernel library before it binds its port, so no request pays the
 build. ``compiled_programs`` in /stats, /metrics and /model counts the plans
 whose constants the inferer holds (the JAX server counts compiled XLA
 programs); ``--no-compilation-cache`` is accepted and does nothing (the
-port compiles no programs at run time). ``--mesh`` is not ported yet and
-exits 2.
+port compiles no programs at run time). ``--mesh N`` builds the inferer
+on a mesh of N devices (``cli/common.py::make_cli_mesh``: the first N
+cards, or N virtual shards of the one device under
+ANNONET_TPU_VIRTUAL_MESH=1), so each request's tile batch is split over
+them; ``/reload`` rebuilds on the same mesh. The HTTP protocol is the same
+with or without it.
 """
 
 from __future__ import annotations
@@ -64,9 +68,6 @@ import sys
 import threading
 import time
 from typing import Optional
-
-_MESH = 'ROADMAP.md queue 1 item 3, "Inference CLIs and serving"'
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -117,8 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "and are retried on the next change). 0 = off "
                         "(default)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="Tile-parallel inference over N devices (not "
-                        "ported yet)")
+                   help="Tile-parallel inference: each request's tile "
+                        "batch is split over N CUDA devices")
     p.add_argument("--device-stall-seconds", type=float, default=300.0,
                    metavar="SEC",
                    help="Report status 'stalled' (healthz -> 503, "
@@ -172,7 +173,7 @@ class _ModelState:
     the inferer that runs it."""
 
 
-def _load_state(args, device, reload_count: int = 0,
+def _load_state(args, device, mesh=None, reload_count: int = 0,
                 ignore_calibration: bool = False,
                 reuse_from: "_ModelState" = None) -> _ModelState:
     import os
@@ -230,7 +231,7 @@ def _load_state(args, device, reload_count: int = 0,
                 max_tile_height=args.tile_max_height,
                 overlap_x=min_dim, overlap_y=min_dim,
             ),
-            device=device,
+            device=device if mesh is None else None, mesh=mesh,
             quantize=None if args.quantize == "none" else args.quantize,
             calibration_images=args.calibration_images,
             calibration=calibration,
@@ -252,13 +253,16 @@ class _ModelService:
     """The shared model state behind the HTTP handlers."""
 
     def __init__(self, args, device=None):
-        if device is None:
-            from annonet_tpu_torch.cli.common import resolve_device
+        from annonet_tpu_torch.cli.common import make_cli_mesh, resolve_device
 
+        if device is None:
             device = resolve_device(args.device)
         self._args = args
         self.device = device
-        self.state = _load_state(args, device)
+        # --mesh: every inferer of this service, reloads included, splits
+        # its tile batches over the same devices
+        self.mesh = make_cli_mesh(args.mesh, device) if getattr(args, "mesh", None) else None
+        self.state = _load_state(args, device, self.mesh)
         # one device runs one forward at a time; decode/encode stay parallel
         self.device_lock = threading.Lock()
         self._reload_lock = threading.Lock()
@@ -331,7 +335,7 @@ class _ModelService:
         calibrates on the first real images again."""
         with self._reload_lock:
             new = _load_state(
-                self._args, self.device,
+                self._args, self.device, self.mesh,
                 reload_count=self.state.reload_count + 1,
                 ignore_calibration=recalibrate,
                 reuse_from=self.state,
@@ -1014,10 +1018,6 @@ def _warmup(service: _ModelService, sizes) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh is not None:
-        print(f"annonet_serve: --mesh is not ported to annonet_tpu_torch yet ({_MESH})",
-              file=sys.stderr)
-        return 2
     try:
         from annonet_tpu_torch.cli.common import device_probe, resolve_device
 

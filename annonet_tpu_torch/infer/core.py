@@ -55,8 +55,16 @@ counts the plans whose constants the inferer holds, the counterpart of the
 JAX inferer's compiled XLA programs (``len(inferer._compiled)``) that
 ``annonet_serve`` reports.
 
-Not ported yet: ``mesh`` tile-parallel inference (ROADMAP.md queue 1
-item 4, "Inference CLIs and serving") raises NotImplementedError.
+``mesh`` (a tuple of devices, ``parallel/mesh.py``) is tile-parallel
+inference, the JAX inferer's sharding of the tile batch over a mesh: every
+net the inferer builds (the float net, the folded nets, the int8 nets with
+their packed weights) is replicated on each mesh device; the tile batch,
+gathered on ``mesh[0]``, is split in tile order (``torch.tensor_split``),
+each shard is forwarded on its own device in its own chunks, and the
+logits are gathered back onto ``mesh[0]`` in tile order, where K4 blends
+them. Calibration runs on ``mesh[0]``. Labels and seeds equal the
+unsharded inferer's bit for bit: every tile's logits are computed the same
+way whatever shard or chunk it runs in (see ``_forward_shard``).
 """
 
 from __future__ import annotations
@@ -101,7 +109,9 @@ from annonet_tpu_torch.ops.blobs import label_connected_blobs
 _CANVAS_BUCKET = 128
 # live-activation budget of one forward; larger tile batches run in chunks
 FORWARD_BUDGET_BYTES = 8 << 30
-_MULTI = 'ROADMAP.md queue 1 item 4, "Inference CLIs and serving"'
+# the most tiles in one forward on the CPU, where every forward of a tile
+# batch has the same size (``TiledInferer._forward_shard``)
+CPU_TILE_GROUP = 32
 _BLEND_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -152,13 +162,13 @@ class TiledInferer:
         config: SegNetConfig,
         tiling: Optional[TilingParameters] = None,
         *,
-        device,
+        device=None,  # the inferer's device; with a mesh, mesh[0]
         quantize: Optional[str] = None,  # "int8" = the quantized net
         calibration_images: int = 1,
         calibration=None,  # per-layer maxima (export_calibration / file)
         blend_dtype=None,  # None = auto: bfloat16 iff int8
         reference_blend_semantics: bool = False,
-        mesh=None,
+        mesh=None,  # devices to split the tile batch over (parallel.make_mesh)
         use_pallas_conv: Optional[bool] = None,  # None = False: the folded net (G1)
         plan_autotune: bool = False,
     ):
@@ -167,12 +177,25 @@ class TiledInferer:
         if quantize and use_pallas_conv:
             raise ValueError("quantize is incompatible with use_pallas_conv")
         self.use_pallas_conv = bool(use_pallas_conv)
-        self._folded: Dict[int, FoldedSegNet] = {}
+        # base fold -> {device: the folded net on that device}
+        self._folded: Dict[int, Dict[torch.device, FoldedSegNet]] = {}
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-GPU tile-parallel inference is not ported yet "
-                f"({_MULTI})"
-            )
+            try:
+                mesh = tuple(torch.device(d) for d in mesh)
+            except (TypeError, RuntimeError) as e:
+                raise ValueError(
+                    "mesh must be a sequence of devices (parallel.make_mesh)"
+                ) from e
+            if not mesh:
+                raise ValueError("mesh must hold at least one device")
+            if device is not None and torch.device(device) != mesh[0]:
+                raise ValueError(
+                    f"device {device} is not the mesh's first device {mesh[0]}"
+                )
+            device = mesh[0]
+        if device is None:
+            raise ValueError("TiledInferer needs a device (or a mesh)")
+        self.mesh = mesh
         self.quantize = quantize
         if calibration_images < 1:
             raise ValueError("calibration_images must be >= 1")
@@ -185,9 +208,13 @@ class TiledInferer:
         if calibration is not None and quantize is None:
             raise ValueError("calibration requires quantize='int8'")
         self.device = torch.device(device)
+        self._shards = mesh if mesh is not None else (self.device,)
+        # each distinct device of the mesh holds one replica of every net
+        self._replica_devices = tuple(dict.fromkeys(self._shards))
         self.config = config
         self.runtime_params = runtime_params
-        self.net = RuntimeSegNet(runtime_params, config, device=self.device)
+        self._nets = self._replicate(lambda d: RuntimeSegNet(runtime_params, config, device=d))
+        self.net = self._nets[self.device]
         if tiling is None:
             tiling = default_tiling(config)
         if tiling.overlap_x < 0 or tiling.overlap_y < 0:
@@ -208,7 +235,8 @@ class TiledInferer:
             [np.asarray(v, np.float32) for v in calibration]
             if calibration is not None else None
         )
-        self._quantized: Dict[int, QuantizedSegNet] = {}
+        # base fold -> {device: the frozen int8 net on that device}
+        self._quantized: Dict[int, Dict[torch.device, QuantizedSegNet]] = {}
         self._calib_accum: Dict[int, List[np.ndarray]] = {}
         self._calib_seen: Dict[int, int] = {}
         self._calib_frozen: Dict[int, List[np.ndarray]] = {}
@@ -224,13 +252,19 @@ class TiledInferer:
         inferer) and any preloaded calibration, which was fingerprinted
         to the old weights."""
         self.runtime_params = runtime_params
-        self.net = RuntimeSegNet(runtime_params, self.config, device=self.device)
+        self._nets = self._replicate(
+            lambda d: RuntimeSegNet(runtime_params, self.config, device=d))
+        self.net = self._nets[self.device]
         self._folded.clear()
         self._quantized.clear()
         self._calib_accum.clear()
         self._calib_seen.clear()
         self._calib_frozen.clear()
         self._preloaded_calib = None
+
+    def _replicate(self, make) -> Dict[torch.device, torch.nn.Module]:
+        """{device: make(device)} over the mesh's distinct devices."""
+        return {d: make(d) for d in self._replica_devices}
 
     @property
     def compiled_programs(self) -> int:
@@ -401,31 +435,81 @@ class TiledInferer:
             wsum_factors=factors if argmax_fold else None,
         )
 
-    def _float_net(self, plan: TilePlan):
-        """The float net for a plan: the folded net of its base fold under
-        ``use_pallas_conv`` when the plan folds, else the unfolded net."""
+    def _float_nets(self, plan: TilePlan) -> Dict[torch.device, torch.nn.Module]:
+        """The float net for a plan on each mesh device: the folded net of
+        its base fold under ``use_pallas_conv`` when the plan folds, else
+        the unfolded net."""
         fold0 = folding_supported(self.config, plan.tile_width) if self.use_pallas_conv else 0
         if not fold0:
-            return self.net
+            return self._nets
         if fold0 not in self._folded:
-            self._folded[fold0] = FoldedSegNet(
-                self.runtime_params, self.config, fold0, device=self.device
-            )
+            self._folded[fold0] = self._replicate(
+                lambda d: FoldedSegNet(self.runtime_params, self.config, fold0, device=d))
         return self._folded[fold0]
 
-    def _forward(self, tiles: torch.Tensor, plan: TilePlan, net=None) -> torch.Tensor:
-        net = self._float_net(plan) if net is None else net
+    def _float_net(self, plan: TilePlan):
+        """The float net for a plan on the inferer's device (``mesh[0]``)."""
+        return self._float_nets(plan)[self.device]
+
+    def _forward(self, tiles: torch.Tensor, plan: TilePlan,
+                 quantized: bool = False) -> torch.Tensor:
+        """The tile batch's f32 logits on the inferer's device, through the
+        frozen int8 net of the plan's fold (``quantized``) or the float net.
+        Under a mesh the batch is split in tile order, each shard is
+        forwarded on its own device, and the logits are gathered in tile
+        order: a copy between two CUDA devices waits for the work queued
+        on both devices' current streams, so the gather waits for each
+        shard's forward."""
+        if quantized:
+            nets = self._quantized[folding_supported(self.config, plan.tile_width)]
+        else:
+            nets = self._float_nets(plan)
+        group = None
+        if tiles.device.type == "cpu":
+            group = min(CPU_TILE_GROUP, tiles.shape[0], self._chunk(plan, CPU_TILE_GROUP))
+        if len(self._shards) == 1:
+            return self._forward_shard(tiles, plan, nets[self.device], group)
+        # a mesh wider than the batch leaves its last shards empty
+        logits = [
+            self._forward_shard(shard.to(d), plan, nets[d], group)
+            for shard, d in zip(torch.tensor_split(tiles, len(self._shards)), self._shards)
+            if shard.shape[0]
+        ]
+        return torch.cat([part.to(self.device) for part in logits])
+
+    def _forward_shard(self, tiles: torch.Tensor, plan: TilePlan, net,
+                       group: Optional[int] = None) -> torch.Tensor:
+        """One shard's logits on its own device, in ``_chunk``'s chunks, or
+        with ``group`` (on the CPU) in forwards of exactly ``group`` tiles,
+        the last one padded with copies of the shard's last tile.
+
+        The CPU's group is the whole tile batch's size (at most
+        CPU_TILE_GROUP, and what the budget allows), whatever the shard:
+        the plain versions' convolutions and products (oneDNN, the CPU
+        BLAS) choose their blocking by batch size, so a tile's logits would
+        depend on the batch it ran in (in the last bits: a level-3,
+        width-16 net on four 96-px tiles, tests/test_torch_parallel_infer.py's
+        deep case), and the labels on how the batch was sharded. At one
+        batch size they depend on neither the tile's place in the batch nor
+        its neighbours. Unsharded, a batch of up to CPU_TILE_GROUP tiles is
+        one forward, unpadded. The kernels on the card compute each tile's
+        pixels the same way at any batch size."""
         n = tiles.shape[0]
-        chunk = self._chunk(plan, n)
-        if chunk == n:
-            return net(tiles)
+        if group is not None:
+            chunk, pad = group, -n % group
+            if pad:
+                tiles = torch.cat([tiles, tiles[-1:].expand(pad, *tiles.shape[1:])])
+        else:
+            chunk = self._chunk(plan, n)
+        if chunk == tiles.shape[0]:
+            return net(tiles)[:n]
         logits = torch.empty(
-            (n, plan.tile_height, plan.tile_width, self.config.class_count),
-            dtype=torch.float32, device=self.device,
+            (tiles.shape[0], plan.tile_height, plan.tile_width, self.config.class_count),
+            dtype=torch.float32, device=tiles.device,
         )
-        for s in range(0, n, chunk):
+        for s in range(0, tiles.shape[0], chunk):
             logits[s : s + chunk] = net(tiles[s : s + chunk])
-        return logits
+        return logits[:n]
 
     # ------------------------------------------------------------- int8
 
@@ -445,10 +529,9 @@ class TiledInferer:
 
     def _freeze(self, fold0: int, calibration) -> None:
         self._calib_frozen[fold0] = calibration
-        self._quantized[fold0] = QuantizedSegNet(
-            quantize_net(self.runtime_params, self.config, calibration),
-            self.config, device=self.device,
-        )
+        qparams = quantize_net(self.runtime_params, self.config, calibration)
+        self._quantized[fold0] = self._replicate(
+            lambda d: QuantizedSegNet(qparams, self.config, device=d))
 
     def _ensure_quantized(self, fold0: int, plan: TilePlan, image) -> None:
         """Accumulate one image's calibration maxima; freeze the int8 net
@@ -536,9 +619,9 @@ class TiledInferer:
         return worst
 
     def _int8_net(self, images, plan: TilePlan):
-        """The frozen int8 net for this plan (calibrating on this call's
-        images first while the freeze is pending), or None when the call
-        runs the float net."""
+        """The frozen int8 net for this plan on the inferer's device
+        (calibrating on this call's images first while the freeze is
+        pending), or None when the call runs the float net."""
         if not self.quantize:
             return None
         fold0 = folding_supported(self.config, plan.tile_width)
@@ -560,7 +643,8 @@ class TiledInferer:
                 self._ensure_quantized(fold0, plan, one)
                 if fold0 in self._quantized:
                     break
-        return self._quantized.get(fold0)
+        nets = self._quantized.get(fold0)
+        return None if nets is None else nets[self.device]
 
     def infer_arrays(
         self,
@@ -642,7 +726,7 @@ class TiledInferer:
             gains_t, det_t = (torch.from_numpy(v).to(self.device) for v in (gains_arr, det_arr))
             qnet = self._int8_net(images, plan)
             tiles = self._tile_batch(images, plan, quantized=qnet is not None)
-            logits = self._forward(tiles, plan, qnet)
+            logits = self._forward(tiles, plan, quantized=qnet is not None)
             del tiles
             labels, seeds = self._blend(
                 logits, plan, gains_t, det_t, with_detection,

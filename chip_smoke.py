@@ -105,6 +105,26 @@ Phases (any failure raises, and the exit code is then nonzero):
               three times each, K4 once) in one call, labels agreeing with
               the default float path's, and both paths' infer_arrays walls
               and device stages in turns
+  9m. mesh    TiledInferer(mesh=...) on a virtual 2-shard mesh of the card
+              (parallel.mesh.ensure_virtual_devices) against the same
+              inferer unsharded, on the 4096x4096 image with detection, on
+              the float, int8 (phase 6's calibration file) and
+              use_pallas_conv paths: labels and seeds bit for bit, each
+              layer kernel launched once per shard and K4 once per call,
+              both inferers' infer_arrays walls in turns (one card gains
+              nothing from the split: recorded, not claimed); then one raw
+              request to annonet_serve --mesh 2 (ANNONET_TPU_VIRTUAL_MESH=1)
+              equal to the unmeshed server's response. The kernel line's
+              mesh_launches are those calls' counts
+  9c. coordinator two annonet_infer processes on the card (--coordinator
+              on a free local port, --num-processes 2, each with a
+              timeout): float, the result PNGs equal to phase 5's
+              single-process run's and rank 0 alone printing the cluster
+              totals and matrices; then --quantize int8
+              --calibration-images 1 --save-calibration, the result PNGs
+              byte-equal to a single-process run on each rank's shard and
+              the merged calibration the element-wise max of the two
+              shards' own
  10. repro_qconv_s1 the diagnostic tool's sweep (unsigned and signed) and
               bisect at all its configurations: Q1 and its accumulator mode
               against the exact conv, no mismatch, the accumulator launched
@@ -141,6 +161,18 @@ Phases (any failure raises, and the exit code is then nonzero):
               recalls are printed against the pinned floors with those
               they fall under, and not held (the recipe's seed-to-seed
               spread straddles them, JAX's own too)
+ 13a. autotune annonet_autotune --start 1024 on the flagship at 192² crops
+              (phase 12's dataset; --max-total-steps 3 passed through, so
+              the probes and the real run take 3 steps), a process of its
+              own under a timeout: each probe's size, outcome and wall, the
+              largest batch and the real run's exit code; the search must
+              bracket its boundary
+ 14. accuracy_floors tools/measure_accuracy on the card: the JAX end-to-
+              end test's recipe (40 f32 steps of a level-1 width-8 net on
+              16² crops of a 4-image 48x48 set, TF32 off), saved, loaded
+              and tiled by the float and the int8 inferer: pixel accuracy,
+              mIoU and int8 pixel accuracy held against PARITY_TARGETS.json's
+              pinned floors
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}. Scratch files go to a
@@ -1259,7 +1291,7 @@ def time_infer_arrays(inferer, image, gains, levels, reps: int):
         qnet = inferer._int8_net(image[None], plan)
         tiles = inferer._tile_batch(image[None], plan, quantized=qnet is not None)
         ev[1].record()
-        logits = inferer._forward(tiles, plan, qnet)
+        logits = inferer._forward(tiles, plan, quantized=qnet is not None)
         ev[2].record()
         del tiles
         labels, seeds = inferer._blend(logits, plan, gains_t, levels_t, True,
@@ -1277,14 +1309,9 @@ def breakdown_int8(params_np, config, device, data: str, name: str, calib: str,
     """The int8 infer_arrays at steady state on the 4096x4096 image, with
     the CLI's saved calibration, and its device stages."""
     from annonet_tpu_torch import serialization
-    from annonet_tpu_torch.data import default_anno_classes
-    from annonet_tpu_torch.data.dataset import ImageFilenames
-    from annonet_tpu_torch.data.sample import read_sample
     from annonet_tpu_torch.infer.core import TiledInferer
 
-    path = os.path.join(data, name + ".png")
-    image = read_sample(ImageFilenames(path, path + "_mask.png"),
-                        default_anno_classes(), False, 1.0).input_image
+    image = read_image(data, name)
     h, w = image.shape[:2]
     inferer = TiledInferer(
         params_np, config, device=device, quantize="int8",
@@ -1347,16 +1374,11 @@ def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int 
     folded spec, none on the default path), labels against the default
     float path's, then both paths' infer_arrays walls and device stages.
     Returns the launch counts of the use_pallas_conv call."""
-    from annonet_tpu_torch.data import default_anno_classes
-    from annonet_tpu_torch.data.dataset import ImageFilenames
-    from annonet_tpu_torch.data.sample import read_sample
     from annonet_tpu_torch.infer.core import TiledInferer
     from annonet_tpu_torch.models.folded_runtime import folded_spec, folding_supported
     from annonet_tpu_torch.ops import blend, conv, gemm_conv
 
-    path = os.path.join(data, name + ".png")
-    image = read_sample(ImageFilenames(path, path + "_mask.png"),
-                        default_anno_classes(), False, 1.0).input_image
+    image = read_image(data, name)
     h, w = image.shape[:2]
     default = TiledInferer(params_np, config, device=device)
     pallas = TiledInferer(params_np, config, device=device, use_pallas_conv=True)
@@ -2249,9 +2271,332 @@ def training_phases(device) -> dict:
         print(f"[detection] tools/measure_detection.run_benchmark, seed {DETECTION_SEED}",
               flush=True)
         detection_phase(device)
+        print(f"[autotune] annonet_autotune --start {AUTOTUNE_START} on the flagship at "
+              f"{train_crop_dim(flagship_config())}² crops", flush=True)
+        autotune_phase(work, data)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# multi-device inference (mesh, coordinator), annonet_autotune, accuracy
+
+MESH_SHARDS = 2
+MESH_REPS = 3
+# each subprocess of the coordinator and autotune phases
+SUBPROCESS_TIMEOUT = 600
+# the autotune phase's first probe: the flagship at 192² fits some 1000-2000
+# crops on an 80 GB card (phase 12b's peak memory is 6.1 GiB at batch 128),
+# so the search grows once, fails once and bisects between them
+AUTOTUNE_START = 1024
+
+
+def read_image(data: str, name: str):
+    """The RGB pixels of one of the smoke's images."""
+    from annonet_tpu_torch.data import default_anno_classes
+    from annonet_tpu_torch.data.dataset import ImageFilenames
+    from annonet_tpu_torch.data.sample import read_sample
+
+    path = os.path.join(data, name + ".png")
+    return read_sample(ImageFilenames(path, path + "_mask.png"),
+                       default_anno_classes(), False, 1.0).input_image
+
+
+def mesh_phase(params_np, config, device, work: str, name: str, calib: str) -> dict:
+    """TiledInferer on a virtual 2-shard mesh of the card against the same
+    inferer unsharded, on the 4096x4096 image with detection, on the float,
+    int8 (phase 6's calibration file) and use_pallas_conv paths: labels and
+    seeds bit for bit, each path's launches in one sharded call (its layer
+    kernels once per shard, K4 once), and the two inferers' infer_arrays
+    walls in turns (recorded, not claimed: one card gains nothing from the
+    split). Then one raw request to annonet_serve --mesh 2 against the
+    unmeshed server's response. Returns {kernel: launches in the mesh
+    calls}."""
+    from annonet_tpu_torch import serialization
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.ops import gemm_conv
+    from annonet_tpu_torch.parallel.mesh import VIRTUAL_MESH_ENV, ensure_virtual_devices
+
+    image = read_image(os.path.join(work, "data"), name)
+    h, w = image.shape[:2]
+    gains = np.zeros(config.class_count, np.float32)
+    levels = np.asarray([0.0, 0.5, 0.0], np.float32)
+    calibration = serialization.load_calibration(calib, config, params_np)
+    # path: (inferer options, wrappers counted, launches per shard, the
+    # kernel line's entries it gives)
+    paths = {
+        "float": ({}, float_wrappers(), {"conv3x3_bias_relu": 8, "conv3x3_s2_bias_relu": 3,
+                                         "up2x2_bias_relu": 3}, tuple(float_wrappers())),
+        "int8": ({"quantize": "int8", "calibration": calibration}, int8_wrappers(),
+                 {"qconv3x3_requant": 8, "qconv3x3_s2_requant": 3, "up2x2_requant": 3},
+                 ("qconv3x3_requant", "qconv3x3_s2_requant")),
+        "use_pallas_conv": ({"use_pallas_conv": True},
+                            {**float_wrappers(), "conv3x3_gemm_aligned":
+                             gemm_conv.conv3x3_gemm_aligned},
+                            {"conv3x3_gemm_aligned": 7, "conv3x3_bias_relu": 1,
+                             "conv3x3_s2_bias_relu": 3, "up2x2_bias_relu": 3},
+                            ("conv3x3_gemm_aligned",)),
+    }
+    mesh_launches = {"qup2x2_requant": 0}
+    for label, (kwargs, wrappers, per_shard, entries) in paths.items():
+        one = TiledInferer(params_np, config, device=device, **kwargs)
+        mesh = TiledInferer(params_np, config, mesh=ensure_virtual_devices(MESH_SHARDS, device),
+                            **kwargs)
+        want = one.infer_arrays(image, gains, levels)
+        for fn in wrappers.values():
+            fn.launches = 0
+        got = mesh.infer_arrays(image, gains, levels)
+        torch.cuda.synchronize(device)
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        expected = {k: MESH_SHARDS * v for k, v in per_shard.items()}
+        expected["blend_argmax"] = 1
+        same = (np.array_equal(got[0], want[0]), np.array_equal(got[1], want[1]))
+        plan = mesh.plan(h, w)
+        print(f"  {label}: {plan.tile_count} tiles split {MESH_SHARDS} ways; launches in one "
+              f"sharded call {counts} (expected {expected}); labels equal {same[0]}, seeds "
+              f"equal {same[1]}", flush=True)
+        if counts != {k: expected.get(k, 0) for k in counts}:
+            raise AssertionError(f"the {label} mesh call launched {counts}, not {expected}")
+        if not all(same):
+            raise AssertionError(f"the {label} mesh inferer's labels or seeds differ from "
+                                 "the unsharded inferer's")
+        if label == "int8" and (mesh.float_fallbacks or not mesh._quantized):
+            raise AssertionError("the int8 mesh inferer did not run the int8 net")
+        mesh_launches.update({k: counts[k] for k in entries})
+        walls = {"unsharded": [], "mesh": []}
+        for turn in ("unsharded", "mesh", "mesh", "unsharded"):
+            inferer = one if turn == "unsharded" else mesh
+            walls[turn] += time_infer_arrays(inferer, image, gains, levels, MESH_REPS)[0]
+        print("  " + "; ".join(
+            f"{turn} infer_arrays {np.mean(v) * 1e3:.3f} ms host wall (mean of {len(v)} calls, "
+            f"{h * w / 1e6 / np.mean(v):.2f} Mpx/s)" for turn, v in walls.items()), flush=True)
+        del one, mesh
+        torch.cuda.empty_cache()
+
+    # one raw request to a --mesh 2 server (virtual) and to an unmeshed one
+    model = os.path.join(work, "annonet.dnn")
+    responses = {}
+    for label, extra in (("--mesh 2", ["--mesh", str(MESH_SHARDS)]), ("unmeshed", [])):
+        os.environ[VIRTUAL_MESH_ENV] = "1"  # --mesh 2 on the one card
+        try:
+            service, server, client = start_server(["--model", model, "-d", "1:0.5", *extra])
+        finally:
+            del os.environ[VIRTUAL_MESH_ENV]
+        try:
+            wrappers = float_wrappers()
+            for fn in wrappers.values():
+                fn.launches = 0
+            t = time.monotonic()
+            responses[label] = client.infer(image)
+            wall = time.monotonic() - t
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            print(f"  annonet_serve {label}: mesh {service.mesh}, one raw {h}x{w} request "
+                  f"{wall * 1e3:.1f} ms, launches {counts}", flush=True)
+        finally:
+            stop_server(server)
+    same = np.array_equal(responses["--mesh 2"], responses["unmeshed"])
+    print(f"  the --mesh 2 server's labels equal the unmeshed server's: {same}", flush=True)
+    if not same:
+        raise AssertionError("annonet_serve --mesh 2 answered otherwise than without --mesh")
+    return mesh_launches
+
+
+def run_ranks(commands, env, what: str):
+    """Run the commands together, each with SUBPROCESS_TIMEOUT; fail on a
+    nonzero exit. Returns their outputs."""
+    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in commands]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SUBPROCESS_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{what}: exit codes {codes}\n" + "\n=====\n".join(outs))
+    return outs
+
+
+def subprocess_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("ANNONET_TPU_TORCH_DEVICE", None)
+    return env
+
+
+def coordinator_phase(work: str, sizes, float_results) -> None:
+    """Two annonet_infer processes on the one card (--coordinator on a free
+    local port): float, whose result PNGs must equal phase 5's
+    single-process run's byte for byte, rank 0 alone printing the cluster
+    totals and matrices; then --quantize int8 --calibration-images 1
+    --save-calibration, against a single-process run on each rank's shard
+    (the same result PNGs; the merged calibration the element-wise max of
+    the two shards' own)."""
+    import socket
+
+    from PIL import Image
+
+    from annonet_tpu_torch import serialization
+
+    data, model = os.path.join(work, "data"), os.path.join(work, "annonet.dnn")
+    root = os.path.join(work, "coordinator")
+    names = [name for name, _h, _w in sizes]
+
+    def copy_images(dst, keep):
+        os.makedirs(dst)
+        for name in keep:
+            for suffix in (".png", ".png_mask.png"):
+                shutil.copy(os.path.join(data, name + suffix), dst)
+        return dst
+
+    def infer(directory, *extra):
+        return [sys.executable, "-m", "annonet_tpu_torch.cli.infer", directory, "--model",
+                model, "-d", "1:0.5", *extra]
+
+    def ranks(directory, *extra):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        return [infer(directory, *extra, "--coordinator", f"127.0.0.1:{port}",
+                      "--num-processes", "2", "--process-id", str(r)) for r in range(2)]
+
+    def pngs(directory, keep):
+        out = {}
+        for name in keep:
+            with open(os.path.join(directory, name + ".png_result.png"), "rb") as f:
+                out[name] = f.read()
+        return out
+
+    env = subprocess_env()
+    float_dir = copy_images(os.path.join(root, "float"), names)
+    shard_dirs = [copy_images(os.path.join(root, f"shard{r}"), names[r::2]) for r in range(2)]
+    int8_dir = copy_images(os.path.join(root, "int8"), names)
+    calibs = [os.path.join(root, f"calib_shard{r}.npz") for r in range(2)]
+    merged = os.path.join(root, "calib_merged.npz")
+    int8 = ["--quantize", "int8", "--calibration-images", "1"]
+    t = time.monotonic()
+    # the float ranks beside the int8 single-process runs of each shard
+    outs = run_ranks(ranks(float_dir) + [infer(d, *int8, "--save-calibration", c)
+                                         for d, c in zip(shard_dirs, calibs)],
+                     env, "the float ranks and the int8 shard runs")
+    print(f"  float ranks and int8 shard runs: {time.monotonic() - t:.1f} s", flush=True)
+    for r, out in enumerate(outs[:2]):
+        tail = [ln for ln in out.replace("\r", "\n").splitlines()
+                if ln.startswith(("Multi-host", "images in dataset", "Cluster", "All "))]
+        print(f"  float rank {r}: " + " | ".join(tail), flush=True)
+    if "Cluster totals: 2 images across 2 processes" not in outs[0] or "Cluster" in outs[1]:
+        raise AssertionError("rank 0 alone must print the cluster totals")
+    if "Confusion matrix per pixel" not in outs[0] or "Confusion matrix" in outs[1]:
+        raise AssertionError("rank 0 alone must print the merged confusion matrices")
+    with_phase5 = pngs(float_dir, names)
+    for name in names:
+        with Image.open(io.BytesIO(with_phase5[name])) as im:
+            same = np.array_equal(np.asarray(im.convert("RGBA")), float_results[name])
+        print(f"  {name}: the 2-process float result equals the single-process run's: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{name}: the 2-process result differs from one process's")
+    t = time.monotonic()
+    outs = run_ranks(ranks(int8_dir, *int8, "--save-calibration", merged), env,
+                     "the int8 ranks")
+    print(f"  int8 ranks: {time.monotonic() - t:.1f} s; rank 0: "
+          + " | ".join(ln for ln in outs[0].splitlines() if "calibration" in ln), flush=True)
+    if "maxima merged across 2 of 2 processes" not in outs[0] or "Saved int8" in outs[1]:
+        raise AssertionError("rank 0 alone must save the calibration merged over 2 processes")
+    shard_pngs = {**pngs(shard_dirs[0], names[0::2]), **pngs(shard_dirs[1], names[1::2])}
+    rank_pngs = pngs(int8_dir, names)
+    for name in names:
+        same = shard_pngs[name] == rank_pngs[name]
+        print(f"  {name}: the int8 rank's result PNG equals its shard's single-process run's "
+              f"byte for byte: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: the int8 rank's result differs")
+    config = serialization.load_model(model)[1]
+    s0, s1, m = (serialization.load_calibration(p, config) for p in (*calibs, merged))
+    differ = sum(not np.array_equal(a, b) for a, b in zip(s0, s1))
+    exact = all(np.array_equal(np.maximum(a, b), c) for a, b, c in zip(s0, s1, m))
+    print(f"  merged calibration: {len(m)} layers, the shards differ at {differ}; "
+          f"element-wise max of the shards' own: {exact}", flush=True)
+    if not exact or not differ:
+        raise AssertionError("the merged calibration is not the max of two distinct shards'")
+
+
+def autotune_phase(work: str, data: str) -> None:
+    """annonet_autotune (a process of its own, under a timeout; each probe
+    a 3-step annonet_train process) on the flagship at 192² crops from
+    AUTOTUNE_START, with --max-total-steps 3 passed through, so the real
+    run is 3 steps too. Prints each probe's size, outcome and wall (from
+    the times its lines arrive; a size passes when it is at most the one
+    found), the largest batch and the real run's exit code."""
+    import signal
+
+    argv = [sys.executable, "-m", "annonet_tpu_torch.cli.autotune", "--start",
+            str(AUTOTUNE_START), data, "--level-count", "3", "--max-total-steps", "3",
+            "--save-interval", "1000", "--output", os.path.join(work, "autotuned.dnn"),
+            "--sync-file", os.path.join(work, "autotuned.dat")]
+    torch.cuda.empty_cache()  # leave the card to the probes
+    t0 = time.monotonic()
+    proc = subprocess.Popen(argv, env=subprocess_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    lines = []
+    try:
+        deadline = t0 + 2 * SUBPROCESS_TIMEOUT
+        for line in proc.stdout:
+            lines.append((time.monotonic(), line.rstrip("\n")))
+            if time.monotonic() > deadline:
+                raise AssertionError("annonet_autotune ran past its deadline")
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)  # the tool and its probes
+            proc.wait()
+    wall = time.monotonic() - t0
+    text = "\n".join(line for _t, line in lines)
+    m = re.search(r"max working minibatch size: (\d+)", text)
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"annonet_autotune exited with {proc.returncode}:\n{text[-3000:]}")
+    best = int(m.group(1))
+    probes = [(i, int(re.search(r"size (\d+)", line).group(1))) for i, (_t, line)
+              in enumerate(lines) if line.startswith("probing minibatch size")]
+    for i, size in probes:
+        probe_wall = lines[i + 1][0] - lines[i][0]
+        print(f"  probe -b {size}: {'pass' if size <= best else 'fail'}, {probe_wall:.1f} s",
+              flush=True)
+    real = next(t for t, line in lines if line.startswith("launching the real run"))
+    print(f"  largest batch at {train_crop_dim(flagship_config())}²: {best} ({len(probes)} "
+          f"probes from --start {AUTOTUNE_START}); the real run -b {best}: exit code "
+          f"{proc.returncode}, {lines[-1][0] - real:.1f} s; annonet_autotune {wall:.1f} s",
+          flush=True)
+    sizes = [s for _i, s in probes]
+    if best not in sizes or best + 1 not in sizes:
+        raise AssertionError(f"the search did not bracket its boundary: probes {sizes}")
+
+
+def accuracy_phase(device) -> None:
+    """tools/measure_accuracy.train_and_score on the card: the JAX
+    end-to-end test's recipe (40 f32 steps, TF32 off), then the float and
+    int8 inferers on its images, held against PARITY_TARGETS.json's pinned
+    floors."""
+    from annonet_tpu_torch.tools import measure_accuracy
+
+    pixel_floor, miou_floor = measure_accuracy.pinned_floors()
+    t = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=_REPO, prefix=".chip_smoke_") as td:
+        measure_accuracy.write_separable_dataset(td)
+        run = measure_accuracy.train_and_score(td, seed=0, device=device)
+    print(f"  seed 0 on {device}: loss {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; "
+          f"pixel accuracy {run['pixel_accuracy']:.5f} (floor {pixel_floor}), mIoU "
+          f"{run['miou']:.5f} (floor {miou_floor}), int8 pixel accuracy "
+          f"{run['int8_pixel_accuracy']:.5f} (floor {pixel_floor}); "
+          f"{time.monotonic() - t:.1f} s", flush=True)
+    missed = measure_accuracy.below_floors(run)
+    if missed:
+        raise AssertionError("under the pinned floors: " + "; ".join(missed))
 
 
 def main() -> int:
@@ -2339,7 +2684,7 @@ def main() -> int:
         serve_float, serve_int8 = serve_phase(work, IMAGE_SIZES, float_results, int8_labels,
                                               calib, smi)
         print(f"  serve phase: {time.monotonic() - t:.1f} s", flush=True)
-        del float_results, int8_labels
+        del int8_labels
         print("[pipeline] annonet_infer pipelined and sequential on four images, then "
               "--profile", flush=True)
         pipeline_phase(work, IMAGE_SIZES, SEED)
@@ -2357,6 +2702,18 @@ def main() -> int:
               flush=True)
         pallas_launches = pallas_conv_path(params_np, config, device,
                                            os.path.join(work, "data"), IMAGE_SIZES[-1][0])
+        torch.cuda.empty_cache()
+        print(f"[mesh] TiledInferer on a virtual {MESH_SHARDS}-shard mesh of the card, the "
+              "4096x4096 image: float, int8, use_pallas_conv; annonet_serve --mesh", flush=True)
+        t = time.monotonic()
+        mesh_launches = mesh_phase(params_np, config, device, work, IMAGE_SIZES[-1][0], calib)
+        print(f"  mesh phase: {time.monotonic() - t:.1f} s", flush=True)
+        print("[coordinator] two annonet_infer processes on the card (--coordinator)",
+              flush=True)
+        t = time.monotonic()
+        coordinator_phase(work, IMAGE_SIZES, float_results)
+        print(f"  coordinator phase: {time.monotonic() - t:.1f} s", flush=True)
+        del float_results
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2366,6 +2723,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = training_phases(device)
     print(f"  int8 validation launches: {train_launches}", flush=True)
+    print("[accuracy_floors] the end-to-end test's recipe trained and scored on the card",
+          flush=True)
+    accuracy_phase(device)
     for label, records in (("float", per_image), ("int8", int8_per_image)):
         for rec in records:
             mpx = rec["width"] * rec["height"] / 1e6
@@ -2419,6 +2779,7 @@ def main() -> int:
             "replaces": _TPU_KERNELS[name],
             "launches": launches[name],
             "serve_launches": serve_launches.get(name, 0),
+            "mesh_launches": mesh_launches[name],
             **numbers(results[name]),
         }
         if name in modes:

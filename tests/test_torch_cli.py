@@ -234,11 +234,11 @@ def test_parser_has_the_jax_flags():
     assert table(cli.build_parser()) == table(jax_cli.build_parser())
 
 
-# the int8 flags, --profile and --plan-autotune are ported; they stay in the
-# list to show they are no longer refused (no model in the directory: the run
-# fails with 1, not 2)
+# every flag of the list is ported now; they stay in it to show they are no
+# longer refused (no model in the directory: the run fails with 1, not 2)
 _PORTED = ("--quantize", "--blend-dtype", "--calibration", "--save-calibration",
-           "--calibration-images", "--profile", "--plan-autotune")
+           "--calibration-images", "--profile", "--plan-autotune", "--mesh",
+           "--coordinator", "--num-processes", "--process-id")
 
 
 @pytest.mark.parametrize(
@@ -252,10 +252,8 @@ def test_unported_flags_exit_2(tmp_path, capsys, flag, monkeypatch):
     monkeypatch.setenv(DEVICE_ENV, "cpu")
     code = cli.main([str(tmp_path), *flag])
     err = capsys.readouterr().err
-    if flag[0] in _PORTED:
-        assert code == 1 and "not ported" not in err
-    else:
-        assert code == 2 and flag[0] in err and "ROADMAP.md queue 1 item 3" in err
+    assert flag[0] in _PORTED
+    assert code == 1 and "not ported" not in err
 
 
 def test_int8_flags_and_calibration_files(dataset, capsys, monkeypatch):

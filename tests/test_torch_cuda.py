@@ -156,6 +156,47 @@ def test_tiled_inference_on_the_card_matches_the_cpu(device):
     assert (card[1] == cpu[1]).mean() >= 0.999
 
 
+@pytest.mark.parametrize("mode", [{}, {"quantize": "int8"}, {"use_pallas_conv": True}],
+                         ids=["float", "int8", "folded"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_virtual_mesh_on_the_card_equals_one_device(device, mode, dtype):
+    """TiledInferer(mesh=...) on 3 virtual shards of the card: logits,
+    labels and seeds equal the unsharded inferer's bit for bit (each kernel
+    computes a pixel the same way at any batch size), one launch per layer
+    and shard."""
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.infer.tiling import TilingParameters
+    from annonet_tpu_torch.models.segnet import (
+        SegNetConfig, init_runtime_params, required_input_dimension,
+    )
+    from annonet_tpu_torch.ops import conv, qconv
+    from annonet_tpu_torch.parallel.mesh import ensure_virtual_devices
+
+    config = SegNetConfig(class_count=3, level_count=2, base_width=8, compute_dtype=dtype)
+    params = init_runtime_params(config, seed=5)
+    rf = required_input_dimension(config)
+    tiling = TilingParameters(128, 128, rf, rf)
+    image = np.random.default_rng(6).integers(0, 256, (300, 230, 3), dtype=np.uint8)
+    levels = [0.0, 0.2, 0.1]
+    one = TiledInferer(params, config, tiling, device=device, **mode)
+    mesh = TiledInferer(params, config, tiling, mesh=ensure_virtual_devices(3, device), **mode)
+    want = one.infer_arrays(image, None, levels)
+    layer = qconv.qconv3x3_s2_requant if mode.get("quantize") else conv.conv3x3_s2_bias_relu
+    layer.launches = 0
+    got = mesh.infer_arrays(image, None, levels)
+    assert layer.launches == 3 * config.level_count
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    plan = one.plan(*image.shape[:2])
+    with torch.inference_mode():
+        logits = []
+        for inferer in (one, mesh):
+            qnet = inferer._int8_net(image[None], plan)
+            tiles = inferer._tile_batch(image[None], plan, quantized=qnet is not None)
+            logits.append(inferer._forward(tiles, plan, quantized=qnet is not None))
+    assert torch.equal(*logits)
+
+
 def _int8(shape, device, seed, lo=0, hi=128):
     g = torch.Generator(device=device)
     g.manual_seed(seed)

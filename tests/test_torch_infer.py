@@ -256,5 +256,9 @@ def test_unported_options_raise(tree, kwargs):
         with pytest.raises(ValueError, match="unsupported quantize mode"):
             core.TiledInferer(tree, CONFIG, TILING, device="cpu", quantize="int4")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ported: a mesh is a sequence of devices (tests/test_torch_parallel_infer.py);
+    # anything else is refused
+    with pytest.raises(ValueError, match="mesh must be a sequence of devices"):
         core.TiledInferer(tree, CONFIG, TILING, device="cpu", **kwargs)
+    assert core.TiledInferer(tree, CONFIG, TILING, mesh=["cpu", "cpu"]).mesh == (
+        torch.device("cpu"),) * 2

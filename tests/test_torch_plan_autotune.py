@@ -140,3 +140,32 @@ def test_cli_plan_autotune_prints_the_report(tmp_path, capsys, monkeypatch):
     lines = [ln for ln in out.splitlines() if ln.startswith("Plan autotune for canvas")]
     assert len(lines) == 1 and lines[0].startswith("Plan autotune for canvas 256x256: chose ")
     assert "(candidates: " in lines[0] and "Mpx/s" in lines[0]
+
+
+def test_single_candidate_is_chosen_without_timing(tmp_path, capsys, monkeypatch):
+    """A canvas with one candidate plan (``_autotune_for``'s early branch):
+    nothing is timed, the cache and the report hold that plan at rate 0.0,
+    and the CLI still prints its report line, without a rate."""
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    write_synthetic_dataset(tmp_path, n_images=2, size=150)
+    model = _save_model(tmp_path, (tmp_path / "anno_classes.json").read_text())
+    made = []
+
+    def only_the_default(self, h, w):
+        made.append(self)
+        return [self.plan(h, w)]
+
+    monkeypatch.setattr(TiledInferer, "autotune_candidates", only_the_default)
+    monkeypatch.setattr(TiledInferer, "_time_plans",
+                        lambda *a, **k: pytest.fail("a single candidate was timed"))
+    assert cli.main([str(tmp_path), "--model", model, "--plan-autotune", "-w", "96",
+                     "-h", "96"]) == 0
+    out = capsys.readouterr().out
+    (inferer,) = set(made)
+    ((key, report),) = inferer.autotune_reports.items()
+    plan = inferer.plan(150, 150)
+    assert key == (256, 256) and report == [(plan, 0.0)]
+    assert inferer._autotune_cache == {key: plan}
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("Plan autotune for canvas")]
+    desc = f"{plan.tile_height}x{plan.tile_width}x{plan.tile_count}"
+    assert line == f"Plan autotune for canvas 256x256: chose {desc} (candidates: {desc})"

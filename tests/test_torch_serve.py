@@ -6,7 +6,8 @@ metric names and the wire formats agree; float labels agree on >= 99.5% of
 pixels and equal the port's own ``infer_arrays`` plus ``detection_veto``
 bit for bit; --max-batch groups concurrent requests and each response
 equals the unbatched one; the stall, compile-grace and RSS health signals;
-the parser equals the JAX parser; --mesh exits 2; no silent CPU run.
+the parser equals the JAX parser; --mesh beyond the visible devices exits
+1; no silent CPU run.
 The port runs on the CPU (ANNONET_TPU_TORCH_DEVICE=cpu), through the plain
 versions of its kernels.
 """
@@ -315,7 +316,12 @@ def test_last_request_stages_are_the_servers_own(servers, batched, with_batching
     server splits its wait in the batch window from the device section; a
     400 leaves the last answered request's stages in place."""
     url, service = batched if with_batching else servers["port"]
+    before = service.last_request_stages
     raw_labels(url, images(4))
+    # the handler records a request's stages after its response is sent
+    deadline = time.monotonic() + 10.0
+    while service.last_request_stages is before and time.monotonic() < deadline:
+        time.sleep(0.01)
     stages = service.last_request_stages
     expected = list(STAGES)
     if with_batching:
@@ -442,9 +448,14 @@ def test_parser_has_the_jax_flags():
     assert serve.build_parser().prog == jax_serve.build_parser().prog == "annonet_serve"
 
 
-def test_mesh_exits_2_and_no_compilation_cache_is_accepted(model, capsys):
-    assert serve.main(["--model", model, "--mesh", "2"]) == 2
-    assert "ROADMAP.md queue 1 item 3" in capsys.readouterr().err
+def test_mesh_exits_2_and_no_compilation_cache_is_accepted(model, capsys, monkeypatch):
+    # --mesh is ported: beyond the visible devices it is a setup error
+    # (exit 1, JAX's make_mesh message), never a silent run on fewer
+    monkeypatch.delenv("ANNONET_TPU_VIRTUAL_MESH", raising=False)
+    assert serve.main(["--model", model, "--mesh", "2"]) == 1
+    out = capsys.readouterr()
+    assert "requested 2 devices but only 1 available" in out.out
+    assert "not ported" not in out.err
     args = serve.build_parser().parse_args(["--model", model, "--no-compilation-cache"])
     assert args.no_compilation_cache is True
 
