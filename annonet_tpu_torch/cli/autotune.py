@@ -11,10 +11,10 @@ relaunched with one less on each failure (the .cmd's
 :DECREASE_MINIBATCH_SIZE loop). Every other argument passes through to
 annonet_train; ``--start N`` (default 100) is the first size probed.
 
-``--coordinator`` is refused, as in the JAX package (probes are
-single-host by nature), and so is ``--mesh`` until annonet_train trains
-data-parallel (ROADMAP.md queue 1 item 6): every probe would be refused
-and the search would end in "no minibatch size works".
+``--mesh N`` passes through to every probe and the real run, as in the
+JAX tool (a probe's -b is then the global minibatch, rounded up to a
+multiple of N by annonet_train). ``--coordinator`` is refused, as in the
+JAX package: probes are single-host by nature.
 """
 
 from __future__ import annotations
@@ -105,14 +105,6 @@ def main(argv=None) -> int:
             "(--coordinator): probes are single-host by nature. Autotune "
             "WITHOUT --coordinator on one host, then pass the found -b "
             "to your multi-host annonet_train launch.",
-            file=sys.stderr,
-        )
-        return 2
-    if _given(argv, "--mesh"):
-        print(
-            "annonet_autotune: --mesh is not ported to annonet_tpu_torch yet: "
-            "annonet_train refuses it until data-parallel training is ported "
-            "(ROADMAP.md queue 1 item 6), so every probe would fail",
             file=sys.stderr,
         )
         return 2

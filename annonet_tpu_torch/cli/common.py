@@ -176,21 +176,30 @@ def device_probe(device, timeout_s=None, on_timeout=None, _op=None) -> None:
         raise RuntimeError(f"device probe failed: {result['error']}") from result["error"]
 
 
-def make_cli_mesh(n_devices: int, device=None):
+def make_cli_mesh(n_devices: int, device=None, multiprocess: bool = False):
     """--mesh N -> the mesh ``TiledInferer(mesh=...)`` splits its tiles
-    over: the first N CUDA devices (parallel/mesh.py's ``make_mesh``).
-    Behind ANNONET_TPU_VIRTUAL_MESH=1, N virtual shards on ``device`` (the
-    one ``resolve_device`` picks), for testing the sharded path on one
-    device; an explicit opt-in, so a production --mesh run never lands on
-    fewer devices than it asked for. Runs after ``device_probe``, as in
-    the JAX CLIs; torch needs no flag set before its first device use, so
-    the JAX package's ``prepare_mesh_flags`` has no counterpart."""
+    over and ``DataParallelTrainer`` its minibatch: the first N CUDA
+    devices (parallel/mesh.py's ``make_mesh``). Behind
+    ANNONET_TPU_VIRTUAL_MESH=1, N virtual shards on ``device`` (the one
+    ``resolve_device`` picks), for testing the sharded path on one device;
+    an explicit opt-in, so a production --mesh run never lands on fewer
+    devices than it asked for. Runs after ``device_probe``, as in the JAX
+    CLIs; torch needs no flag set before its first device use, so the JAX
+    package's ``prepare_mesh_flags`` has no counterpart.
+
+    ``multiprocess``: the caller already ran ``initialize_distributed``
+    (--coordinator); N must then equal the GLOBAL device count (every
+    process's local devices), and the mesh returned is this process's
+    local part of it (``parallel/mesh.py process_mesh``)."""
     from annonet_tpu_torch.parallel.mesh import (
         VIRTUAL_MESH_ENV,
         ensure_virtual_devices,
         make_mesh,
+        process_mesh,
     )
 
+    if multiprocess:
+        return process_mesh(n_devices, device)
     if os.environ.get(VIRTUAL_MESH_ENV) == "1":
         return ensure_virtual_devices(n_devices, device)
     return make_mesh(n_devices)
@@ -206,7 +215,11 @@ def make_cli_mesh(n_devices: int, device=None):
 # (SIGSTOP) raises "[.../unbound_buffer.cc:129] Timed out waiting 5000ms
 # for send operation to complete" (":78" ... "for recv operation to
 # complete") after the group's timeout (ANNONET_TPU_HEARTBEAT_TIMEOUT), and
-# the next collective "Application timeout caused pair closure".
+# the next collective "Application timeout caused pair closure". In
+# training, where the survivor is inside a collective or about to read one
+# when the peer dies, gloo raises "[.../pair.cc:537] Read error
+# [127.0.0.1]:<port>: Connection reset by peer" (measured the same way,
+# annonet_train --coordinator, a rank SIGKILLed mid-training).
 #
 # As in the JAX package, no generic transport string is a marker ("reset
 # by peer", "connection refused", a bare "timed out"): a rank-LOCAL error
@@ -216,6 +229,7 @@ def make_cli_mesh(n_devices: int, device=None):
 # rank-local path, not be reported as a dead peer.
 _PEER_FAILURE_MARKERS = (
     "connection closed by peer",            # pair.cc: the peer's process died
+    "] read error [",                       # pair.cc: its connection reset mid-read
     "for send operation to complete",       # unbound_buffer.cc: the peer is silent
     "for recv operation to complete",
     "application timeout caused pair closure",

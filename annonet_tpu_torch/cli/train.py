@@ -25,12 +25,21 @@ through the port's TiledInferer (the inference kernels; int8 with
 (``update_params``). --profile DIR writes a torch.profiler trace of the
 loop; ANNONET_TPU_STEP_TIMING=1 prints each step's host time.
 
+--mesh N trains data-parallel (parallel/train.py: sync BN, the minibatch
+rounded up to a multiple of N) over the first N CUDA devices, or over N
+virtual shards of the one device under ANNONET_TPU_VIRTUAL_MESH=1.
+--coordinator HOST:PORT --num-processes P --process-id I runs one of P
+processes over a gloo group (each on cuda:(I mod count) unless --device
+says otherwise): --mesh must then be the global shard count, the
+processes must resume from one sync file (checked before the trainer is
+built), --deterministic-data is forced, rank 0 alone writes the artifact,
+the sync file and the metrics, and a dead peer ends every survivor with
+exit code 3. --int8-training runs the 3x3 convs' forward in int8
+(ops/int8_train.py, on Q1's and Q2's accumulator modes).
+
 --steps-per-dispatch is accepted and its K steps are dispatched one by
 one (the JAX package documents its scan superstep as K single
-dispatches); --no-compilation-cache is accepted and does nothing. Flags
-whose feature is not ported yet exit with code 2 and name the roadmap
-item: --mesh, --coordinator, --num-processes, --process-id (data-parallel
-training) and --int8-training.
+dispatches); --no-compilation-cache is accepted and does nothing.
 """
 
 from __future__ import annotations
@@ -109,10 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", "--primary-cuda-device", dest="device",
                    type=int, default=None, help="CUDA device index")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="Train data-parallel over N devices (not ported "
-                        "yet)")
+                   help="Train data-parallel over N devices (sync-BN DP; "
+                        "minibatch is rounded up to a multiple of N)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="Multi-host training (not ported yet)")
+                   help="Multi-process training over a gloo process group "
+                        "(process 0's address); --mesh must then equal the "
+                        "GLOBAL device count. Every process runs this same "
+                        "command against the same dataset with the same "
+                        "seed, differing only in --process-id. 'auto' reads "
+                        "torchrun's rendezvous variables")
     p.add_argument("--num-processes", type=int, default=None, metavar="P",
                    help="Total process (host) count for --coordinator")
     p.add_argument("--process-id", type=int, default=None, metavar="I",
@@ -159,7 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Rematerialize activations in the backward pass "
                         "(fits larger minibatches; ~1/3 more compute)")
     p.add_argument("--int8-training", action="store_true",
-                   help="Quantization-aware training (not ported yet)")
+                   help="Quantization-aware training: int8 forward convs "
+                        "(straight-through gradients), so the net serves "
+                        "well under --quantize int8")
     p.add_argument("--no-compilation-cache", action="store_true",
                    help="Accepted for flag parity; the port keeps no "
                         "compilation cache")
@@ -190,26 +206,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_UNSET = object()
-# (flag, dest, roadmap item): refused whenever the flag is on the command line
-_UNPORTED = (
-    ("--mesh", "mesh", 6),
-    ("--coordinator", "coordinator", 6),
-    ("--num-processes", "num_processes", 6),
-    ("--process-id", "process_id", 6),
-    ("--int8-training", "int8_training", 7),
-)
-
-
-def _unported(args):
-    """The message for the first unported flag the user passed, or None."""
-    for flag, dest, item in _UNPORTED:
-        if getattr(args, dest) is not _UNSET:
-            return (f"annonet_train: {flag} is not ported to annonet_tpu_torch yet "
-                    f"(ROADMAP.md queue 1 item {item})")
-    return None
-
-
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -222,9 +218,6 @@ def main(argv=None) -> int:
         return 1
 
     parser = build_parser()
-    # a sentinel default tells "flag given" from "default" for the
-    # unported flags; build_parser itself stays the JAX package's table
-    parser.set_defaults(**{dest: _UNSET for _flag, dest, _item in _UNPORTED})
     try:
         args = parser.parse_args(argv)
         input_directory = args.input_directory or args.input_directory_positional
@@ -239,15 +232,16 @@ def main(argv=None) -> int:
             parser.error("The downscaling factors have to be strictly positive.")
     except SystemExit as e:
         return int(e.code or 0)
-    message = _unported(args)
-    if message:
-        print(message, file=sys.stderr)
-        return 2
     # setup errors print the message and exit 1 (annonet_train_main.cpp:
     # 640-644); errors inside the training loop exit 2 (in _run)
     try:
         return _run(args, input_directory)
     except Exception as e:  # noqa: BLE001
+        from annonet_tpu_torch.cli.common import exit_on_peer_failure
+
+        # a dead peer in a setup collective (the resume check, the first
+        # step's reductions) leaves with the peer-failure code
+        exit_on_peer_failure(e, bool(args.coordinator))
         print(e)
         return 1
 
@@ -269,6 +263,52 @@ def _sync_interval_seconds() -> float:
             "positive number of seconds"
         )
     return value
+
+
+def _resume_state_vector(sync_file):
+    """A process's resume state as one comparable uint8 vector (the JAX
+    CLI's): int64 step | float64 learning rate | the 32-byte weights
+    fingerprint. Step -1: no file; -2: unreadable (the trainer then raises
+    the real error on every rank alike). Reads only the file's meta."""
+    import numpy as np
+
+    from annonet_tpu_torch import serialization
+
+    step, lr = -1, -1.0
+    fingerprint = b"\x00" * 32
+    if sync_file and os.path.exists(sync_file):
+        try:
+            meta = serialization.load_trainer_meta(sync_file)
+            step = int(meta["step_count"])
+            lr = float(meta["learning_rate"])
+            if meta.get("weights_fingerprint", ""):
+                fingerprint = bytes.fromhex(meta["weights_fingerprint"])
+        except Exception:  # noqa: BLE001 - a rank-local verdict only
+            step, lr = -2, -2.0
+    return np.concatenate([
+        np.asarray([step], np.int64).view(np.uint8),
+        np.asarray([lr], np.float64).view(np.uint8),
+        np.frombuffer(fingerprint, np.uint8),
+    ])
+
+
+def _check_resume_consistency(sync_file) -> None:
+    """Every process must resume from the same state (one --sync-file on a
+    shared filesystem): all-gather each rank's resume vector, raise on any
+    difference."""
+    import torch
+    import torch.distributed as dist
+
+    mine = torch.from_numpy(_resume_state_vector(sync_file))
+    gathered = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, mine)
+    if not all(torch.equal(g, gathered[0]) for g in gathered):
+        raise RuntimeError(
+            "multi-host resume mismatch: processes see different trainer "
+            "checkpoints (step/learning-rate/weights fingerprint differ "
+            "across ranks) — point every process at the SAME --sync-file on "
+            "a shared filesystem, or delete it everywhere to start fresh"
+        )
 
 
 def _run(args, input_directory) -> int:
@@ -299,7 +339,12 @@ def _run_impl(args, input_directory, stack) -> int:
 
     from annonet_tpu_torch import serialization
     from annonet_tpu_torch.classes import parse_anno_classes
-    from annonet_tpu_torch.cli.common import device_probe, resolve_device
+    from annonet_tpu_torch.cli.common import (
+        device_probe,
+        exit_on_peer_failure,
+        make_cli_mesh,
+        resolve_device,
+    )
     from annonet_tpu_torch.data.crop import CropOptions
     from annonet_tpu_torch.data.dataset import find_image_files, read_anno_classes_file
     from annonet_tpu_torch.data.pipeline import CropPipeline, RegionFilterOptions
@@ -338,8 +383,39 @@ def _run_impl(args, input_directory, stack) -> int:
     anno_classes_json = read_anno_classes_file(input_directory)
     anno_classes = parse_anno_classes(anno_classes_json)
     model_config = model_config_for(len(anno_classes))
+
+    # multi-process bootstrap: the gloo group first, then the devices
+    multihost = bool(args.coordinator)
+    io_process = True
+    if multihost:
+        if not args.mesh:
+            raise RuntimeError(
+                "--coordinator requires --mesh N (the global device count "
+                "across all processes)"
+            )
+        import torch.distributed as dist
+
+        from annonet_tpu_torch.parallel.mesh import initialize_distributed
+
+        rank, world = initialize_distributed(
+            args.coordinator, num_processes=args.num_processes, process_id=args.process_id,
+        )
+        stack.callback(dist.destroy_process_group)
+        io_process = rank == 0
+        print(f"Multi-host training: process {rank} of {world}")
+        # every process must draw the identical crop-decision stream
+        if not args.deterministic_data:
+            print("Multi-host: forcing --deterministic-data (every process "
+                  "must draw the identical crop-decision stream)")
+            args.deterministic_data = True
     device = resolve_device(args.device)
+    if multihost and device.type == "cuda" and args.device is None:
+        import torch
+
+        # ranks spread over the host's cards: rank I on cuda:(I mod count)
+        device = torch.device("cuda", rank % torch.cuda.device_count())
     device_probe(device)
+    mesh = make_cli_mesh(args.mesh, device, multiprocess=multihost) if args.mesh else None
 
     trainer_config = TrainerConfig(
         initial_learning_rate=args.initial_learning_rate,
@@ -349,16 +425,30 @@ def _run_impl(args, input_directory, stack) -> int:
         previous_loss_values_dump_amount=int(round(relative_training_length * 400)),
         bn_stats_window=int(round(relative_training_length * 100)),
         remat=args.remat,
+        int8_forward=args.int8_training,
         loss_sync_interval=max(1, args.loss_sync_interval),
         sync_file=args.sync_file,
         sync_interval_seconds=_sync_interval_seconds(),
         verbose=True,
     )
+    if multihost:
+        # checked BEFORE the trainer resumes: a rank that missed the file,
+        # or holds another run's, would train from other weights
+        _check_resume_consistency(args.sync_file)
     minibatch_size = args.minibatch_size
-    trainer = Trainer(model_config, trainer_config, seed=args.seed, device=device)
+    if mesh is not None:
+        from annonet_tpu_torch.parallel.train import DataParallelTrainer
+
+        if minibatch_size % args.mesh:
+            minibatch_size += args.mesh - minibatch_size % args.mesh
+            print(f"Minibatch size rounded up to {minibatch_size} "
+                  f"(multiple of the {args.mesh}-device mesh)")
+        trainer = DataParallelTrainer(model_config, trainer_config, seed=args.seed, mesh=mesh)
+    else:
+        trainer = Trainer(model_config, trainer_config, seed=args.seed, device=device)
 
     metrics = None
-    if args.metrics_jsonl:
+    if args.metrics_jsonl and io_process:
         from annonet_tpu_torch.utils.metrics import MetricsWriter
 
         metrics = MetricsWriter(args.metrics_jsonl, args.metrics_interval)
@@ -376,7 +466,7 @@ def _run_impl(args, input_directory, stack) -> int:
             min_learning_rate=args.min_learning_rate,
             initial_downscaling_factor=args.initial_downscaling_factor,
             further_downscaling_factor=args.further_downscaling_factor,
-            mesh=None,
+            mesh=args.mesh,
             seed=args.seed,
             resumed_at_step=trainer.step_count,
         )
@@ -487,6 +577,10 @@ def _run_impl(args, input_directory, stack) -> int:
             )
 
     def save_inference_net():
+        if not io_process:
+            # the parameters are equal everywhere: rank 0's artifact is
+            # everyone's
+            return
         print("saving network")
         runtime_net = trainer.runtime_net()
         serialization.save_model(args.output, runtime_net, model_config, anno_classes_json,
@@ -512,7 +606,8 @@ def _run_impl(args, input_directory, stack) -> int:
     if args.device_image_cache != "off" and args.further_downscaling_factor <= 1.0:
         from annonet_tpu_torch.train.device_cache import DeviceImagePool
 
-        device_pool = DeviceImagePool(slots=max(1, args.cached_image_count), device=device)
+        device_pool = DeviceImagePool(slots=max(1, args.cached_image_count), device=device,
+                                      replicas=trainer.pool_replicas)
     elif args.device_image_cache == "on":
         raise RuntimeError(
             "--device-image-cache on requires --further-downscaling-factor <= 1"
@@ -530,6 +625,9 @@ def _run_impl(args, input_directory, stack) -> int:
         thread_count=max(1, args.data_loader_thread_count),
         queue_depth=2 * args.minibatch_size,
         seed=args.seed,
+        # multi-process: the pin-budget fallback depends on timing (it turns
+        # a decision batch into a pixel batch on one rank), so it never fires
+        pinned_bytes_budget=(1 << 62) if multihost else 512 << 20,
         deterministic=args.deterministic_data,
     ) as pipe:
         # errors inside the training loop print the message and exit 2
@@ -568,9 +666,7 @@ def _run_impl(args, input_directory, stack) -> int:
                         save_inference_net()
                     minibatch += 1
         except Exception as e:  # noqa: BLE001
-            print(e)
-            if metrics is not None:
-                metrics.event("error", message=str(e))
+            _loop_error(e, multihost, metrics)
             return 2
 
     # the tail is still loop work: a divergence in the last pending losses
@@ -580,9 +676,7 @@ def _run_impl(args, input_directory, stack) -> int:
         save_inference_net()
         trainer.save_sync_file()
     except Exception as e:  # noqa: BLE001
-        print(e)
-        if metrics is not None:
-            metrics.event("error", message=str(e))
+        _loop_error(e, multihost, metrics)
         return 2
     if metrics is not None:
         metrics.event(
@@ -591,7 +685,32 @@ def _run_impl(args, input_directory, stack) -> int:
             steps_this_run=minibatch,
             wall_seconds=round(time.monotonic() - train_started, 3),
         )
+    if multihost:
+        # hold every process until the last save is done everywhere
+        import torch.distributed as dist
+
+        dist.barrier()
     return 0
+
+
+def _loop_error(e, multihost: bool, metrics) -> None:
+    """Report an error of the training loop (exit 2 follows): a dead peer
+    leaves at once with the peer-failure code, the metrics' error event
+    written first."""
+    from annonet_tpu_torch.cli.common import exit_on_peer_failure, peer_failure_diagnosis
+
+    if multihost and metrics is not None and peer_failure_diagnosis(e):
+        metrics.event("error", message=str(e))  # written before the exit below
+    exit_on_peer_failure(e, multihost)
+    print(e)
+    if multihost:
+        # a rank-local failure leaves the peers blocked in their next
+        # collective until this process's exit closes its connections
+        print("multi-host: this rank is exiting; peer processes may block or "
+              "fail in their next collective. Restart the job on every host "
+              "(resume from the shared --sync-file).")
+    if metrics is not None:
+        metrics.event("error", message=str(e))
 
 
 

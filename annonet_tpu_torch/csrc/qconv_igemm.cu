@@ -1,4 +1,4 @@
-// Q1 and its accumulator mode, and Q2: the int8 3x3 convs as an implicit
+// Q1 and Q2 and their accumulator modes: the int8 3x3 convs as an implicit
 // GEMM on the int8 tensor cores.
 //
 // Replaces the Pallas TPU kernels
@@ -8,7 +8,10 @@
 //     at :263), stride 2 with XLA SAME padding (0, 1): output o taps inputs
 //     2o + d, and
 //   scripts/repro_mosaic_s1.py:136 bisect._acc_kernel (pallas_call at :160),
-//     the raw int32 accumulator of the TPU diagnostic script (ACC below).
+//     the raw int32 accumulator of the TPU diagnostic script (ACC below,
+//     stride 1); ACC at stride 2 is the int32 conv of int8 training's
+//     stride-2 layers (annonet_tpu/ops/int8_train.py:47, an XLA conv with
+//     int32 accumulation; ACC at stride 1 serves its stride-1 layers).
 // Q3 (the 2x2 transpose conv) is qup_igemm.cu's GEMM on the same tensor cores.
 //
 // What it computes: acc[n, o, co] = the exact int32 sum over the 9 taps and
@@ -16,7 +19,7 @@
 // padding (1, 1) at stride 1 and (0, 1) at stride 2; then q =
 // int8(clip(fma(float(acc), scale[co], offset[co]), 0, 127)), truncating
 // (__fmaf_rn, one rounding, as XLA's contracted FMA; ops/qconv.py). ACC
-// (stride 1 only) writes acc itself, int32, instead. Integer sums are exact
+// writes acc itself, int32, instead, at either stride. Integer sums are exact
 // in any order, so every mode equals its plain version bit for bit.
 //
 // What bounds it on an H100. A layer's 2 * 9 * cin operations per output
@@ -164,7 +167,6 @@ q1_igemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ x2,
                 int64_t tiles_x, int vec_x, int vec_o) {
   using S = QShape<STRIDE, BN, PAIR>;
   using O = QOut<BN, ACC>;
-  static_assert(STRIDE == 1 || !ACC, "the accumulator mode is stride 1's");
   constexpr int kPad = STRIDE == 1 ? 1 : 0;  // top/left zero padding
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -463,12 +465,11 @@ extern "C" int annonet_q1_igemm(const void* x, const void* x2, const void* wp,
 }
 
 // Q2: x int8 NHWC [n, h, w, cin] with even h and w; wp the packed weights
-// as for Q1 (pack_q1_weights); out int8 [n, h / 2, w / 2, cout]
-extern "C" int annonet_qconv3x3_s2_requant(const void* x, const void* wp,
-                                           const void* scale, const void* offset,
-                                           void* out, int64_t n, int64_t h,
-                                           int64_t wd, int cin, int cout,
-                                           void* stream) {
+// as for Q1 (pack_q1_weights); out [n, h / 2, w / 2, cout]: acc != 0
+// writes the int32 sums (scale and offset unused), else the requantized int8
+extern "C" int annonet_q2_igemm(const void* x, const void* wp, const void* scale,
+                                const void* offset, void* out, int64_t n, int64_t h,
+                                int64_t wd, int cin, int cout, int acc, void* stream) {
   using namespace annonet;
   cudaGetLastError();  // report this launch's error only
   if (cout <= 0 || cin <= 0 || reinterpret_cast<uintptr_t>(wp) % 16)
@@ -479,7 +480,13 @@ extern "C" int annonet_qconv3x3_s2_requant(const void* x, const void* wp,
   const auto* wt = static_cast<const int8_t*>(wp);
   const auto* sc = static_cast<const float*>(scale);
   const auto* of = static_cast<const float*>(offset);
-  return (int)(cin <= 16
-                   ? dispatch<2, true, false>(xt, nullptr, wt, sc, of, out, n, h, wd, cin, 0, cout, s)
-                   : dispatch<2, false, false>(xt, nullptr, wt, sc, of, out, n, h, wd, cin, 0, cout, s));
+  const bool pair = cin <= 16;
+  cudaError_t e;
+  if (acc)
+    e = pair ? dispatch<2, true, true>(xt, nullptr, wt, sc, of, out, n, h, wd, cin, 0, cout, s)
+             : dispatch<2, false, true>(xt, nullptr, wt, sc, of, out, n, h, wd, cin, 0, cout, s);
+  else
+    e = pair ? dispatch<2, true, false>(xt, nullptr, wt, sc, of, out, n, h, wd, cin, 0, cout, s)
+             : dispatch<2, false, false>(xt, nullptr, wt, sc, of, out, n, h, wd, cin, 0, cout, s);
+  return (int)e;
 }

@@ -422,21 +422,40 @@ def _conv_transpose_train(x, w, dtype):
     return F.conv_transpose2d(x, wt, stride=2)
 
 
-def _bn_train(h, gamma, beta):
-    """Batch norm of NCHW ``h`` over (N, H, W), as segnet.py's _bn_train:
+def _bn_train(hs, gammas, betas, reducer=None, fold: int = 1):
+    """Batch norm of NCHW ``hs`` over (N, H, W), as segnet.py's _bn_train:
     f32 statistics of the compute-dtype activations, var = max(E[h^2] -
     E[h]^2, 0), scale and shift rounded to the compute dtype once per
-    channel, the normalisation in the compute dtype. Returns (out, mean,
+    channel, the normalisation in the compute dtype. Returns (outs, mean,
     var). Not F.batch_norm: its running statistics take the unbiased
-    variance."""
-    h32 = h.to(torch.float32)
-    mean = h32.mean(dim=(0, 2, 3))
-    mean_sq = h32.square().mean(dim=(0, 2, 3))
-    var = torch.clamp(mean_sq - mean.square(), min=0.0)
-    inv = torch.rsqrt(var + _BN_EPS)
-    scale = (inv * gamma).to(h.dtype)
-    shift = (beta - mean * inv * gamma).to(h.dtype)
-    return h * scale[:, None, None] + shift[:, None, None], mean, var
+    variance.
+
+    ``hs``, ``gammas`` and ``betas`` are lists over the shards, one of each
+    without a ``reducer``. With one (sync BN, ``parallel/train.py``), each
+    shard's mean and mean square are averaged over every shard of the
+    mesh, its other processes' too (JAX's ``pmean`` under shard_map), and
+    each shard is normalised with those statistics on its own device.
+    ``fold`` > 1 takes the statistics of a width-folded activation
+    (``folded_runtime.py``) per real channel: its channel axis is ``fold``
+    groups of the real channels, each group more reduction elements."""
+    moments = []
+    for h in hs:
+        # [N, fold, C, H, W]: a view in any layout, reduced in memory order
+        x32 = h.to(torch.float32).unflatten(1, (fold, -1))
+        moments.append(torch.stack([x32.mean(dim=(0, 1, 3, 4)),
+                                    x32.square().mean(dim=(0, 1, 3, 4))]))
+    moments = moments if reducer is None else reducer.mean(moments)
+    out, stats = [], None
+    for h, (mean, mean_sq), g, b in zip(hs, moments, gammas, betas):
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
+        inv = torch.rsqrt(var + _BN_EPS)
+        scale = (inv * g).to(h.dtype)
+        shift = (b - mean * inv * g).to(h.dtype)
+        if fold > 1:
+            scale, shift = scale.repeat(fold), shift.repeat(fold)
+        out.append(h * scale[:, None, None] + shift[:, None, None])
+        stats = stats or (mean, var)  # the first shard's, on the home device
+    return out, *stats
 
 
 def _bn_update(stats: Params, mean, var, momentum: float) -> Params:
@@ -446,23 +465,38 @@ def _bn_update(stats: Params, mean, var, momentum: float) -> Params:
     }
 
 
-def _unit(x, w, gamma, beta, *, up: bool, stride: int, dtype):
-    """conv (or transpose conv) -> BN with batch statistics -> ReLU."""
+def exact_convs(xs, ws, stride: int, dtype, reducer=None):
+    """The training 3x3 conv of every shard in ``xs`` with its kernel in
+    ``ws`` (``_conv_train``): the default ``conv_impl`` of ``apply_train``."""
+    return [_conv_train(x, w, stride, dtype) for x, w in zip(xs, ws)]
+
+
+def _unit(*args, up: bool, stride: int, dtype, conv_impl, reducer):
+    """conv (or transpose conv) -> BN with batch statistics -> ReLU over
+    the shards: ``args`` are the shards' inputs, then their kernels,
+    gammas and betas (n of each). Returns (shards, mean, var)."""
+    n = len(args) // 4
+    xs, ws, gammas, betas = (list(args[i * n:(i + 1) * n]) for i in range(4))
     with torch.profiler.record_function("conv_forward"):
-        h = _conv_transpose_train(x, w, dtype) if up else _conv_train(x, w, stride, dtype)
+        if up:
+            hs = [_conv_transpose_train(x, w, dtype) for x, w in zip(xs, ws)]
+        else:
+            hs = conv_impl(xs, ws, stride, dtype, reducer)
     with torch.profiler.record_function("bn"):
-        h, mean, var = _bn_train(h, gamma, beta)
-        return torch.relu(h).to(dtype), mean, var
+        hs, mean, var = _bn_train(hs, gammas, betas, reducer)
+        return [torch.relu(h).to(dtype) for h in hs], mean, var
 
 
 def apply_train(
-    params: Params,
+    params,
     bn_stats: Params,
-    x_uint8: torch.Tensor,
+    x_uint8,
     config: SegNetConfig,
     bn_momentum: float = 0.99,
     remat: bool = False,
-) -> Tuple[torch.Tensor, Params]:
+    conv_impl: Optional[Callable] = None,
+    reducer=None,
+) -> Tuple[Any, Params]:
     """Training forward with batch-stat BN: [N,H,W,C] uint8 -> (logits
     [N,H,W,K] f32, new running statistics); the counterpart of the JAX
     ``apply_train``. ``params`` and ``bn_stats`` are trees of f32 tensors
@@ -470,44 +504,65 @@ def apply_train(
     the f32 kernels (through autograd: cuDNN on the card, not the
     inference kernels K1-K3, which have no backward). ``remat``
     recomputes each conv + BN + ReLU unit in the backward pass
-    (torch.utils.checkpoint, as jax.checkpoint per unit)."""
-    _check_train_input(x_uint8, config)
+    (torch.utils.checkpoint, as jax.checkpoint per unit).
+
+    ``conv_impl(xs, ws, stride, dtype, reducer) -> list`` replaces the 3x3
+    convs of the stem, encoder and decoder (``exact_convs`` by default;
+    ``ops/int8_train.py``'s straight-through int8 conv); the transpose
+    convs and the head stay exact, as in the JAX package.
+
+    ``reducer`` (``parallel/train.py``'s ``ShardReducer``) makes this the
+    data-parallel forward: ``x_uint8`` and ``params`` are then lists over
+    the mesh's local shards (each shard's input and its own copy of the
+    parameters, on its device), every BN layer takes its statistics over
+    all shards of the mesh (sync BN), and the logits come back as a list."""
+    shards = list(x_uint8) if reducer is not None else [x_uint8]
+    trees = list(params) if reducer is not None else [params]
+    for x in shards:
+        _check_train_input(x, config)
     dtype = compute_dtype(config)
+    conv_impl = exact_convs if conv_impl is None else conv_impl
     L = config.level_count
     new_stats: Params = {k: dict(v) for k, v in bn_stats.items()}
 
-    def run_unit(x, p, name, stride):
+    def run_unit(xs, block_name, name, stride):
         up = name == "bnu"
-        w = p["up" if up else name.replace("bn", "conv")]
-        fn = functools.partial(_unit, up=up, stride=stride, dtype=dtype)
+        conv = "up" if up else name.replace("bn", "conv")
+        ps = [t[block_name] for t in trees]
+        args = (*xs, *(p[conv] for p in ps), *(p[name]["gamma"] for p in ps),
+                *(p[name]["beta"] for p in ps))
+        fn = functools.partial(_unit, up=up, stride=stride, dtype=dtype,
+                               conv_impl=conv_impl, reducer=reducer)
         if remat:
-            return checkpoint(fn, x, w, p[name]["gamma"], p[name]["beta"],
-                              use_reentrant=False)
-        return fn(x, w, p[name]["gamma"], p[name]["beta"])
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
-    def block(x, p, s, names, strides):
+    def block(xs, block_name, names, strides):
+        s = new_stats[block_name]
         for name, stride in zip(names, strides):
-            x, mean, var = run_unit(x, p, name, stride)
+            xs, mean, var = run_unit(xs, block_name, name, stride)
             s[name] = _bn_update(s[name], mean, var, bn_momentum)
-        return x
+        return xs
 
     # NHWC uint8 -> NCHW view (channels_last in memory): cuDNN's NHWC convs
-    x = normalize_input(x_uint8, dtype).permute(0, 3, 1, 2)
-    x = block(x, params["stem"], new_stats["stem"], ["bn0", "bn1"], [1, 1])
-    skips = [x]
+    xs = [normalize_input(x, dtype).permute(0, 3, 1, 2) for x in shards]
+    xs = block(xs, "stem", ["bn0", "bn1"], [1, 1])
+    skips = [xs]
     for i in range(1, L + 1):
-        x = block(x, params[f"enc{i}"], new_stats[f"enc{i}"], ["bn0", "bn1"], [2, 1])
+        xs = block(xs, f"enc{i}", ["bn0", "bn1"], [2, 1])
         if i < L:
-            skips.append(x)
+            skips.append(xs)
     for i in range(L, 0, -1):
-        p, s = params[f"dec{i}"], new_stats[f"dec{i}"]
-        x = block(x, p, s, ["bnu"], [2])
-        x = torch.cat([x, skips[i - 1]], dim=1)
-        x = block(x, p, s, ["bn0"], [1])
+        xs = block(xs, f"dec{i}", ["bnu"], [2])
+        xs = [torch.cat([x, skip], dim=1) for x, skip in zip(xs, skips[i - 1])]
+        xs = block(xs, f"dec{i}", ["bn0"], [1])
+    logits = []
     with torch.profiler.record_function("conv_forward"):
-        # compute-dtype head, then the f32 bias promotes the logits to f32
-        logits = _conv_train(x, params["head"]["w"], 1, dtype) + params["head"]["b"][:, None, None]
-    return logits.to(torch.float32).permute(0, 2, 3, 1), new_stats
+        for x, t in zip(xs, trees):
+            # compute-dtype head, then the f32 bias promotes the logits to f32
+            out = _conv_train(x, t["head"]["w"], 1, dtype) + t["head"]["b"][:, None, None]
+            logits.append(out.to(torch.float32).permute(0, 2, 3, 1))
+    return (logits if reducer is not None else logits[0]), new_stats
 
 
 def _check_train_input(x: torch.Tensor, config: SegNetConfig) -> None:

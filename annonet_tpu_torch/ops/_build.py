@@ -56,9 +56,9 @@ _SIGNATURES = {
     "annonet_q1_igemm": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I, _P,
     ],
-    # x, packed w, scale, offset, out, n, h, w, cin, cout, stream
-    "annonet_qconv3x3_s2_requant": [
-        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P,
+    # x, packed w, scale, offset, out, n, h, w, cin, cout, acc, stream
+    "annonet_q2_igemm": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
     # x, packed w, scale, offset, out, n, h, w, cin, cout, stream
     "annonet_qup2x2_requant": [

@@ -3,7 +3,7 @@
 Each op has a plain PyTorch version (``*_plain``) and a wrapper. The
 wrapper checks its arguments; for tensors on the CPU it returns the plain
 version, for CUDA tensors it launches the hand-written kernel
-(``csrc/qconv_igemm.cu`` for Q1, its accumulator mode and Q2,
+(``csrc/qconv_igemm.cu`` for Q1 and Q2 and their accumulator modes,
 ``csrc/qup_igemm.cu`` for Q3, all on the int8 tensor cores) on the current
 stream (or raises: there is no fallback from a CUDA tensor to the plain
 version) and adds one to its ``launches`` count.
@@ -38,6 +38,10 @@ its algorithms need not be).
                            accumulator of scripts/repro_mosaic_s1.py's
                            bisect; tools/repro_qconv_s1.py runs it)
   Q2 qconv3x3_s2_requant   3x3, stride 2, zero padding (0, 1) on even H, W
+     qconv3x3_s2_acc       Q2's accumulator mode: the int32 sums, [N, H/2,
+                           W/2, C'] int32 (the forward of int8 training's
+                           stride-2 layers, ops/int8_train.py; Q1's
+                           accumulator mode serves its stride-1 layers)
   Q3 qup2x2_requant        2x2 stride-2 transpose conv,
                            out[2i+u, 2j+v] = requant_v(x[i, j] . w[1-u, 1-v])
                            with scale and offset [2, C'] indexed by the
@@ -104,11 +108,15 @@ def qconv3x3_requant_plain(x, w, scale, offset, x2: Optional[torch.Tensor] = Non
     return requant_plain(qconv3x3_acc_plain(x, w, x2), scale, offset).contiguous()
 
 
-def qconv3x3_s2_requant_plain(x, w, scale, offset):
+def qconv3x3_s2_acc_plain(x, w):
     # explicit (0, 1) padding: padding=1 would pad (1, 1)
     xp = F.pad(_nchw64(x), (0, 1, 0, 1))
     acc = _exact_f64(F.conv2d, xp, _oihw64(w), stride=2)
-    return requant_plain(acc.permute(0, 2, 3, 1), scale, offset).contiguous()
+    return acc.permute(0, 2, 3, 1).to(torch.int32).contiguous()
+
+
+def qconv3x3_s2_requant_plain(x, w, scale, offset):
+    return requant_plain(qconv3x3_s2_acc_plain(x, w), scale, offset).contiguous()
 
 
 def qup2x2_requant_plain(x, w, scale, offset):
@@ -281,33 +289,58 @@ def qconv3x3_acc(x, w, x2: Optional[torch.Tensor] = None,
 qconv3x3_acc.launches = 0
 
 
+def _check_s2(x, w, scale, offset, what):
+    _check(x, w, scale, offset, 3, 3, x.shape[3], (), what)
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"{what}: H and W must be even, got {tuple(x.shape)}")
+
+
+def _launch_q2(x, packed, scale, offset):
+    """Q2's kernel on CUDA tensors: the requantized int8, or with ``scale``
+    None the int32 sums."""
+    n, h, wd, cin = x.shape
+    cout = packed.shape[2]
+    acc = scale is None
+    out = torch.empty((n, h // 2, wd // 2, cout),
+                      dtype=torch.int32 if acc else torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _build.lib().annonet_q2_igemm(
+            x.data_ptr(), packed.data_ptr(), 0 if acc else scale.data_ptr(),
+            0 if acc else offset.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+            int(acc), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "annonet_q2_igemm")
+    return out
+
+
 def qconv3x3_s2_requant(x, w, scale, offset, packed: Optional[torch.Tensor] = None):
     """Q2: requant(conv3x3 stride 2, padding (0, 1)): [N,H,W,C] ->
     [N,H/2,W/2,C'] int8 for even H and W; ``packed`` is
     ``pack_q1_weights(w)``, made once by the caller, or None."""
-    _check(x, w, scale, offset, 3, 3, x.shape[3], (), "qconv3x3_s2_requant")
-    if x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(
-            f"qconv3x3_s2_requant: H and W must be even, got {tuple(x.shape)}"
-        )
+    _check_s2(x, w, scale, offset, "qconv3x3_s2_requant")
     packed = _q1_packed(x, 0, w, packed, "qconv3x3_s2_requant")
     if x.device.type == "cpu":
         return qconv3x3_s2_requant_plain(x, w, scale, offset)
     qconv3x3_s2_requant.launches += 1
-    n, h, wd, cin = x.shape
-    cout = w.shape[3]
-    out = torch.empty((n, h // 2, wd // 2, cout), dtype=torch.int8, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _build.lib().annonet_qconv3x3_s2_requant(
-            x.data_ptr(), packed.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, cout,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(code, "annonet_qconv3x3_s2_requant")
-    return out
+    return _launch_q2(x, packed, scale, offset)
 
 
 qconv3x3_s2_requant.launches = 0
+
+
+def qconv3x3_s2_acc(x, w, packed: Optional[torch.Tensor] = None):
+    """Q2's accumulator mode: conv3x3 stride 2, padding (0, 1), as exact
+    int32 sums: int8 NHWC [N,H,W,C] in (even H and W), [N,H/2,W/2,C']
+    int32 out (``packed`` as for Q2)."""
+    _check_s2(x, w, None, None, "qconv3x3_s2_acc")
+    packed = _q1_packed(x, 0, w, packed, "qconv3x3_s2_acc")
+    if x.device.type == "cpu":
+        return qconv3x3_s2_acc_plain(x, w)
+    qconv3x3_s2_acc.launches += 1
+    return _launch_q2(x, packed, None, None)
+
+
+qconv3x3_s2_acc.launches = 0
 
 
 def qup2x2_requant(x, w, scale, offset, packed: Optional[torch.Tensor] = None):

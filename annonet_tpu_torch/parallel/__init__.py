@@ -1,7 +1,7 @@
 """Parallelism on torch: the device mesh that tile-parallel inference
-splits its tile batch over, and the multi-process bootstrap of
-``annonet_infer --coordinator`` (the counterpart of annonet_tpu/parallel;
-data-parallel training is not ported yet, ROADMAP.md queue 1 item 6)."""
+splits its tile batch over and data-parallel training its minibatch
+(``parallel/train.py``), and the multi-process bootstrap of
+``--coordinator`` (the counterpart of annonet_tpu/parallel)."""
 
 from annonet_tpu_torch.parallel.mesh import (
     ensure_virtual_devices,

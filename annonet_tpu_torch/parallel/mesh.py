@@ -12,7 +12,11 @@ without it ``--mesh N`` beyond the visible devices fails.
 
 Multi-process inference (``--coordinator``) exchanges only small host
 arrays (the final confusion matrices, timings and calibration maxima),
-so its process group is gloo's, over TCP, on any machine.
+so its process group is gloo's, over TCP, on any machine. Multi-process
+training (``annonet_train --coordinator``, parallel/train.py) gathers
+its BN moments, int8 scales and gradients over the same gloo group,
+through host copies; each process's ``process_mesh`` is its local part
+of the global mesh.
 """
 
 from __future__ import annotations
@@ -66,6 +70,43 @@ def ensure_virtual_devices(n_devices: int, device=None) -> Tuple[torch.device, .
 
         device = resolve_device()
     return (torch.device(device),) * n_devices
+
+
+def local_virtual_devices(n_devices: int, num_processes: int) -> int:
+    """A process's virtual shards of an ``n_devices`` mesh over
+    ``num_processes`` processes (JAX's ``local_virtual_devices``,
+    cli/train.py:413-424): max(1, n_devices // num_processes)."""
+    return max(1, n_devices // num_processes)
+
+
+def process_mesh(n_devices: int, device=None) -> Tuple[torch.device, ...]:
+    """This process's local part of a global ``n_devices`` mesh (the
+    process group must be initialised): under ANNONET_TPU_VIRTUAL_MESH=1,
+    ``local_virtual_devices`` virtual shards of ``device``; otherwise its
+    visible devices (``device`` alone where it is the only one; processes
+    that share a host should each see their own cards through
+    CUDA_VISIBLE_DEVICES). Raises ValueError
+    unless ``n_devices`` equals the global device count (every process's
+    local devices), as the JAX CLI's multi-process mesh does."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    if os.environ.get(VIRTUAL_MESH_ENV) == "1":
+        local = local_virtual_devices(n_devices, world)
+        devices = ensure_virtual_devices(local, device)
+    else:
+        devices = _visible_devices(device)
+        local = len(devices)
+        if local == 1 and device is not None:
+            devices = (torch.device(device),)
+    if n_devices != world * local:
+        raise ValueError(
+            f"--mesh {n_devices} must equal the global device count "
+            f"({world * local}: {world} processes x {local} local devices) when "
+            "training multi-process (--coordinator): every device of every "
+            "process joins the mesh"
+        )
+    return devices
 
 
 def _timeout_env(name: str, default: int) -> int:

@@ -1,5 +1,5 @@
 """Device-resident decoded-image pool for training (the port of
-``annonet_tpu/train/device_cache.py``, one device).
+``annonet_tpu/train/device_cache.py``).
 
 The host LRU (data/cache.py) owns the decoded Samples; this pool mirrors
 the samples a minibatch references into two device tensors — images
@@ -15,6 +15,12 @@ is least-recently-used among the slots the batch does not reference.
 Labels cross to the device as uint16 (2 bytes a pixel) and widen to int32
 there, so IGNORE_LABEL (0xFFFF) stays 65535: torch's uint16 has few ops,
 and a signed int16 would turn it into -1.
+
+Under data parallelism the pool is replicated (JAX's replicated
+sharding, device_cache.py:39-47): ``replicas`` names the other devices of
+the mesh, each holds a copy of both tensors, every upload writes all of
+them, and each shard gathers its crops from its own device's copy
+(``tensors(device)``).
 """
 
 from __future__ import annotations
@@ -38,10 +44,14 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
 class DeviceImagePool:
     """Device-side LRU of decoded samples, managed by the host."""
 
-    def __init__(self, slots: int = 8, *, device):
+    def __init__(self, slots: int = 8, *, device, replicas=()):
         if slots < 1:
             raise ValueError("slots must be >= 1")
         self.device = torch.device(device)
+        # the other devices holding a copy (distinct, the home one excluded)
+        self.replicas = tuple(dict.fromkeys(
+            d for d in map(torch.device, replicas) if d != self.device))
+        self._copies: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
         # LRU capacity (--cached-image-count); slots are allocated lazily,
         # in powers of two, as distinct residents arrive
         self._capacity = 1 << (slots - 1).bit_length()
@@ -82,6 +92,9 @@ class DeviceImagePool:
                                   device=self.device)
         self.labels = torch.zeros((new_slots, new_h, new_w), dtype=torch.int32,
                                   device=self.device)
+        self._copies = {d: (torch.zeros_like(self.images, device=d),
+                            torch.zeros_like(self.labels, device=d))
+                        for d in self.replicas}
         for slot, (_sid, sample, _h, _w) in residents:
             self._upload(slot, sample)
 
@@ -91,6 +104,9 @@ class DeviceImagePool:
         h, w = img.shape[:2]
         self.images[slot, :h, :w] = _host_tensor(img).to(self.device)
         self.labels[slot, :h, :w] = _host_tensor(lab).to(self.device).to(torch.int32)
+        for images, labels in self._copies.values():
+            images[slot] = self.images[slot].to(images.device)
+            labels[slot] = self.labels[slot].to(labels.device)
         self._resident[slot] = (id(sample), sample, h, w)
         self._by_id[id(sample)] = slot
         self.uploads += 1
@@ -136,6 +152,14 @@ class DeviceImagePool:
             self._last_used[slot] = self._tick
             out[i] = slot
         return out
+
+    def tensors(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(images, labels) of the copy on ``device`` (the home device's or
+        a replica's)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self.images, self.labels
+        return self._copies[device]
 
     def valid_dims(self, slot_idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Per-crop (valid_h, valid_w) int32 arrays for gather_crops."""

@@ -38,6 +38,7 @@ import torch
 from torch.profiler import record_function
 
 from annonet_tpu_torch import serialization
+from annonet_tpu_torch.models.folded_runtime import apply_train_folded, folded_training_applies
 from annonet_tpu_torch.models.segnet import (
     Params,
     SegNetConfig,
@@ -50,6 +51,7 @@ from annonet_tpu_torch.models.segnet import (
 )
 from annonet_tpu_torch.ops.augment import AugmentDraws, augment_batch, draw_augmentations
 from annonet_tpu_torch.ops.crop_gather import gather_crops_packed
+from annonet_tpu_torch.ops.int8_train import int8_convs
 from annonet_tpu_torch.ops.loss import weighted_pixel_cross_entropy
 from annonet_tpu_torch.ops.weighting import batched_label_weights
 from annonet_tpu_torch.train.plateau import (
@@ -71,6 +73,12 @@ class TrainerConfig:
     momentum: float = 0.9
     weight_decay: float = 0.0005
     remat: bool = False  # recompute each conv unit in the backward pass
+    # the 3x3 convs' forward in int8 (straight-through; ops/int8_train.py)
+    int8_forward: bool = False
+    # the forward on the width-folded layout (models/folded_runtime.py
+    # apply_train_folded) where it applies: not under remat, crop width a
+    # multiple of 8, RGB input
+    folded_training: bool = False
     # device losses are read back in batches of this size: with 1 every
     # step blocks on the device (reference-like); larger values keep steps
     # in flight while the plateau detector sees losses up to 2N-1 late
@@ -105,6 +113,26 @@ def _sgd(params: List[torch.Tensor], velocity: List[torch.Tensor],
     torch._foreach_add_(params, velocity)
 
 
+def train_forward(params, bn_stats, images, model_config: SegNetConfig,
+                  trainer_config: TrainerConfig, bn_momentum: float, reducer=None):
+    """The training forward the config asks for, as the JAX step's
+    ``loss_fn`` picks it: folded (``apply_train_folded``) where
+    ``folded_training`` applies, else ``apply_train`` with the int8 conv
+    under ``int8_forward``. ``reducer``: the data-parallel forward over a
+    list of shards (``parallel/train.py``)."""
+    width = (images[0] if reducer is not None else images).shape[2]
+    if trainer_config.folded_training and folded_training_applies(
+            model_config, width, trainer_config.remat):
+        return apply_train_folded(params, bn_stats, images, model_config,
+                                  bn_momentum=bn_momentum, reducer=reducer)
+    return apply_train(
+        params, bn_stats, images, model_config, bn_momentum=bn_momentum,
+        remat=trainer_config.remat,
+        conv_impl=int8_convs if trainer_config.int8_forward else None,
+        reducer=reducer,
+    )
+
+
 def make_train_step(model_config: SegNetConfig, trainer_config: TrainerConfig) -> Callable:
     """The train step:
 
@@ -122,10 +150,8 @@ def make_train_step(model_config: SegNetConfig, trainer_config: TrainerConfig) -
         p_leaves = [t for _, t in tree_items(params)]
         v_by_name = dict(tree_items(velocity))
         with torch.enable_grad():
-            logits, new_stats = apply_train(
-                params, bn_stats, images, model_config,
-                bn_momentum=bn_momentum, remat=trainer_config.remat,
-            )
+            logits, new_stats = train_forward(params, bn_stats, images, model_config,
+                                              trainer_config, bn_momentum)
             with record_function("loss"):
                 loss = weighted_pixel_cross_entropy(logits, labels, weights)
             with record_function("backward"):
@@ -194,6 +220,12 @@ class Trainer:
         # optional structured-metrics callback, as the JAX Trainer's: a dict
         # per recorded loss and per learning-rate shrink
         self.metrics_hook = None
+        # multi-process runs (parallel/train.py): ranks other than 0 write
+        # no file, and a time-triggered sync save must not read back the
+        # pending losses (a rank's clock would decide when its plateau
+        # logic sees them, and the ranks' learning rates could part)
+        self.io_process = True
+        self.sync_flush = True
         self._last_sync = time.monotonic()
         self._step_fn = make_train_step(model_config, trainer_config)
         self._generator: Optional[torch.Generator] = None
@@ -205,6 +237,12 @@ class Trainer:
             self._try_resume(trainer_config.sync_file)
 
     # ----------------------------------------------------------- train
+
+    @property
+    def pool_replicas(self):
+        """The devices that hold a copy of the device image pool besides
+        ``device`` (a data-parallel trainer's mesh)."""
+        return ()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         a = np.ascontiguousarray(a)
@@ -252,6 +290,26 @@ class Trainer:
                                        draws.to(self.device), flips_pre_applied=False)
         return self._dispatch(x, lab, w)
 
+    @staticmethod
+    def _packed_decisions(pool, samples, rects, crop_options):
+        """(crop side, [5, B] int32 slot, y0, x0, valid_h, valid_w) of the
+        crop decisions, their images made resident in ``pool``."""
+        fdf = crop_options.further_downscaling_factor
+        if fdf > 1.0:
+            raise ValueError(
+                "train_step_decisions requires further_downscaling_factor "
+                "<= 1 (the resize path materializes pixels on the host)"
+            )
+        slot_idx = pool.ensure(samples)
+        valid_h, valid_w = pool.valid_dims(slot_idx)
+        packed = np.stack([
+            np.asarray(slot_idx, np.int32),
+            np.asarray([r[1] for r in rects], np.int32),
+            np.asarray([r[0] for r in rects], np.int32),
+            valid_h, valid_w,
+        ])
+        return int(round(crop_options.dim * fdf)), packed
+
     def train_step_decisions(
         self,
         pool,  # train.device_cache.DeviceImagePool
@@ -265,21 +323,7 @@ class Trainer:
         the pixels stay on the device and the host ships a [5, B] int32
         array (slot, y0, x0, valid_h, valid_w). Flips apply in the gather;
         the result equals train_step_crops on the same crops and draws."""
-        fdf = crop_options.further_downscaling_factor
-        if fdf > 1.0:
-            raise ValueError(
-                "train_step_decisions requires further_downscaling_factor "
-                "<= 1 (the resize path materializes pixels on the host)"
-            )
-        dim = int(round(crop_options.dim * fdf))
-        slot_idx = pool.ensure(samples)
-        valid_h, valid_w = pool.valid_dims(slot_idx)
-        packed = np.stack([
-            np.asarray(slot_idx, np.int32),
-            np.asarray([r[1] for r in rects], np.int32),
-            np.asarray([r[0] for r in rects], np.int32),
-            valid_h, valid_w,
-        ])
+        dim, packed = self._packed_decisions(pool, samples, rects, crop_options)
         if draws is None:
             draws = draw_augmentations(
                 self.augmentation_generator(seed), packed.shape[1],
@@ -401,11 +445,16 @@ class Trainer:
 
     # ----------------------------------------------------------- sync
 
-    def save_sync_file(self, path: Optional[str] = None) -> None:
-        """Write the whole training state (after reading back every
-        pending loss) in the JAX package's trainer-state file."""
-        self.flush_losses()
+    def save_sync_file(self, path: Optional[str] = None, flush: bool = True) -> None:
+        """Write the whole training state in the JAX package's
+        trainer-state file, after reading back every pending loss unless
+        ``flush`` is false (the file's loss window then lags its step
+        count by the pending readbacks). Only the I/O process writes."""
+        if flush:
+            self.flush_losses()
         self._last_sync = time.monotonic()
+        if not self.io_process:
+            return
         path = path or self.config.sync_file
         if not path:
             return
@@ -428,7 +477,7 @@ class Trainer:
             self.config.sync_file
             and time.monotonic() - self._last_sync >= self.config.sync_interval_seconds
         ):
-            self.save_sync_file()
+            self.save_sync_file(flush=self.sync_flush)
 
     def _try_resume(self, path: str) -> None:
         if not os.path.exists(path):

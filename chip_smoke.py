@@ -13,7 +13,8 @@ Phases (any failure raises, and the exit code is then nonzero):
               bf16 G1 (gemm_conv_bf16) must hold tensor-core instructions
               (HMMA or HGMMA), every Q1 kernel of both modes, every Q2
               kernel (q1_igemm_kernel<stride, ...>) and Q3's
-              (qup_igemm_kernel) int8 ones (IMMA); no kernel of the
+              (qup_igemm_kernel) int8 ones (IMMA), the accumulator
+              mode's at both strides included; no kernel of the
               library may hold __dp4a, and no bf16 instantiation of the
               f32 direct convolutions (conv3x3, up2x2) may exist; prints
               those kernels' registers, stack, local and static shared
@@ -27,7 +28,8 @@ Phases (any failure raises, and the exit code is then nonzero):
               (SegNetConfig(class_count=3, level_count=3, base_width=16),
               widths 16/32/64/128) on the tile batch that the inferer
               plans for a 4096x4096 image (25 tiles of 872x872), in bf16,
-              plus the f32 kernels on one tile; the blend epilogue on the 4096x4096 canvas with
+              plus the f32 kernels (csrc/conv.cu) on one tile, timed
+              beside cuDNN's f32 call; the blend epilogue on the 4096x4096 canvas with
               K=3, with and without detection and under the reference
               blend semantics, and on two stress lists (random tiles that
               form no grid; 200 small tiles at nearly one position, more
@@ -38,7 +40,11 @@ Phases (any failure raises, and the exit code is then nonzero):
               bit-identical) on the 8 stride-1 layers, Q2 on the 3
               stride-2 ones, K3's requant mode and Q3 (with its weights
               packed once, as the int8 net passes them) on the 3 up layers;
-              and the bf16 blend on the canvas (detection, the argmax
+              then Q1's and Q2's accumulator modes at int8 training's
+              shapes (batch 128 at 192², the flagship's 8 stride-1 and 3
+              stride-2 layers on the operands one int8 training forward
+              quantizes), bit-identical, with their bound (int8 in,
+              int32 out); and the bf16 blend on the canvas (detection, the argmax
               fold, the normalised argmax) and on the two stress lists.
               Then G1 on the 7 stride-1 layers that the folded net
               (use_pallas_conv) runs at folds above 1, on the folded net's own activations of the 25-tile
@@ -47,7 +53,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               products over its table of nonzero weight blocks (the
               dense GEMM's beside it). Times come from CUDA events.
   4. accuracy the tiled inferer on the card against the same inferer on
-              the CPU (plain versions) on a small image
+              the CPU (plain versions) on a small image; its f32 net's
+              forward of one tile launches the f32 K1-K3 (csrc/conv.cu),
+              counted: the kernel line's f32 modes' launches
   5. main     writes a random-weight flagship artifact (init_runtime_params,
               seed 0) and a synthetic anno dataset (4096x4096 and
               2300x1500 images with palette masks), runs annonet_infer
@@ -138,6 +146,16 @@ Phases (any failure raises, and the exit code is then nonzero):
               losses within 1e-2 relative and each updated tensor within
               5e-2 (or within the distance of the CPU's bf16 step from its
               f32 step, where bf16 is coarser)
+ 11m. train_step_mesh one data-parallel step (parallel/train.py) on a
+              virtual 2-shard mesh of the card against the single-device
+              step, 8 crops of 192², the same draws, f32 and bf16, at
+              phase 11's tolerances
+ 11q. train_step_int8 one int8 straight-through step (int8_forward) in
+              bf16 on the card and on the CPU: 8 Q1-acc and 3 Q2-acc
+              launches, each launch's int32 sums equal to its plain
+              version on the same operands, the losses within 1e-2
+ 11f. train_step_folded one folded training step (folded_training) in
+              f32 on the card against the CPU, at phase 11's f32 tolerance
  12. train     annonet_train in-process at the flagship's width and depth
               (--level-count 3: 192² crops), -b 128, 40 steps, the device
               image pool, -l -u -n 2 -o, brightness p 0.5, --deterministic-
@@ -154,7 +172,25 @@ Phases (any failure raises, and the exit code is then nonzero):
               run of 15 steps gives its trace's kernel time of the last 5
               split by stage (the trainer's ranges: gather, augment,
               weighting, conv forward, BN, loss, backward convs and the
-              rest of the backward, SGD) and the device's busy share
+              rest of the backward, SGD), the host's ms a step inside each
+              range and the device's busy share
+ 12m. train_mesh annonet_train --mesh 2 (ANNONET_TPU_VIRTUAL_MESH=1) at
+              full width and depth, -b 128 at 192², 24 steps: exit 0,
+              finite losses, the artifact loads into TiledInferer, ms and
+              main-thread CPU per step printed beside phase 12b's (one
+              card gains nothing from the split: recorded, not claimed);
+              then a --profile run split as 12b's, with the per-shard
+              parameter copies (shard_params) and the gradient sum
+              (grad_sum) as stages of their own
+ 12c. train_coordinator two annonet_train --coordinator ranks on the
+              card (gloo on a free local port, --mesh 2, 3 steps, each
+              under a timeout): rank 0 alone writes the artifact, sync
+              file and metrics; its artifact bit-equal to the same run's
+              in one process
+ 12q. train_int8 annonet_train --int8-training, -b 128, 24 steps: exit 0,
+              finite losses, exactly 8 Q1-acc and 3 Q2-acc launches a
+              step (the kernel line's launches_per_train_step), ms per
+              step beside phase 12b's
  13. detection tools/measure_detection.run_benchmark on seed 0
               (PARITY_TARGETS.json's recipe, f32): it stops at its min LR
               and its pixel accuracy clears the pinned floor; its region
@@ -162,11 +198,14 @@ Phases (any failure raises, and the exit code is then nonzero):
               they fall under, and not held (the recipe's seed-to-seed
               spread straddles them, JAX's own too)
  13a. autotune annonet_autotune --start 1024 on the flagship at 192² crops
-              (phase 12's dataset; --max-total-steps 3 passed through, so
-              the probes and the real run take 3 steps), a process of its
+              (phase 12's dataset; --max-total-steps 1 passed through, so
+              the probes and the real run take 1 step), a process of its
               own under a timeout: each probe's size, outcome and wall, the
               largest batch and the real run's exit code; the search must
-              bracket its boundary
+              bracket its boundary. Then annonet_autotune --mesh 2
+              (virtual) from 12 crops under that boundary, under a
+              timeout: its probes pass --mesh through and bracket their
+              boundary
  14. accuracy_floors tools/measure_accuracy on the card: the JAX end-to-
               end test's recipe (40 f32 steps of a level-1 width-8 net on
               16² crops of a 4-image 48x48 set, TF32 off), saved, loaded
@@ -304,9 +343,9 @@ def check_tensor_cores(library: str) -> None:
     bf16 K3's (up_igemm.cu's upgemm_kernel<requant>, all that
     annonet_up2x2_bias_relu and annonet_up2x2_requant launch for bf16) and
     bf16 G1's (gemm_conv.cu's gemm_conv_bf16) hold HMMA or HGMMA
-    instructions; Q1's and Q2's (qconv_igemm.cu's q1_igemm_kernel<stride,
-    cout block, pair, accumulator>, all that annonet_q1_igemm and
-    annonet_qconv3x3_s2_requant launch) and Q3's (qup_igemm.cu's
+    instructions; Q1's and Q2's in both modes (qconv_igemm.cu's
+    q1_igemm_kernel<stride, cout block, pair, accumulator>, all that
+    annonet_q1_igemm and annonet_q2_igemm launch) and Q3's (qup_igemm.cu's
     qup_igemm_kernel, all that annonet_qup2x2_requant launches) hold IMMA;
     no kernel of the library holds __dp4a (IDP.4A); the f32 direct
     convolutions have no bf16 instantiation.
@@ -332,8 +371,9 @@ def check_tensor_cores(library: str) -> None:
     q1 = {k for k in sass if "q1_igemm_kernel" in k}
     q2 = {k for k in q1 if short_name(k).startswith("q1_igemm_kernel<2, ")}
     # stride 1: 4 cout blocks x pair or not x requant or accumulator;
-    # stride 2 (Q2): 3 cout blocks (16, 32, 64) x pair or not, requant only
-    if len(q1) != 22 or len(q2) != 6:
+    # stride 2 (Q2): 3 cout blocks (16, 32, 64) x pair or not x requant or
+    # accumulator
+    if len(q1) != 28 or len(q2) != 12:
         raise AssertionError(f"found {len(q1)} Q1/Q2 kernels, {len(q2)} of stride 2, in "
                              f"the SASS: {sorted(short_name(k) for k in q1)}")
     q3 = {k for k in sass if short_name(k) == "qup_igemm_kernel"}
@@ -919,10 +959,11 @@ def check_g1(params_np, config, device, n: int, side: int, reps: int, generator)
     return results
 
 
-def check_small_image(params_np, config, device):
+def check_small_image(params_np, config, device) -> dict:
     """Tiled inference on the card against the same inferer on the CPU
     (plain versions): f32 logits of one tile within 1e-3, and bf16 label
-    maps agreeing on >= 99.5% of pixels."""
+    maps agreeing on >= 99.5% of pixels. Returns the f32 K1-K3 launches
+    of the card's f32 forward (``csrc/conv.cu``)."""
     from annonet_tpu_torch.infer.core import TiledInferer
     from annonet_tpu_torch.infer.tiling import TilingParameters
     from annonet_tpu_torch.models.segnet import required_input_dimension
@@ -934,13 +975,20 @@ def check_small_image(params_np, config, device):
 
     f32 = dataclasses.replace(config, compute_dtype="float32")
     tile = torch.from_numpy(image[None, :256, :256].copy())
-    logits = [
-        TiledInferer(params_np, f32, tiling, device=d).net(tile.to(d)).cpu()
-        for d in (device, "cpu")
-    ]
+    wrappers = {name: fn for name, fn in float_wrappers().items() if name != "blend_argmax"}
+    logits = []
+    for d in (device, "cpu"):
+        inferer = TiledInferer(params_np, f32, tiling, device=d)
+        for fn in wrappers.values():
+            fn.launches = 0
+        logits.append(inferer.net(tile.to(d)).cpu())
+        if d == device:
+            f32_launches = {name: fn.launches for name, fn in wrappers.items()}
     err = (logits[0] - logits[1]).abs().max().item()
-    print(f"  f32 net, one 256x256 tile, card vs CPU: max|logit err| {err:.3e}",
-          flush=True)
+    print(f"  f32 net, one 256x256 tile, card vs CPU: max|logit err| {err:.3e}; f32 "
+          f"kernel launches on the card {f32_launches}", flush=True)
+    if min(f32_launches.values()) <= 0:
+        raise AssertionError(f"the f32 net launched no f32 kernel: {f32_launches}")
     if not err <= 1e-3:
         raise AssertionError(f"f32 net logits differ by {err} > 1e-3")
 
@@ -959,6 +1007,7 @@ def check_small_image(params_np, config, device):
             f"card and CPU label maps agree on {agree} / seeds on {seeds_agree}"
             f" < {SMALL_LABEL_AGREEMENT}"
         )
+    return f32_launches
 
 
 def write_dataset(root: str, sizes, anno_classes, seed: int) -> None:
@@ -1908,8 +1957,8 @@ TRAIN_UPDATE_TOL = 5e-2
 DETECTION_SEED = 0
 # the profiler window's stages: the trainer's record_function ranges, with
 # the backward's kernels split by name into the convs' and the rest's
-STAGES = ("gather", "augment", "weighting", "conv_forward", "bn", "loss",
-          "backward_conv", "backward_other", "sgd", "other")
+STAGES = ("gather", "augment", "weighting", "shard_params", "conv_forward", "bn", "loss",
+          "backward_conv", "backward_other", "grad_sum", "sgd", "other")
 _CONV_KERNEL = re.compile(r"conv|dgrad|wgrad|xmma|cudnn|implicit|cutlass|gemm", re.I)
 
 
@@ -2160,7 +2209,7 @@ def stage_shares(events, t0: float, t1: float) -> dict:
     return out
 
 
-def train_timing(work: str, data: str, device) -> None:
+def train_timing(work: str, data: str, device) -> float:
     """annonet_train's own loop at batch 128, 192², flagship, with no
     validation and no save after step 0: a run of TRAIN_STEPS steps with
     ANNONET_TPU_STEP_TIMING=1 gives ms per step, crops/s and the main
@@ -2168,9 +2217,8 @@ def train_timing(work: str, data: str, device) -> None:
     40 (each waits for the step 8 before it, so the device has done steps
     9-32 between them; loss_sync_interval 8), the pool's uploads and
     peak device memory; then --profile on a run of PROFILE_STEPS steps: its
-    trace's kernels of the last 5 steps, split by stage."""
-    from annonet_tpu_torch.cli.train import TRAIN_TRACE_FILE
-
+    trace's kernels of the last 5 steps, split by stage (profile_train).
+    Returns the ms per step."""
     first, last = 15, TRAIN_STEPS - 1
     torch.cuda.reset_peak_memory_stats(device)
     out = run_train_cli(train_argv(data) + [
@@ -2185,22 +2233,33 @@ def train_timing(work: str, data: str, device) -> None:
           f"step (the CLI's wall clock between loss readbacks), {TRAIN_BATCH * 1e3 / ms:.1f} crops/s; main thread CPU {(c1 - c0) * 1e3 / steps:.3f} "
           f"ms per step; last step's line: {line!r}; peak device memory "
           f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB", flush=True)
-    trace_dir = os.path.join(work, "profile")
+    profile_train(work, data, "profile")
+    return ms
+
+
+def profile_train(work: str, data: str, tag: str, extra=(), env=None, shards: int = 1):
+    """annonet_train --profile for PROFILE_STEPS steps (``extra`` flags,
+    ``shards`` local shards a step): the kernels of its trace's last 5
+    steps, split by stage, the device's busy share, and the host's ms a
+    step inside each trainer range."""
+    from annonet_tpu_torch.cli.train import TRAIN_TRACE_FILE
+
+    trace_dir = os.path.join(work, tag)
     run_train_cli(train_argv(data) + [
         "--max-total-steps", str(PROFILE_STEPS), "--save-interval", "1000",
-        "--profile", trace_dir, "--output", os.path.join(work, "profiled.dnn"),
-        "--sync-file", os.path.join(work, "profiled.dat")])
+        "--profile", trace_dir, "--output", os.path.join(work, f"{tag}.dnn"),
+        "--sync-file", os.path.join(work, f"{tag}.dat"), *extra], env=env)
     with open(os.path.join(trace_dir, TRAIN_TRACE_FILE), encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
     starts = sorted(float(e["ts"]) for e in events
                     if e.get("cat") == "user_annotation" and e.get("name") == "gather")
     ends = sorted(float(e["ts"]) + float(e["dur"]) for e in events
                   if e.get("cat") == "user_annotation" and e.get("name") == "sgd")
-    if len(starts) != PROFILE_STEPS or len(ends) != PROFILE_STEPS:
+    if len(starts) != PROFILE_STEPS * shards or len(ends) != PROFILE_STEPS:
         raise AssertionError(f"the trace holds {len(starts)} gather and {len(ends)} sgd "
-                             f"ranges for {PROFILE_STEPS} steps")
+                             f"ranges for {PROFILE_STEPS} steps of {shards} shard(s)")
     window = 5
-    t0, t1 = starts[-window], ends[-1]
+    t0, t1 = starts[-window * shards], ends[-1]
     shares = stage_shares(events, t0, t1)
     total = sum(shares.values())
     launched = {e["args"]["correlation"] for e in events
@@ -2211,12 +2270,23 @@ def train_timing(work: str, data: str, device) -> None:
         and (e.get("args", {}).get("correlation") in launched
              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
              else t0 <= float(e["ts"]) <= t1)])
-    print(f"  profiler trace of the CLI, steps {PROFILE_STEPS - window + 1}-{PROFILE_STEPS}: "
-          f"kernels {total / window:.3f} ms per step, device busy {busy:.3f} of {span:.3f} "
-          f"ms ({busy / span:.2%}); by stage (ms per step, share):", flush=True)
+    host = dict.fromkeys((name for name in STAGES + ("backward",)
+                          if name not in ("backward_conv", "backward_other", "other")), 0.0)
+    for e in events:
+        if (e.get("cat") == "user_annotation" and e.get("name") in host
+                and t0 <= float(e["ts"]) <= t1):
+            host[e["name"]] += float(e["dur"]) / 1e3
+    print(f"  {tag}: profiler trace of the CLI, steps {PROFILE_STEPS - window + 1}-"
+          f"{PROFILE_STEPS}: kernels {total / window:.3f} ms per step, {len(launched) / window:.0f}"
+          f" launches per step, device busy {busy:.3f} of {span:.3f} ms ({busy / span:.2%}); "
+          f"by stage (kernel ms per step, share; host ms per step inside the range):",
+          flush=True)
     for stage in STAGES:
         print(f"    {stage:15s} {shares[stage] / window:9.3f} ms  "
-              f"{shares[stage] / max(total, 1e-9):7.2%}", flush=True)
+              f"{shares[stage] / max(total, 1e-9):7.2%}"
+              + (f"  host {host[stage] / window:9.3f} ms" if stage in host else ""),
+              flush=True)
+    print(f"    {'backward':15s} host {host['backward'] / window:9.3f} ms", flush=True)
 
 
 def detection_phase(device) -> None:
@@ -2248,9 +2318,10 @@ def detection_phase(device) -> None:
         raise AssertionError("the detection run's pixel accuracy falls under its floor")
 
 
-def training_phases(device) -> dict:
+def training_phases(device) -> tuple:
     """The training slice's phases in one scratch directory; returns the
-    int8 validation's launch counts."""
+    int8 validation's launch counts and the int8 training run's (counts,
+    per step)."""
     from annonet_tpu_torch.data import default_anno_classes
 
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_REPO)
@@ -2260,23 +2331,43 @@ def training_phases(device) -> dict:
                                   (validation, VALIDATION_SIZES, SEED + 3)):
             os.makedirs(path)
             write_dataset(path, sizes, default_anno_classes(), seed)
+        elapsed()
         print("[train_step] one train step of the flagship, card against CPU", flush=True)
         check_train_step(device, data)
+        elapsed()
+        print(f"[train_step_mesh] one data-parallel step on a virtual {DP_SHARDS}-shard mesh "
+              "of the card against the single-device step", flush=True)
+        check_dp_step(device, data)
+        elapsed()
+        print("[train_step_int8] one int8 straight-through step, card against CPU", flush=True)
+        check_int8_step(device, data)
+        elapsed()
+        print("[train_step_folded] one folded training step, card against CPU", flush=True)
+        check_folded_step(device, data)
+        elapsed()
         print(f"[train] annonet_train --level-count 3 -b {TRAIN_BATCH} --max-total-steps "
               f"{TRAIN_STEPS}, float validation, then resumed with int8 validation", flush=True)
         launches = train_cli_phase(work, data, validation, device)
+        elapsed()
         print(f"[train_timing] annonet_train's loop at batch {TRAIN_BATCH}: steady state, "
               "then the stages of a --profile run", flush=True)
-        train_timing(work, data, device)
+        single_ms = train_timing(work, data, device)
+        int8_train_launches = dp_training_phases(work, data, device, single_ms)
+        elapsed()
         print(f"[detection] tools/measure_detection.run_benchmark, seed {DETECTION_SEED}",
               flush=True)
         detection_phase(device)
+        elapsed()
         print(f"[autotune] annonet_autotune --start {AUTOTUNE_START} on the flagship at "
               f"{train_crop_dim(flagship_config())}² crops", flush=True)
-        autotune_phase(work, data)
+        best = autotune_phase(work, data)
+        elapsed()
+        print(f"[autotune_mesh] annonet_autotune --mesh {DP_SHARDS} from just under that "
+              "boundary", flush=True)
+        mesh_autotune_phase(work, data, best)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return launches
+    return launches, int8_train_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2290,6 +2381,11 @@ SUBPROCESS_TIMEOUT = 600
 # crops on an 80 GB card (phase 12b's peak memory is 6.1 GiB at batch 128),
 # so the search grows once, fails once and bisects between them
 AUTOTUNE_START = 1024
+# the probes' and the real run's steps (--max-total-steps passed through:
+# the last one on a probe's command line wins): one step allocates what a
+# step holds, and a probe is mostly a process start, so the searches stay
+# short
+AUTOTUNE_STEPS = 1
 
 
 def read_image(data: str, name: str):
@@ -2526,17 +2622,19 @@ def coordinator_phase(work: str, sizes, float_results) -> None:
         raise AssertionError("the merged calibration is not the max of two distinct shards'")
 
 
-def autotune_phase(work: str, data: str) -> None:
+def autotune_phase(work: str, data: str) -> int:
     """annonet_autotune (a process of its own, under a timeout; each probe
-    a 3-step annonet_train process) on the flagship at 192² crops from
-    AUTOTUNE_START, with --max-total-steps 3 passed through, so the real
-    run is 3 steps too. Prints each probe's size, outcome and wall (from
+    an annonet_train process) on the flagship at 192² crops from
+    AUTOTUNE_START, with --max-total-steps AUTOTUNE_STEPS passed through, so
+    the probes and the real run take that many steps. Prints each probe's size, outcome and wall (from
     the times its lines arrive; a size passes when it is at most the one
-    found), the largest batch and the real run's exit code."""
+    found), the largest batch and the real run's exit code; returns the
+    largest batch."""
     import signal
 
     argv = [sys.executable, "-m", "annonet_tpu_torch.cli.autotune", "--start",
-            str(AUTOTUNE_START), data, "--level-count", "3", "--max-total-steps", "3",
+            str(AUTOTUNE_START), data, "--level-count", "3", "--max-total-steps",
+            str(AUTOTUNE_STEPS),
             "--save-interval", "1000", "--output", os.path.join(work, "autotuned.dnn"),
             "--sync-file", os.path.join(work, "autotuned.dat")]
     torch.cuda.empty_cache()  # leave the card to the probes
@@ -2575,6 +2673,7 @@ def autotune_phase(work: str, data: str) -> None:
     sizes = [s for _i, s in probes]
     if best not in sizes or best + 1 not in sizes:
         raise AssertionError(f"the search did not bracket its boundary: probes {sizes}")
+    return best
 
 
 def accuracy_phase(device) -> None:
@@ -2597,6 +2696,410 @@ def accuracy_phase(device) -> None:
     missed = measure_accuracy.below_floors(run)
     if missed:
         raise AssertionError("under the pinned floors: " + "; ".join(missed))
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel, multi-process, int8 and folded training
+
+# the data-parallel phases' virtual mesh of the card, and the crops of the
+# 11m step (8 crops of 192², 4 a shard)
+DP_SHARDS = 2
+DP_CROPS = 8
+# annonet_train's runs of the phases 12m and 12q (steps 17.. timed as 12b)
+DP_STEPS = 24
+INT8_STEPS = 24
+# the 12c ranks' steps. Rank 0's artifact must equal the same run's in one
+# process (12m's CLI) bit for bit: both add every cross-shard term in the
+# same global shard order (parallel/train.py), so any gap means a rank
+# missed an exchange (gradients, BN moments or int8 scales)
+COORD_STEPS = 3
+# the int8 forward's conv kernels per train step of the flagship: Q1's
+# accumulator mode on the stem's 2 layers, the 3 encoder stride-1 layers
+# and the 3 decoder layers; Q2's on the 3 encoder stride-2 layers
+INT8_TRAIN_LAUNCHES = {"qconv3x3_acc": 8, "qconv3x3_s2_acc": 3}
+# Q2's accumulator mode replaces the int32 conv of the JAX package's int8
+# training (an XLA conv; int8_train.py:47), run by the port's int8 training
+_Q2_ACC_REPLACES = "annonet_tpu/ops/int8_train.py:47"
+_INT8_TRAIN_PATH = "annonet_tpu_torch/ops/int8_train.py"
+# the mesh autotune's start: phase 13a's boundary, less a few crops
+MESH_AUTOTUNE_BELOW = 12
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def train_int8_operands(device, n: int, side: int, generator):
+    """The int8 operands of every 3x3 conv of one bf16 flagship training
+    forward on n random side² crops, as int8 training quantizes them
+    (ops/int8_train.py): [(layer, stride, x int8 NHWC, w int8 HWIO)]."""
+    from annonet_tpu_torch.models.segnet import apply_train, conv_layers, init_state, \
+        train_state_from_numpy
+    from annonet_tpu_torch.ops import int8_train
+
+    config = flagship_config()
+    params, stats, _v = train_state_from_numpy(*init_state(config, SEED), None, device)
+    images = torch.randint(0, 256, (n, side, side, 3), generator=generator, device=device,
+                           dtype=torch.uint8)
+    names = [(f"{b}/{c}", 2 if b.startswith("enc") and c == "conv0" else 1)
+             for b, c, _s in conv_layers(config) if c != "up"]
+    captured = []
+    real = int8_train.qconv3x3_acc, int8_train.qconv3x3_s2_acc
+
+    def record(fn):
+        def run(x, w, *args, **kwargs):
+            layer, stride = names[len(captured)]
+            captured.append((layer, stride, x, w))
+            return fn(x, w, *args, **kwargs)
+        return run
+
+    int8_train.qconv3x3_acc, int8_train.qconv3x3_s2_acc = map(record, real)
+    try:
+        with torch.no_grad():
+            apply_train(params, stats, images, config, conv_impl=int8_train.int8_convs)
+    finally:
+        int8_train.qconv3x3_acc, int8_train.qconv3x3_s2_acc = real
+    if [(c[0], c[1]) for c in captured] != names:
+        raise AssertionError(f"the int8 forward ran {[c[0] for c in captured]}")
+    return captured
+
+
+def check_train_int8_kernels(device, reps: int, generator):
+    """Q1's and Q2's accumulator modes at int8 training's shapes (batch
+    TRAIN_BATCH at 192², the flagship's 8 stride-1 and 3 stride-2 layers,
+    on the operands its int8 forward quantizes): bit-identical to their
+    plain versions, timed beside them, with their bound (int8 in, int32
+    out). Returns {"qconv3x3_acc": tally, "qconv3x3_s2_acc": tally}."""
+    from annonet_tpu_torch.ops import qconv
+
+    dim = train_crop_dim(flagship_config())
+    results: dict = {}
+    for layer, stride, x, w in train_int8_operands(device, TRAIN_BATCH, dim, generator):
+        kernel = "qconv3x3_acc" if stride == 1 else "qconv3x3_s2_acc"
+        fn, plain = getattr(qconv, kernel), getattr(qconv, kernel + "_plain")
+        packed = qconv.pack_q1_weights(w)
+        got, want = fn(x, w, packed=packed), plain(x, w)
+        torch.cuda.synchronize()
+        err = (got.long() - want.long()).abs().max().item()
+        k_ms = p_ms = float("nan")
+        if reps:
+            k_ms, p_ms = timed_pair(lambda: fn(x, w, packed=packed), lambda: plain(x, w), reps)
+        bnd = conv_bound(kernel, x, w, None, got, None, "int8")
+        print(f"  {kernel:16s} {layer:12s} x{list(x.shape)} -> {list(got.shape)} int32: "
+              f"max|err| {err} kernel {k_ms:.3f} ms plain {p_ms:.3f} ms bound {bnd[0]:.3f} "
+              f"ms ({bnd[1]})", flush=True)
+        if got.dtype != torch.int32 or got.shape != want.shape or err:
+            raise AssertionError(f"{kernel} {layer}: not bit-identical to its plain version")
+        tally(results, kernel, err, k_ms, p_ms, None, bnd)
+        del got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def train_samples_and_rects(data: str, n: int, dim: int):
+    """n crop decisions over the first two training images (one reaching
+    past a corner): (samples, rects)."""
+    samples = read_samples(data, TRAIN_SIZES[:2])
+    corners = [(-40, -25), (300, 200), (1024 - dim + 60, 1024 - dim + 90), (700, 10),
+               (100, 600), (512, 512), (0, 800), (820, 0)][:n]
+    rects = [(x, y, x + dim - 1, y + dim - 1) for x, y in corners]
+    return [samples[i % 2] for i in range(n)], rects
+
+
+def one_step(trainer, data: str, n: int, draws_seed: int = SEED):
+    """One train_step_decisions step of ``trainer`` on n crops with draws
+    made on the CPU from ``draws_seed``: (loss, params as numpy, the params
+    before the step)."""
+    from annonet_tpu_torch.data.crop import CropOptions
+    from annonet_tpu_torch.models.segnet import tree_items, tree_to_numpy
+    from annonet_tpu_torch.ops.augment import draw_augmentations
+    from annonet_tpu_torch.train import DeviceImagePool
+
+    dim = train_crop_dim(flagship_config())
+    samples, rects = train_samples_and_rects(data, n, dim)
+    options = CropOptions(dim=dim, **augmentations())
+    gen = torch.Generator()
+    gen.manual_seed(draws_seed)
+    draws = draw_augmentations(gen, n, (dim, dim, 3), options)
+    before = dict(tree_items(tree_to_numpy(trainer.params)))
+    pool = DeviceImagePool(2, device=trainer.device, replicas=trainer.pool_replicas)
+    loss = trainer.train_step_decisions(pool, samples, rects, options, draws=draws)
+    return loss, dict(tree_items(tree_to_numpy(trainer.params))), before
+
+
+def update_gaps(a: dict, b: dict, before: dict) -> dict:
+    """{tensor: max |a - b| over the largest update of b's step}"""
+    return {k: float(np.abs(a[k] - b[k]).max())
+            / max(float(np.abs(b[k] - before[k]).max()), 1e-30) for k in b}
+
+
+def worst_gaps(gaps: dict, n: int = 3) -> str:
+    return ", ".join(f"{k} {gaps[k]:.3e}" for k in sorted(gaps, key=lambda k: -gaps[k])[:n])
+
+
+def check_dp_step(device, data: str) -> None:
+    """Phase 11m: one data-parallel step on a virtual DP_SHARDS-shard mesh
+    of the card against the single-device step on the card, DP_CROPS crops
+    of 192² with the same draws, f32 and bf16, at phase 11's tolerances (f32:
+    loss and every update within TRAIN_F32_TOL; bf16: loss within
+    TRAIN_LOSS_RTOL, updates within TRAIN_UPDATE_TOL or the single-device
+    step's own bf16 - f32 distance)."""
+    from annonet_tpu_torch.parallel import ensure_virtual_devices
+    from annonet_tpu_torch.parallel.train import DataParallelTrainer
+    from annonet_tpu_torch.train import Trainer, TrainerConfig
+
+    mesh = ensure_virtual_devices(DP_SHARDS, device)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        config = dataclasses.replace(flagship_config(), compute_dtype=dtype)
+        for arm, trainer in (("single", Trainer(config, TrainerConfig(), seed=SEED,
+                                                 device=device)),
+                             ("mesh", DataParallelTrainer(config, TrainerConfig(), seed=SEED,
+                                                          mesh=mesh))):
+            t = time.monotonic()
+            out[dtype, arm] = one_step(trainer, data, DP_CROPS)
+            torch.cuda.synchronize()
+            print(f"  {dtype} {arm}: loss {out[dtype, arm][0]:.6f}, "
+                  f"{time.monotonic() - t:.2f} s (first call)", flush=True)
+    failed = []
+    for dtype, loss_tol, tol in (("float32", TRAIN_F32_TOL, TRAIN_F32_TOL),
+                                 ("bfloat16", TRAIN_LOSS_RTOL, TRAIN_UPDATE_TOL)):
+        (l_s, p_s, before), (l_m, p_m, _b) = out[dtype, "single"], out[dtype, "mesh"]
+        gaps = update_gaps(p_m, p_s, before)
+        coarse = update_gaps(p_s, out["float32", "single"][1], before) \
+            if dtype == "bfloat16" else {}
+        loss_gap = abs(l_m - l_s) / abs(l_s)
+        print(f"  {dtype}: mesh - single loss gap {loss_gap:.3e} relative (limit {loss_tol}); "
+              f"largest update gaps {worst_gaps(gaps)} (limit {tol}"
+              + (", or the single step's bf16 - f32 distance" if coarse else "") + ")",
+              flush=True)
+        if loss_gap > loss_tol:
+            failed.append(f"{dtype} loss")
+        failed += [f"{dtype} {k}" for k, g in gaps.items() if g > max(tol, coarse.get(k, 0))]
+    if failed:
+        raise AssertionError(f"the mesh step disagrees with the single-device step at {failed}")
+
+
+def check_int8_step(device, data: str) -> None:
+    """Phase 11q: one int8 straight-through step (TrainerConfig(
+    int8_forward=True)) of the flagship in bf16 on the card and on the CPU,
+    4 crops with the same draws: the card launches Q1's accumulator mode 8
+    times and Q2's 3 times, each launch's int32 sums equal its plain
+    version on the same operands bit for bit, and the losses agree within
+    TRAIN_LOSS_RTOL."""
+    from annonet_tpu_torch.ops import int8_train, qconv
+    from annonet_tpu_torch.train import Trainer, TrainerConfig
+
+    config = flagship_config()
+    calls = []
+    real = int8_train.qconv3x3_acc, int8_train.qconv3x3_s2_acc
+
+    def record(fn):
+        def run(x, w, *args, **kwargs):
+            acc = fn(x, w, *args, **kwargs)
+            if x.is_cuda:
+                calls.append((fn.__name__, x, w, acc))
+            return acc
+        return run
+
+    # whether each quantized activation arrives channels-last, so that its
+    # NHWC view is free (else the quantize pass also turns the layout)
+    layouts = []
+    real_quantize = int8_train.quantize_activation
+
+    def quantize(x, amax):
+        if x.is_cuda:
+            layouts.append(x.is_contiguous(memory_format=torch.channels_last))
+        return real_quantize(x, amax)
+
+    losses = {}
+    for d in (device, torch.device("cpu")):
+        trainer = Trainer(config, TrainerConfig(int8_forward=True), seed=SEED, device=d)
+        for fn in real:
+            fn.launches = 0
+        int8_train.qconv3x3_acc, int8_train.qconv3x3_s2_acc = map(record, real)
+        int8_train.quantize_activation = quantize
+        try:
+            losses[d.type] = one_step(trainer, data, 4)[0]
+        finally:
+            int8_train.qconv3x3_acc, int8_train.qconv3x3_s2_acc = real
+            int8_train.quantize_activation = real_quantize
+        if d.type == "cuda":
+            launches = {fn.__name__: fn.launches for fn in real}
+    same = 0
+    for name, x, w, acc in calls:
+        plain = getattr(qconv, name + "_plain")(x.cpu(), w.cpu())
+        same += int(torch.equal(acc.cpu(), plain))
+    gap = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"  int8 step, bf16: launches {launches} (want {INT8_TRAIN_LAUNCHES}); int32 sums "
+          f"equal to the plain version's on the card's operands in {same} of {len(calls)} "
+          f"launches; loss card {losses['cuda']:.6f} CPU {losses['cpu']:.6f}, gap {gap:.3e} "
+          f"relative (limit {TRAIN_LOSS_RTOL}); activations already channels-last (their "
+          f"NHWC view free, no layout copy): {sum(layouts)} of {len(layouts)}", flush=True)
+    if launches != INT8_TRAIN_LAUNCHES or same != len(calls) or gap > TRAIN_LOSS_RTOL:
+        raise AssertionError("the card's int8 train step failed its checks")
+
+
+def check_folded_step(device, data: str) -> None:
+    """One folded training step (TrainerConfig(folded_training=True),
+    models/folded_runtime.py apply_train_folded) of the flagship in f32 on
+    the card against the CPU, 4 crops with the same draws: loss and every
+    update within TRAIN_F32_TOL, as phase 11's f32 step."""
+    from annonet_tpu_torch.train import Trainer, TrainerConfig
+
+    config = dataclasses.replace(flagship_config(), compute_dtype="float32")
+    runs = {d.type: one_step(Trainer(config, TrainerConfig(folded_training=True), seed=SEED,
+                                     device=d), data, 4)
+            for d in (device, torch.device("cpu"))}
+    (l_c, p_c, before), (l_h, p_h, _b) = runs["cuda"], runs["cpu"]
+    gaps = update_gaps(p_c, p_h, before)
+    loss_gap = abs(l_c - l_h) / abs(l_h)
+    print(f"  folded f32 step: loss card {l_c:.6f} CPU {l_h:.6f} (gap {loss_gap:.3e}); "
+          f"largest update gaps {worst_gaps(gaps)} (limit {TRAIN_F32_TOL})", flush=True)
+    if loss_gap > TRAIN_F32_TOL or max(gaps.values()) > TRAIN_F32_TOL:
+        raise AssertionError("the card's folded train step disagrees with the CPU's")
+
+
+def timed_train_run(work: str, data: str, tag: str, extra, steps: int, wrappers=None,
+                    env=None):
+    """annonet_train in-process at batch TRAIN_BATCH, 192², flagship, no
+    validation: ms per step and crops/s between the loss readbacks of steps
+    16 and ``steps`` (as phase 12b), and the losses; returns (ms, losses,
+    artifact path, the run's capture)."""
+    model = os.path.join(work, f"{tag}.dnn")
+    metrics = os.path.join(work, f"{tag}.jsonl")
+    out = run_train_cli(train_argv(data) + [
+        "--max-total-steps", str(steps), "--save-interval", "1000", "--output", model,
+        "--sync-file", os.path.join(work, f"{tag}.dat"), "--metrics-jsonl", metrics,
+        "--metrics-interval", "1", *extra],
+        wrappers, env={"ANNONET_TPU_STEP_TIMING": "1", **(env or {})})
+    first, last = 15, steps - 1
+    (t0, c0, _), (t1, c1, _) = out.stamps[first], out.stamps[last]
+    ms = (t1 - t0) * 1e3 / (last - first)
+    cpu_ms = (c1 - c0) * 1e3 / (last - first)
+    with open(metrics, encoding="utf-8") as f:
+        losses = [e["loss"] for e in map(json.loads, f) if e["event"] == "loss"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: {len(losses)} losses recorded: {losses}")
+    print(f"  {tag}: steps {first + 2}-{last + 1}: {ms:.3f} ms per step, "
+          f"{TRAIN_BATCH * 1e3 / ms:.1f} crops/s, main thread CPU {cpu_ms:.3f} ms per step; losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"all finite", flush=True)
+    return ms, losses, model, out
+
+
+def artifact_gap(path_a: str, path_b: str) -> tuple:
+    """The largest gap between two artifacts' BN-folded leaves over the
+    leaf's largest magnitude: (gap, leaf)."""
+    from annonet_tpu_torch import serialization
+    from annonet_tpu_torch.models.segnet import tree_items
+
+    a = dict(tree_items(serialization.load_model(path_a)[0]))
+    b = dict(tree_items(serialization.load_model(path_b)[0]))
+    gaps = {k: float(np.abs(a[k] - b[k]).max()) / max(float(np.abs(b[k]).max()), 1e-30)
+            for k in b}
+    key = max(gaps, key=gaps.get)
+    return gaps[key], key
+
+
+def dp_training_phases(work: str, data: str, device, single_ms: float) -> dict:
+    """Phases 12m, 12c and 12q (annonet_train --mesh, --coordinator and
+    --int8-training on the card); returns the int8 run's launch counts and
+    its launches per step."""
+    from annonet_tpu_torch import serialization
+    from annonet_tpu_torch.infer.core import TiledInferer
+    from annonet_tpu_torch.ops import qconv
+
+    elapsed()
+    print(f"[train_mesh] annonet_train --mesh {DP_SHARDS} (virtual) -b {TRAIN_BATCH}, "
+          f"{DP_STEPS} steps", flush=True)
+    mesh = ["--mesh", str(DP_SHARDS)]
+    virtual = {"ANNONET_TPU_VIRTUAL_MESH": "1"}
+    ms, _l, model, _o = timed_train_run(work, data, "mesh", mesh, DP_STEPS, env=virtual)
+    params, config, _c, _d = serialization.load_model(model)
+    labels = TiledInferer(params, config, device=device).infer_arrays(
+        read_samples(data, TRAIN_SIZES[:1])[0].input_image)[0]
+    print(f"  the artifact loads into TiledInferer: label map {labels.shape}; ms per step "
+          f"{ms:.3f} against phase 12b's {single_ms:.3f} on one device ({ms / single_ms:.3f}x;"
+          f" {smi_line()})", flush=True)
+    profile_train(work, data, "mesh_profile", mesh, virtual, shards=DP_SHARDS)
+
+    elapsed()
+    print(f"[train_coordinator] two annonet_train --coordinator ranks on the card, --mesh "
+          f"{DP_SHARDS}, {COORD_STEPS} steps", flush=True)
+    ref = os.path.join(work, "coord_ref.dnn")
+    run_train_cli(train_argv(data) + mesh + [
+        "--max-total-steps", str(COORD_STEPS), "--output", ref,
+        "--sync-file", os.path.join(work, "coord_ref.dat")], env=virtual)
+    port = _free_port()
+    ranks = []
+    for rank in range(2):
+        d = os.path.join(work, f"rank{rank}")
+        os.makedirs(d)
+        ranks.append([sys.executable, "-m", "annonet_tpu_torch.cli.train", *train_argv(data),
+                      *mesh, "--max-total-steps", str(COORD_STEPS), "--coordinator",
+                      f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(rank),
+                      "--output", os.path.join(d, "m.dnn"), "--sync-file",
+                      os.path.join(d, "s.dat"), "--metrics-jsonl", os.path.join(d, "m.jsonl")])
+    t = time.monotonic()
+    outs = run_ranks(ranks, subprocess_env(), "the training ranks")
+    wall = time.monotonic() - t
+    written = {r: sorted(os.listdir(os.path.join(work, f"rank{r}"))) for r in range(2)}
+    gap, leaf = artifact_gap(os.path.join(work, "rank0", "m.dnn"), ref)
+    print(f"  ranks: {wall:.1f} s for {COORD_STEPS} steps (two process starts included); "
+          f"files written: {written}; rank 0's artifact against the one-process --mesh "
+          f"{DP_SHARDS} run: largest gap {gap:.3e} at {leaf} (must be 0)", flush=True)
+    if written[1] or sorted(written[0]) != ["m.dnn", "m.jsonl", "s.dat"]:
+        raise AssertionError(f"rank 0 alone must write the artifact, sync file and metrics: "
+                             f"{written}")
+    if "Multi-host training: process 1 of 2" not in outs[1] or gap != 0.0:
+        raise AssertionError("the coordinated run disagrees with the one-process run")
+
+    elapsed()
+    print(f"[train_int8] annonet_train --int8-training -b {TRAIN_BATCH}, {INT8_STEPS} steps",
+          flush=True)
+    wrappers = {"qconv3x3_acc": qconv.qconv3x3_acc, "qconv3x3_s2_acc": qconv.qconv3x3_s2_acc}
+    ms_q, _l, _m, _o = timed_train_run(work, data, "int8", ["--int8-training"], INT8_STEPS,
+                                       wrappers)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    per_step = {name: n / INT8_STEPS for name, n in launches.items()}
+    print(f"  launches {launches} over {INT8_STEPS} steps: {per_step} a step (want "
+          f"{INT8_TRAIN_LAUNCHES}); ms per step {ms_q:.3f} against phase 12b's {single_ms:.3f}"
+          f" ({ms_q / single_ms:.3f}x; {smi_line()})", flush=True)
+    if per_step != {k: float(v) for k, v in INT8_TRAIN_LAUNCHES.items()}:
+        raise AssertionError("the int8 train step did not launch 8 Q1-acc and 3 Q2-acc")
+    return launches, per_step
+
+
+def mesh_autotune_phase(work: str, data: str, boundary: int) -> None:
+    """annonet_autotune --mesh DP_SHARDS (ANNONET_TPU_VIRTUAL_MESH=1) from
+    just under phase 13a's boundary, under a timeout: the probes pass
+    --mesh through, and the search ends at a size its probes bracket."""
+    start = max(2, boundary - MESH_AUTOTUNE_BELOW)
+    env = {**subprocess_env(), "ANNONET_TPU_VIRTUAL_MESH": "1"}
+    argv = [sys.executable, "-m", "annonet_tpu_torch.cli.autotune", "--start", str(start),
+            data, "--mesh", str(DP_SHARDS), "--level-count", "3", "--max-total-steps",
+            str(AUTOTUNE_STEPS),
+            "--save-interval", "1000", "--output", os.path.join(work, "mesh_autotuned.dnn"),
+            "--sync-file", os.path.join(work, "mesh_autotuned.dat")]
+    t = time.monotonic()
+    text = run_ranks([argv], env, "annonet_autotune --mesh")[0]
+    probes = [int(m) for m in re.findall(r"probing minibatch size (\d+)", text)]
+    best = int(re.search(r"max working minibatch size: (\d+)", text).group(1))
+    print(f"  --mesh {DP_SHARDS} from --start {start}: probes {probes}, largest batch {best}, "
+          f"{time.monotonic() - t:.1f} s", flush=True)
+    if best not in probes or best + 1 not in probes:
+        raise AssertionError(f"the mesh search did not bracket its boundary: {probes}")
+
+
+_T0 = time.monotonic()
+
+
+def elapsed() -> None:
+    print(f"  (elapsed {time.monotonic() - _T0:.1f} s)", flush=True)
 
 
 def main() -> int:
@@ -2630,21 +3133,26 @@ def main() -> int:
     gen.manual_seed(SEED)
     plan = canvas_plan(config)
     n, side = plan.tile_count, plan.tile_height
+    elapsed()
     print(f"[kernels] the inferer's plan of a {CANVAS}x{CANVAS} image: {n} tiles of "
           f"{side}x{plan.tile_width}, overlap {plan.overlap_y}", flush=True)
+    elapsed()
     print(f"[kernels] f32, one {side}x{side} tile", flush=True)
-    check_convs(
+    f32_results = check_convs(
         runtime_params_from_numpy(params_np, config, device), config, device,
-        1, side, torch.float32, F32_TOL, 0, gen,
+        1, side, torch.float32, F32_TOL, 3, gen,
     )
+    elapsed()
     print(f"[kernels] bf16, the {n}-tile {side}x{side} batch", flush=True)
     conv_results = check_convs(
         runtime_params_from_numpy(params_np, config, device), config, device,
         n, side, torch.bfloat16, BF16_TOL, 5, gen,
     )
+    elapsed()
     print("[kernels] blend epilogue, 4096x4096 canvas, K=3", flush=True)
     blend_result = check_blend(config, device, 5, gen)
     torch.cuda.empty_cache()
+    elapsed()
     print(f"[kernels] int8, the {n}-tile {side}x{side} batch, each layer on the int8 net's "
           "own activations", flush=True)
     _calibration, qp, qp_up, _x_q, inputs = int8_setup(params_np, config, device, gen,
@@ -2652,21 +3160,31 @@ def main() -> int:
     int8_results, requant_share = check_int8_kernels(config, device, qp, qp_up, inputs, 3)
     del inputs, _x_q
     torch.cuda.empty_cache()
+    elapsed()
+    print(f"[kernels] Q1's and Q2's accumulator modes at int8 training's shapes: batch "
+          f"{TRAIN_BATCH} at {train_crop_dim(config)}², the operands of one int8 forward",
+          flush=True)
+    train_acc_results = check_train_int8_kernels(device, 3, gen)
+    elapsed()
     print("[kernels] blend epilogue in bf16, 4096x4096 canvas, K=3", flush=True)
     blend_bf16 = check_blend_bf16(config, device, 5, gen)
     torch.cuda.empty_cache()
+    elapsed()
     print(f"[kernels] G1, f32, the folded net's 7 stride-1 layers on one {side}x{side} tile",
           flush=True)
     check_g1(params_np, dataclasses.replace(config, compute_dtype="float32"), device,
              1, side, 0, gen)
+    elapsed()
     print(f"[kernels] G1, bf16, the folded net's 7 stride-1 layers on the {n}-tile batch",
           flush=True)
     g1_results = check_g1(params_np, config, device, n, side, 3, gen)
     torch.cuda.empty_cache()
 
+    elapsed()
     print("[accuracy] card vs CPU on a small image", flush=True)
-    check_small_image(params_np, config, device)
+    f32_launches = check_small_image(params_np, config, device)
 
+    elapsed()
     print("[main] annonet_infer on a 4096x4096 and a 2300x1500 image", flush=True)
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_REPO)
     try:
@@ -2674,10 +3192,12 @@ def main() -> int:
             work, config, SEED, IMAGE_SIZES, str(device)
         )
         float_results = read_results(os.path.join(work, "data"), IMAGE_SIZES)
+        elapsed()
         print("[int8] annonet_infer --quantize int8 on the same images", flush=True)
         int8_launches, int8_per_image, calib = run_int8_path(
             work, IMAGE_SIZES, float_results)
         int8_labels = read_results(os.path.join(work, "data"), IMAGE_SIZES)
+        elapsed()
         print("[serve] annonet_serve in-process: the float server, the int8 server, "
               "--plan-autotune", flush=True)
         t = time.monotonic()
@@ -2685,29 +3205,35 @@ def main() -> int:
                                               calib, smi)
         print(f"  serve phase: {time.monotonic() - t:.1f} s", flush=True)
         del int8_labels
+        elapsed()
         print("[pipeline] annonet_infer pipelined and sequential on four images, then "
               "--profile", flush=True)
         pipeline_phase(work, IMAGE_SIZES, SEED)
+        elapsed()
         print("[breakdown] one 4096x4096 image, stage by stage", flush=True)
         breakdown(params_np, config, device, os.path.join(work, "data"),
                   IMAGE_SIZES[-1][0])
         inferer, image, plan = breakdown_int8(
             params_np, config, device, os.path.join(work, "data"), IMAGE_SIZES[-1][0],
             calib)
+        elapsed()
         print("[quantize_up] int8 up layers (Q3) on the 25-tile batch", flush=True)
         up_launches = quantize_up_forward(params_np, config, device, inferer, image, plan)
         del inferer, image
         torch.cuda.empty_cache()
+        elapsed()
         print("[pallas_conv] TiledInferer(use_pallas_conv=True), the 4096x4096 image",
               flush=True)
         pallas_launches = pallas_conv_path(params_np, config, device,
                                            os.path.join(work, "data"), IMAGE_SIZES[-1][0])
         torch.cuda.empty_cache()
+        elapsed()
         print(f"[mesh] TiledInferer on a virtual {MESH_SHARDS}-shard mesh of the card, the "
               "4096x4096 image: float, int8, use_pallas_conv; annonet_serve --mesh", flush=True)
         t = time.monotonic()
         mesh_launches = mesh_phase(params_np, config, device, work, IMAGE_SIZES[-1][0], calib)
         print(f"  mesh phase: {time.monotonic() - t:.1f} s", flush=True)
+        elapsed()
         print("[coordinator] two annonet_infer processes on the card (--coordinator)",
               flush=True)
         t = time.monotonic()
@@ -2717,12 +3243,14 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    elapsed()
     print("[repro_qconv_s1] the diagnostic tool's sweep and bisect on the card",
           flush=True)
     acc_launches = repro_qconv_phase(device)
     torch.cuda.empty_cache()
-    train_launches = training_phases(device)
+    train_launches, (int8_train_launches, int8_per_step) = training_phases(device)
     print(f"  int8 validation launches: {train_launches}", flush=True)
+    elapsed()
     print("[accuracy_floors] the end-to-end test's recipe trained and scored on the card",
           flush=True)
     accuracy_phase(device)
@@ -2756,13 +3284,39 @@ def main() -> int:
             **numbers(int8_results["up2x2_requant"]),
         }},
         "blend_argmax": {f"bfloat16_{variant}": numbers(r) for variant, r in blend_bf16.items()},
-        "qconv3x3_requant": {"accumulator": {
-            "replaces": _ACC_REPLACES,
-            "path": _ACC_PATH,
-            "launches": acc_launches,
-            **numbers(int8_results["qconv3x3_acc"]),
+        "qconv3x3_requant": {
+            "accumulator": {
+                "replaces": _ACC_REPLACES,
+                "path": _ACC_PATH,
+                "launches": acc_launches,
+                **numbers(int8_results["qconv3x3_acc"]),
+            },
+            # the same mode at int8 training's shapes, launched by its forward
+            "accumulator_train": {
+                "name": "qconv3x3_acc", "route": "cuda", "source": _SOURCES["qconv3x3_requant"],
+                "replaces": _ACC_REPLACES,
+                "path": _INT8_TRAIN_PATH,
+                "launches": int8_train_launches["qconv3x3_acc"],
+                "launches_per_train_step": int8_per_step["qconv3x3_acc"],
+                **numbers(train_acc_results["qconv3x3_acc"]),
+            },
+        },
+        "qconv3x3_s2_requant": {"accumulator": {
+            "name": "qconv3x3_s2_acc", "route": "cuda", "source": _SOURCES["qconv3x3_s2_requant"],
+            "replaces": _Q2_ACC_REPLACES,
+            "path": _INT8_TRAIN_PATH,
+            "launches": int8_train_launches["qconv3x3_s2_acc"],
+            "launches_per_train_step": int8_per_step["qconv3x3_s2_acc"],
+            **numbers(train_acc_results["qconv3x3_s2_acc"]),
         }},
     }
+    # the f32 kernels (csrc/conv.cu), timed on one tile; launched by the f32
+    # net's forward of the accuracy phase (one 256² tile)
+    for name in ("conv3x3_bias_relu", "conv3x3_s2_bias_relu", "up2x2_bias_relu"):
+        modes.setdefault(name, {})["float32"] = {
+            "name": name, "route": "cuda", "source": "annonet_tpu_torch/csrc/conv.cu",
+            "replaces": _TPU_KERNELS[name], "launches": f32_launches[name],
+            **numbers(f32_results[name])}
     modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
     # the serve phase's own counts: the float server's K1-K4, the int8
     # server's Q1, Q2, K3-requant and K4

@@ -2,13 +2,14 @@
 against tests/test_autotune.py's checks of the JAX tool: the search finds
 the exact boundary against a fake probe and raises when nothing works;
 --help does not probe; --coordinator is refused as in the JAX tool
-(tests/test_multihost.py::test_autotune_refuses_coordinator) and --mesh
-until data-parallel training is ported. The probes key off annonet_train's
+(tests/test_multihost.py::test_autotune_refuses_coordinator), and --mesh
+passes through to every probe. The probes key off annonet_train's
 exit code, so a CUDA out-of-memory error must end annonet_train with a
 nonzero code, in its setup (1) and in its loop (2), and the process must
 exit. One real search on the CPU: the probes run under an address-space
 limit on their data (RLIMIT_DATA), so a large enough batch fails to
-allocate, as a batch too large for the card fails there.
+allocate, as a batch too large for the card fails there; one more with
+--mesh 2 on virtual shards.
 """
 
 import os
@@ -77,11 +78,31 @@ def test_autotune_refuses_coordinator(capsys, monkeypatch, spelling):
     assert "single-host" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("spelling", [["--mesh", "8"], ["--mesh=8"]])
-def test_autotune_refuses_mesh_until_data_parallel_training(capsys, monkeypatch, spelling):
-    monkeypatch.setattr(autotune, "probe", lambda *a: pytest.fail("probed"))
-    assert autotune.main(["/nonexistent", *spelling]) == 2
-    assert "ROADMAP.md queue 1 item 6" in capsys.readouterr().err
+def test_autotune_with_mesh_end_to_end(tmp_path):
+    """The counterpart of tests/test_autotune.py's mesh test: the probes
+    and the real run all pass --mesh 2 through to annonet_train on virtual
+    shards (ANNONET_TPU_VIRTUAL_MESH=1), under a data limit, so the search
+    meets a boundary; the real run trains data-parallel."""
+    write_synthetic_dataset(tmp_path, n_images=2, size=64)
+    limit = 450 << 20
+    launcher = (f"import os, resource, sys; resource.setrlimit(resource.RLIMIT_DATA, "
+                f"({limit}, {limit})); sys.exit(__import__('annonet_tpu_torch.cli.autotune', "
+                f"fromlist=['main']).main(sys.argv[1:]))")
+    proc = subprocess.run(
+        [sys.executable, "-c", launcher, "--start", "8", str(tmp_path), "--mesh", "2",
+         "--level-count", "1", "--input-dimension-multiplier", "8",
+         "--max-total-steps", "3", "--data-loader-thread-count", "1",
+         "--output", str(tmp_path / "annonet.dnn"), "--sync-file", str(tmp_path / "sync.dat")],
+        env={**_env(), "ANNONET_TPU_VIRTUAL_MESH": "1"}, capture_output=True, text=True,
+        timeout=300, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stdout[-1500:] + proc.stderr[-800:]
+    probed = [int(line.split()[3].rstrip(".")) for line in proc.stdout.splitlines()
+              if line.startswith("probing minibatch size")]
+    best = int(proc.stdout.split("max working minibatch size: ")[1].split()[0])
+    assert probed[0] == 8 and best in probed and best + 1 in probed
+    assert f"launching the real run with -b {best}" in proc.stdout
+    assert (tmp_path / "annonet.dnn").exists()
 
 
 _OOM_RUN = """

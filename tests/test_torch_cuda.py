@@ -16,8 +16,8 @@ where the plain versions round before it too (two bf16 steps, 2**-6, of
 the output scale); the blend's labels and seeds are bit-identical, in f32
 and in bf16, with and without the argmax fold, for any tile list; the int8
 kernels Q1-Q3 sum integers exactly and requantize with one FMA, as their
-plain versions do, so they are bit-identical, as is Q1's accumulator mode
-(the int32 sums; all on the int8 tensor cores); K3's requant
+plain versions do, so they are bit-identical, as are Q1's and Q2's
+accumulator modes (the int32 sums; all on the int8 tensor cores); K3's requant
 mode sums floats in another order
 than cuDNN, so it is held within one requant step. G1 and its plain version
 both sum in f32 and round once: bf16 within one bf16 step at the largest
@@ -351,6 +351,51 @@ def test_q2_tensor_cores_are_bit_identical_to_plain(device, n, h, w, cin, cout):
     assert (want == 0).any() and (want > 0).any()
     with pytest.raises(ValueError, match="packed"):
         qconv.qconv3x3_s2_requant(x, wgt, scale, offset, packed=packed[..., :16].contiguous())
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout",
+    [(2, 14, 70, 12, 20), (4, 32, 64, 16, 32), (2, 16, 36, 32, 64), (2, 12, 20, 64, 128),
+     (1, 12, 40, 40, 36), (1, 6, 20, 24, 136), (1, 4, 4, 3, 4), (3, 10, 34, 16, 8)],
+)
+def test_q2_accumulator_mode_is_bit_identical_to_plain(device, n, h, w, cin, cout):
+    """Q2's accumulator mode (int8 training's stride-2 conv): the int32
+    sums equal the plain version's at paired and chunked input channels,
+    ragged output tiles and cout across slabs; signed inputs as the
+    training activations' symmetric grid gives them."""
+    from annonet_tpu_torch.ops import qconv
+
+    x = _int8((n, h, w, cin), device, 5, -127)
+    wgt = _int8((3, 3, cin, cout), device, 6, -127)
+    packed = qconv.pack_q1_weights(wgt)
+    before = qconv.qconv3x3_s2_acc.launches
+    got = qconv.qconv3x3_s2_acc(x, wgt, packed=packed)
+    assert qconv.qconv3x3_s2_acc.launches == before + 1
+    want = qconv.qconv3x3_s2_acc_plain(x, wgt)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, h // 2, w // 2, cout) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_int8_training_step_launches_the_accumulator_modes(device):
+    """One int8 straight-through step of a level-2 net on the card: Q1's
+    accumulator mode on the 2 + 2 + 2 stride-1 layers and Q2's on the 2
+    stride-2 layers, each once; the loss is finite."""
+    from annonet_tpu_torch.data.crop import CropOptions
+    from annonet_tpu_torch.models.segnet import SegNetConfig
+    from annonet_tpu_torch.ops import qconv
+    from annonet_tpu_torch.train import Trainer, TrainerConfig
+
+    config = SegNetConfig(class_count=3, level_count=2, base_width=8)
+    trainer = Trainer(config, TrainerConfig(int8_forward=True), seed=0, device=device)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    labels = rng.integers(0, 3, (4, 32, 32)).astype(np.uint16)
+    before = (qconv.qconv3x3_acc.launches, qconv.qconv3x3_s2_acc.launches)
+    loss = trainer.train_step_crops(images, labels, CropOptions(dim=32))
+    assert np.isfinite(loss)
+    assert (qconv.qconv3x3_acc.launches - before[0],
+            qconv.qconv3x3_s2_acc.launches - before[1]) == (6, 2)
 
 
 _Q3_CHANNELS = [(8, 4), (16, 8), (24, 12), (32, 16), (48, 40), (64, 32), (128, 64)]

@@ -1,6 +1,6 @@
 """``annonet_train`` of the port (annonet_tpu_torch/cli/train.py) against
-the JAX package's CLI, on the CPU: the same parser; the flags not ported
-yet exit 2 and name their roadmap item; the exit codes (1 with no
+the JAX package's CLI, on the CPU: the same parser; a --mesh 2 run on
+virtual shards and an --int8-training run; the exit codes (1 with no
 arguments, for setup errors and without a CUDA device; 2 for a bad parse
 or downscaling factor and for an error in the training loop); a package
 that trains, validates and resumes without jax; and the parity run: JAX's
@@ -65,15 +65,58 @@ def test_parser_has_the_jax_flags():
     assert table(cli.build_parser()) == table(jax_cli.build_parser())
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--mesh", "2"], 6), (["--coordinator", "localhost:1234"], 6),
-    (["--num-processes", "2"], 6), (["--process-id", "0"], 6), (["--int8-training"], 7),
-])
-def test_unported_flags_exit_2(tmp_path, capsys, monkeypatch, flag, item):
+def _train(dataset, name, *extra):
+    """annonet_train in-process on the small set: (exit code, its metrics
+    events, the artifact's path)."""
+    model, metrics = dataset / f"{name}.dnn", dataset / f"{name}.jsonl"
+    rc = cli.main([str(dataset / "train"), *SMALL, "--max-total-steps", "3",
+                   "--save-interval", "1000", "--output", str(model),
+                   "--sync-file", str(dataset / f"{name}.dat"), "--metrics-jsonl",
+                   str(metrics), "--metrics-interval", "1", *extra])
+    with open(metrics) as f:
+        return rc, [json.loads(line) for line in f], model
+
+
+def test_mesh_run_on_virtual_shards(dataset, capsys, monkeypatch):
+    """--mesh 2 under ANNONET_TPU_VIRTUAL_MESH=1: the minibatch of 4 stays,
+    one of 3 is rounded up with JAX's message; the run trains data-parallel
+    and its artifact loads into TiledInferer."""
     monkeypatch.setenv(DEVICE_ENV, "cpu")
-    assert cli.main([str(tmp_path), *flag]) == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and f"ROADMAP.md queue 1 item {item}" in err
+    monkeypatch.setenv("ANNONET_TPU_VIRTUAL_MESH", "1")
+    rc, events, model = _train(dataset, "mesh", "--mesh", "2")
+    assert rc == 0
+    assert events[0]["event"] == "start" and events[0]["mesh"] == 2
+    losses = [e["loss"] for e in events if e["event"] == "loss"]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    params, config, _classes, _factor = serialization.load_model(str(model))
+    TiledInferer(params, config, device="cpu")
+    rc, _events, _model = _train(dataset, "mesh3", "--mesh", "2", "-b", "3")
+    assert rc == 0
+    assert "Minibatch size rounded up to 4 (multiple of the 2-device mesh)" in \
+        capsys.readouterr().out
+
+
+def test_int8_training_run(dataset, monkeypatch):
+    """--int8-training trains through the int8 straight-through convs (on
+    the CPU their plain versions): exit 0, finite losses that differ from
+    the float run's, an artifact the int8 inferer serves."""
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    calls = []
+    from annonet_tpu_torch.ops import int8_train
+
+    real = int8_train.Int8ConvSTE.apply
+    monkeypatch.setattr(int8_train.Int8ConvSTE, "apply",
+                        lambda *a: calls.append(a[-1]) or real(*a))
+    rc, events, model = _train(dataset, "int8", "--int8-training")
+    assert rc == 0
+    losses = [e["loss"] for e in events if e["event"] == "loss"]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    # level 1: the stem's 2, enc1's 2 and dec1's 1 conv a step; one of stride 2
+    assert len(calls) == 3 * 5 and calls.count(2) == 3
+    _rc, float_events, _m = _train(dataset, "float")
+    assert [e["loss"] for e in float_events if e["event"] == "loss"] != losses
+    params, config, _classes, _factor = serialization.load_model(str(model))
+    TiledInferer(params, config, device="cpu", quantize="int8")
 
 
 @pytest.mark.parametrize("flag", [["--steps-per-dispatch", "4"], ["--no-compilation-cache"]])
