@@ -6,8 +6,8 @@
 //                                    decoder's concat as a second input x2
 //   K2 fconv3x3_s2_bias_relu (:426)  stride 2, XLA SAME padding (0, 1):
 //                                    output o taps inputs 2o + d
-// in bf16; the f32 configs stay on conv.cu's direct convolution on the CUDA
-// cores (TF32 tensor cores keep 10 mantissa bits and would break the 1e-4
+// in bf16; the f32 configs run conv.cu's implicit GEMM on the CUDA cores
+// (TF32 tensor cores keep 10 mantissa bits and would break the 1e-4
 // contract the f32 configs exist to check). annonet_conv3x3_bias_relu
 // (conv.cu) dispatches on the dtype.
 //
@@ -39,8 +39,9 @@
 // with the previous chunk's products and stores 16 bytes a thread. The
 // deep layers above the line are bound by the tensor cores: there each
 // A fragment feeds up to three MMAs (below) and B fragments are reused
-// over a warp's rows. Direct convolution on the CUDA cores (the f32 path)
-// runs at 14-21 TFLOP/s, so its time follows FLOPs instead.
+// over a warp's rows. The f32 path's implicit GEMM on the CUDA cores
+// (conv.cu) runs at 30-39 TFLOP/s on the layers with 16 or more input
+// channels, so its time follows FLOPs instead.
 //
 // Design. GEMM M = the block's output pixels (kTH rows x kTW columns: 8 x
 // 64 at stride 1 and cout <= 32, fewer rows or columns for wider slabs),

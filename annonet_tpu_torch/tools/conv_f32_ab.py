@@ -1,0 +1,133 @@
+"""Time the f32 conv kernels K1-K3 (``csrc/conv.cu``) and an f32
+``infer_arrays`` call in several checkouts of the repo, one after another
+on the same device: the A/B of a change to those kernels against its
+parent, at the shapes of ``chip_smoke.py``'s phase 3.
+
+Each checkout runs in a subprocess of its own (its directory first on
+``PYTHONPATH``), which builds that checkout's kernels and times, with CUDA
+events (mean of 5 launches after a warm-up), every conv of the
+flagship net (``SegNetConfig(class_count=3, level_count=3,
+base_width=16)``, random weights from seed 0; the layers of this repo's
+``chip_smoke.conv_calls``) in f32 on the tile batch the inferer plans for
+a 4096x4096 image (25 tiles of 872x872), then the host wall of 5 f32
+``infer_arrays`` calls on a random 4096x4096 image after a warm-up.
+Only the public wrappers of ``annonet_tpu_torch.ops.conv`` and
+``TiledInferer`` are used, so any checkout of the port since its first
+slice runs.
+
+    python -m annonet_tpu_torch.tools.conv_f32_ab --checkouts _ab/parent . . _ab/parent
+
+Give the order parent, change, change, parent so that a drift of the card
+over the runs shows as a difference between the two runs of one checkout.
+Prints one JSON line a run (per-layer ms, K1, K2 and K3 sums, the wall)
+and then the card's name and power limit (``nvidia-smi``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+REPS = 5
+# the child: argv[1] is the JSON list of (kernel, layer, x shape, x2
+# channels, weight key), argv[2] the reps
+CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+from annonet_tpu_torch.infer.core import TiledInferer
+from annonet_tpu_torch.models.segnet import (SegNetConfig, init_runtime_params,
+                                             runtime_params_from_numpy)
+from annonet_tpu_torch.ops import conv
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+calls, reps = json.loads(sys.argv[1]), int(sys.argv[2])
+device = torch.device("cuda", 0)
+config = SegNetConfig(class_count=3, level_count=3, base_width=16, compute_dtype="float32")
+params_np = init_runtime_params(config, 0)
+params = runtime_params_from_numpy(params_np, config, device)
+gen = torch.Generator(device=device)
+gen.manual_seed(0)
+layers, sums = {}, {}
+for kernel, layer, shape, c2, key in calls:
+    w, b = params[key + "/w"], params[key + "/b"]
+    x = torch.rand(shape, generator=gen, device=device)
+    extra = {"x2": torch.rand(shape[:3] + [c2], generator=gen, device=device)} if c2 else {}
+    fn = getattr(conv, kernel)
+    fn(x, w, b, **extra)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn(x, w, b, **extra)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    layers[layer] = ms
+    sums[kernel] = sums.get(kernel, 0.0) + ms
+    del x, extra
+torch.cuda.empty_cache()
+image = np.random.default_rng(0).integers(0, 256, (4096, 4096, 3), dtype=np.uint8)
+inferer = TiledInferer(params_np, config, device=device)
+gains = np.zeros(3, np.float32)
+levels = np.asarray([0.0, 0.5, 0.0], np.float32)
+inferer.infer_arrays(image, gains, levels)
+walls = []
+for _ in range(reps):
+    t = time.monotonic()
+    inferer.infer_arrays(image, gains, levels)
+    walls.append((time.monotonic() - t) * 1e3)
+print(json.dumps({"layers_ms": layers, "k1_ms": sums["conv3x3_bias_relu"],
+                  "k2_ms": sums["conv3x3_s2_bias_relu"], "k3_ms": sums["up2x2_bias_relu"],
+                  "f32_infer_arrays_ms": sum(walls) / reps, "walls_ms": walls}))
+"""
+
+
+def conv_calls() -> list:
+    """``chip_smoke.conv_calls`` of this repo: the flagship's convs on the
+    inferer's tile batch of a 4096x4096 image."""
+    root = pathlib.Path(__file__).resolve().parents[2]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    config = chip_smoke.flagship_config()
+    plan = chip_smoke.canvas_plan(config)
+    return chip_smoke.conv_calls(config, plan.tile_count, plan.tile_height)
+
+
+def time_checkout(checkout: str, calls: list) -> dict:
+    env = dict(os.environ)
+    root = str(pathlib.Path(checkout).resolve())
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", CHILD, json.dumps(calls), str(REPS)],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=1200)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"{checkout}: exit code {proc.returncode}\n{proc.stdout[-3000:]}"
+                         f"\n{proc.stderr[-3000:]}")
+    return {"checkout": checkout, **json.loads(lines[-1])}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--checkouts", nargs="+", required=True,
+                        help="repo directories, timed in this order")
+    args = parser.parse_args(argv)
+    calls = conv_calls()
+    for checkout in args.checkouts:
+        print(json.dumps(time_checkout(checkout, calls)), flush=True)
+    smi = shutil.which("nvidia-smi")
+    print(subprocess.run([smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+          if smi else "nvidia-smi: not available")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,9 @@ Phases (any failure raises, and the exit code is then nonzero):
   1. device   needs CUDA; prints the card's name and power limit
   2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc, one
               compiler process per source, in parallel; then reads the
-              library's SASS (cuobjdump): the bf16 K1/K2 kernels
+              library's SASS (cuobjdump): the 9 f32 K1/K2 kernels
+              (simt_conv_kernel) exist and the direct convolution they
+              replaced does not; the bf16 K1/K2 kernels
               (igemm_kernel), both modes of bf16 K3 (upgemm_kernel) and
               bf16 G1 (gemm_conv_bf16) must hold tensor-core instructions
               (HMMA or HGMMA), every Q1 kernel of both modes, every Q2
@@ -16,22 +18,24 @@ Phases (any failure raises, and the exit code is then nonzero):
               (qup_igemm_kernel) int8 ones (IMMA), the accumulator
               mode's at both strides included; no kernel of the
               library may hold __dp4a, and no bf16 instantiation of the
-              f32 direct convolutions (conv3x3, up2x2) may exist; prints
+              f32 direct convolution of K3 (up2x2) may exist; prints
               those kernels' registers, stack, local and static shared
               memory
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes, with its bound (the larger of its bytes at the
-              HBM rate and its operations at the tensor-core peak) and,
+              HBM rate and its operations at the peak of their type: the
+              tensor cores' for bf16 and int8, 67 TFLOP/s for f32) and,
               where one PyTorch call computes the same function, that
               call's time (cuDNN F.conv2d / conv_transpose2d with bias):
               each conv layer of the flagship net
               (SegNetConfig(class_count=3, level_count=3, base_width=16),
               widths 16/32/64/128) on the tile batch that the inferer
               plans for a 4096x4096 image (25 tiles of 872x872), in bf16,
-              plus the f32 kernels (csrc/conv.cu) on one tile, timed
-              beside cuDNN's f32 call; the blend epilogue on the 4096x4096 canvas with
-              K=3, with and without detection and under the reference
-              blend semantics, and on two stress lists (random tiles that
+              and first in f32 (csrc/conv.cu) on the same batch, timed
+              beside cuDNN's f32 call (TF32 off); the blend epilogue on
+              the 4096x4096 canvas with K=3, with and without detection
+              and under the reference blend semantics, and on two
+              stress lists (random tiles that
               form no grid; 200 small tiles at nearly one position, more
               than K4 lists at a time). Then the int8 kernels on the same
               batch, with weights from quantize_net and calibration from
@@ -105,7 +109,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               steady-state wall (the headline Mpx/s), its first call and
               its plan constants apart, the device stages of one call,
               and the host stages of the CLI loop; then the int8
-              infer_arrays's steady state and device stages
+              infer_arrays's steady state and device stages, and the f32
+              one's (compute_dtype="float32": the f32 K1-K4, launches of
+              one call counted)
   8. quantize_up one forward of the int8 net with int8 up layers (Q3) on
               the 25-tile batch
   9. pallas_conv TiledInferer(use_pallas_conv=True) on the 4096x4096 image
@@ -318,14 +324,18 @@ def sass_functions(cuobjdump: str, library: str, what: str) -> dict:
 
 
 def short_name(mangled: str) -> str:
-    """``igemm_kernel<1, 16>`` for the mangled name of a K1/K2 kernel,
-    ``upgemm_kernel<true>`` for a bf16 K3 one, ``q1_igemm_kernel<2, 16,
-    true, false>`` for a Q1 or Q2 one (stride, cout block, two-row-tap
-    steps, accumulator mode), the plain name of G1's and of Q3's kernel,
-    else the name as given."""
-    m = re.search(r"\d+(igemm_kernel|conv3x3_f32_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    """``igemm_kernel<1, 16>`` for the mangled name of a bf16 K1/K2 kernel,
+    ``simt_conv_kernel<1, 32, 2>`` for an f32 one (stride, cout block,
+    4-channel pieces a chunk), ``upgemm_kernel<true>`` for a bf16 K3 one,
+    ``q1_igemm_kernel<2, 16, true, false>`` for a Q1 or Q2 one (stride,
+    cout block, two-row-tap steps, accumulator mode), the plain name of
+    G1's and of Q3's kernel, else the name as given."""
+    m = re.search(r"\d+igemm_kernelILi(\d+)ELi(\d+)E", mangled)
     if m and "q1_igemm" not in mangled:
-        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+        return f"igemm_kernel<{m.group(1)}, {m.group(2)}>"
+    m = re.search(r"\d+simt_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"simt_conv_kernel<{', '.join(m.groups())}>"
     m = re.search(r"q1_igemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
     if m:
         flags = ", ".join("true" if b == "1" else "false" for b in m.groups()[2:])
@@ -347,8 +357,11 @@ def check_tensor_cores(library: str) -> None:
     q1_igemm_kernel<stride, cout block, pair, accumulator>, all that
     annonet_q1_igemm and annonet_q2_igemm launch) and Q3's (qup_igemm.cu's
     qup_igemm_kernel, all that annonet_qup2x2_requant launches) hold IMMA;
-    no kernel of the library holds __dp4a (IDP.4A); the f32 direct
-    convolutions have no bf16 instantiation.
+    no kernel of the library holds __dp4a (IDP.4A); f32 K1/K2 are conv.cu's
+    implicit GEMM on the CUDA cores (simt_conv_kernel<stride, cout block,
+    pieces>, all that annonet_conv3x3_bias_relu launches for f32; the direct
+    convolution it replaced is gone) and the f32 direct convolution of K3
+    has no bf16 instantiation.
     Prints each of those kernels' tensor-core and __dp4a instruction counts
     and resource usage (registers, stack, local memory: a spill shows as
     local memory)."""
@@ -379,9 +392,14 @@ def check_tensor_cores(library: str) -> None:
     q3 = {k for k in sass if short_name(k) == "qup_igemm_kernel"}
     if len(q3) != 1:
         raise AssertionError(f"found {len(q3)} Q3 kernels in the SASS: {sorted(q3)}")
-    stale = [k for k in sass if ("conv3x3" in k or "up2x2_kernel" in k) and "bfloat16" in k]
+    simt = {k for k in sass if short_name(k).startswith("simt_conv_kernel<")}
+    # stride 1: 3 cout blocks x 1 or 2 pieces a chunk; stride 2: 3 x 1
+    if len(simt) != 9:
+        raise AssertionError(f"found {len(simt)} f32 K1/K2 kernels in the SASS: {sorted(simt)}")
+    stale = [k for k in sass if "conv3x3_f32_kernel" in k
+             or ("up2x2_kernel" in k and "bfloat16" in k)]
     if stale:
-        raise AssertionError(f"a bf16 direct convolution is still compiled: {stale}")
+        raise AssertionError(f"a replaced direct convolution is still compiled: {stale}")
     dp4a_kernels = {short_name(k) for k in sass if count(k, dp4a)}
     if dp4a_kernels:
         raise AssertionError(f"__dp4a in the library: {sorted(dp4a_kernels)}")
@@ -568,7 +586,8 @@ def check_convs(params, config, device, n: int, side: int, dtype, tol: float,
         err = (got.float() - want.float()).abs().max().item()
         scale = max(1.0, want.float().abs().max().item())
         ok = err <= tol * scale
-        bnd = conv_bound(kernel, x, w, b, got, extra.get("x2"))
+        bnd = conv_bound(kernel, x, w, b, got, extra.get("x2"),
+                         "f32" if dtype == torch.float32 else "bf16")
         k_ms = p_ms = lib_ms = float("nan")
         if reps:
             k_ms, p_ms = timed_pair(
@@ -1384,6 +1403,40 @@ def breakdown_int8(params_np, config, device, data: str, name: str, calib: str,
                          device_ms):
         print(f"    {stage:46s} {ms:9.3f} ms", flush=True)
     return inferer, image, plan
+
+
+def breakdown_f32(params_np, config, device, data: str, name: str, reps: int = 5) -> dict:
+    """The f32 infer_arrays (compute_dtype="float32", as the accuracy and
+    detection recipes' artifacts run) at steady state on the 4096x4096
+    image, its device stages, and the f32 K1-K4 launches of one call."""
+    from annonet_tpu_torch.infer.core import TiledInferer
+
+    image = read_image(data, name)
+    h, w = image.shape[:2]
+    f32 = dataclasses.replace(config, compute_dtype="float32")
+    inferer = TiledInferer(params_np, f32, device=device)
+    gains = np.zeros(config.class_count, np.float32)
+    levels = np.asarray([0.0, 0.5, 0.0], np.float32)
+    walls, device_ms = time_infer_arrays(inferer, image, gains, levels, reps)
+    wrappers = float_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    inferer.infer_arrays(image, gains, levels)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    wall = sum(walls) / reps
+    plan = inferer.plan(h, w)
+    print(f"  {name} f32: plan {plan.tile_count} tiles of {plan.tile_height}x"
+          f"{plan.tile_width}; infer_arrays steady state {wall * 1e3:.3f} ms host wall, "
+          f"mean of {reps} calls after a warm-up ({h * w / 1e6 / wall:.2f} Mpx/s; calls "
+          + ", ".join(f"{x * 1e3:.3f}" for x in walls) + f" ms); launches a call {launches}",
+          flush=True)
+    print("  device stages of one f32 call (CUDA events):", flush=True)
+    for stage, ms in zip(("gains + upload + pad + tile gather", "f32 net forward (K1-K3 + head)",
+                          "blend epilogue (K4)", "crop + labels and seeds to host"), device_ms):
+        print(f"    {stage:36s} {ms:9.3f} ms", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the f32 infer_arrays call missed a kernel: {launches}")
+    return launches
 
 
 def quantize_up_forward(params_np, config, device, inferer, image, plan):
@@ -3137,11 +3190,12 @@ def main() -> int:
     print(f"[kernels] the inferer's plan of a {CANVAS}x{CANVAS} image: {n} tiles of "
           f"{side}x{plan.tile_width}, overlap {plan.overlap_y}", flush=True)
     elapsed()
-    print(f"[kernels] f32, one {side}x{side} tile", flush=True)
+    print(f"[kernels] f32, the {n}-tile {side}x{side} batch", flush=True)
     f32_results = check_convs(
         runtime_params_from_numpy(params_np, config, device), config, device,
-        1, side, torch.float32, F32_TOL, 3, gen,
+        n, side, torch.float32, F32_TOL, 3, gen,
     )
+    torch.cuda.empty_cache()
     elapsed()
     print(f"[kernels] bf16, the {n}-tile {side}x{side} batch", flush=True)
     conv_results = check_convs(
@@ -3216,6 +3270,9 @@ def main() -> int:
         inferer, image, plan = breakdown_int8(
             params_np, config, device, os.path.join(work, "data"), IMAGE_SIZES[-1][0],
             calib)
+        f32_call_launches = breakdown_f32(params_np, config, device,
+                                          os.path.join(work, "data"), IMAGE_SIZES[-1][0])
+        torch.cuda.empty_cache()
         elapsed()
         print("[quantize_up] int8 up layers (Q3) on the 25-tile batch", flush=True)
         up_launches = quantize_up_forward(params_np, config, device, inferer, image, plan)
@@ -3310,12 +3367,14 @@ def main() -> int:
             **numbers(train_acc_results["qconv3x3_s2_acc"]),
         }},
     }
-    # the f32 kernels (csrc/conv.cu), timed on one tile; launched by the f32
-    # net's forward of the accuracy phase (one 256² tile)
+    # the f32 kernels (csrc/conv.cu), timed on the 25-tile batch; launched by
+    # the f32 net's forward of the accuracy phase (one 256² tile) and by one
+    # f32 infer_arrays call at 4096x4096 (phase 7)
     for name in ("conv3x3_bias_relu", "conv3x3_s2_bias_relu", "up2x2_bias_relu"):
         modes.setdefault(name, {})["float32"] = {
             "name": name, "route": "cuda", "source": "annonet_tpu_torch/csrc/conv.cu",
             "replaces": _TPU_KERNELS[name], "launches": f32_launches[name],
+            "f32_infer_call_launches": f32_call_launches[name],
             **numbers(f32_results[name])}
     modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
     # the serve phase's own counts: the float server's K1-K4, the int8

@@ -79,7 +79,8 @@ def _close(got, want, dtype_name):
 # their earlier ids; then every K1/K2 shape that tests/test_torch_cuda.py
 # gives the kernels on the card (grayscale and RGB stems, concats with
 # c1 % 8 != 0, the decoder's 16+16 and 64+64, 128 -> 128, two cout slabs,
-# n = 3 with an odd H, stride 2 with odd cout)
+# n = 3 with an odd H, stride 2 with odd cout; then f32's edges: concats
+# with c1 or c2 % 4 != 0, cout 32, stride 2 on 3 x 3 tiles)
 _SHAPES = [
     pytest.param(kind, 2, 16, 24, cin, 0, cout, id=f"{kind}-{cin}-{cout}")
     for kind, cin, cout in [("s1", 3, 16), ("s1", 16, 16), ("s1", 32, 8), ("s2", 16, 32),
@@ -92,6 +93,9 @@ _SHAPES = [
     ("s1", 1, 6, 20, 24, 0, 136), ("s1", 3, 9, 30, 8, 0, 24),
     ("s2", 2, 32, 100, 16, 0, 32), ("s2", 1, 16, 36, 64, 0, 128), ("s2", 1, 18, 66, 16, 0, 9),
     ("s2", 1, 10, 70, 64, 0, 20),
+    ("s1", 1, 10, 36, 6, 16, 32), ("s1", 1, 10, 36, 16, 6, 32), ("s1", 1, 20, 50, 32, 0, 32),
+    ("s2", 1, 34, 260, 16, 0, 32), ("s2", 1, 34, 140, 64, 0, 128),
+    ("s1", 3, 11, 40, 8, 0, 32),
 ]
 
 
@@ -136,7 +140,7 @@ def _folded_case(seed, cout, k):
     return x, w, b, jnp.asarray(x.reshape(2, H, WB, FOLD * CIN))
 
 
-@pytest.mark.parametrize("cout", [16, 8])
+@pytest.mark.parametrize("cout", [16, 8, 32])
 def test_k1_matches_pallas_fconv3x3_s1(cout):
     x, w, b, xf = _folded_case(1, cout, 3)
     wf = _fold_s1_kernel(w, FOLD)  # [3, 3, fold*cin, fold*cout]
@@ -147,7 +151,7 @@ def test_k1_matches_pallas_fconv3x3_s1(cout):
     _close(_port(x, w, b, torch.float32, "s1"), want, "float32")
 
 
-@pytest.mark.parametrize("cout", [32, 16])
+@pytest.mark.parametrize("cout", [32, 16, 64])
 def test_k2_matches_pallas_fconv3x3_s2(cout):
     x, w, b, xf = _folded_case(2, cout, 3)
     wf = _fold_s2_kernel(w, FOLD)  # [3, 2, fold*cin, fold/2*cout]

@@ -69,6 +69,15 @@ def _rand(shape, device, seed, lo=0.0, scale=1.0):
      ("s1", 1, 6, 20, 24, 0, 136), ("s1", 3, 9, 30, 8, 0, 24),
      ("s2", 2, 32, 100, 16, 0, 32), ("s2", 1, 16, 36, 64, 0, 128), ("s2", 1, 18, 66, 16, 0, 9),
      ("s2", 1, 10, 70, 64, 0, 20),
+     # the edges of f32 K1/K2's implicit GEMM on the CUDA cores (csrc/conv.cu;
+     # tiles of 8 x 64 output pixels at cout <= 32, 8 x 32 above): the
+     # stems above at widths that are not a multiple of the tile, concats
+     # with c1 % 4 != 0 and with c2 % 4 != 0 (the gathered patch), cout 32,
+     # stride 2 at 16 -> 32 and 64 -> 128 on 3 x 3 tiles, n = 3 with an
+     # odd H at cout 32
+     ("s1", 1, 10, 36, 6, 16, 32), ("s1", 1, 10, 36, 16, 6, 32), ("s1", 1, 20, 50, 32, 0, 32),
+     ("s2", 1, 34, 260, 16, 0, 32), ("s2", 1, 34, 140, 64, 0, 128),
+     ("s1", 3, 11, 40, 8, 0, 32),
      # the edges of bf16 K3's GEMM (128-pixel tiles, 64-column passes):
      # base_width=4's dec1 (cin 8 -> 4), the flagship's 128 -> 64, 64 -> 32
      # and 32 -> 16 at pixel counts that are not a multiple of the tile,

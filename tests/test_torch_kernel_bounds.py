@@ -1,0 +1,117 @@
+"""The bounds that chip_smoke.py prints beside each conv kernel's time, on
+the CPU: the flagship's layer tensors at one 872x872 tile of the inferer's
+4096x4096 plan, built with torch.empty from ``chip_smoke.conv_calls``.
+
+bound = max(bytes moved / 3.35 TB/s, operations / the peak of their type),
+summed over the layers a kernel runs. f32 convs run on the CUDA cores, so
+their operations count at 67 TFLOP/s, not at the bf16 tensor-core peak of
+989 TFLOP/s. Expected values are recounted from the layer shapes (widths
+16/32/64/128): K1 35.7 GFLOP a tile, of which stem/conv0 is bound by its
+bytes; K2 5.25 GFLOP; K3 2.3 GFLOP, bound per layer by bytes at dec1/up and
+by operations at the two deeper up layers. The bf16 values are those the
+script printed before the f32 bound was repaired (PERF.md, row 1-3 / 25).
+"""
+
+import importlib.util
+import os
+
+import pytest
+import torch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _chip_smoke()
+
+
+def _tensors(kernel, shape, c2, cout, dtype):
+    """Empty x, x2 (None without a concat), w and out of one layer."""
+    k = 2 if kernel.startswith("up") else 3
+    x = torch.empty(shape, dtype=dtype)
+    x2 = torch.empty(shape[:3] + (c2,), dtype=dtype) if c2 else None
+    if kernel.startswith("up"):
+        out_hw = (2 * shape[1], 2 * shape[2])
+    else:
+        s = 2 if "s2" in kernel else 1
+        out_hw = (shape[1] // s, shape[2] // s)
+    w = torch.empty((k, k, shape[3] + c2, cout), dtype=dtype)
+    return x, x2, w, torch.empty((shape[0], *out_hw, cout), dtype=dtype)
+
+
+def _layer_bounds(dtype, kind):
+    """{kernel: [(layer, ms, binds)]} of the flagship at one 872² tile."""
+    from annonet_tpu_torch.models.segnet import conv_layers
+
+    config = cs.flagship_config()
+    plan = cs.canvas_plan(config)
+    assert (plan.tile_count, plan.tile_height) == (25, 872)
+    couts = {f"{block}/{conv}": shape[3] for block, conv, shape in conv_layers(config)}
+    bounds = {}
+    for kernel, layer, shape, c2, key in cs.conv_calls(config, 1, plan.tile_height):
+        x, x2, w, out = _tensors(kernel, shape, c2, couts[key], dtype)
+        ms, binds = cs.conv_bound(kernel, x, w, torch.empty(couts[key]), out, x2, kind)
+        bounds.setdefault(kernel, []).append((layer, ms, binds))
+    return bounds
+
+
+@pytest.mark.parametrize("kernel,want_ms", [("conv3x3_bias_relu", 0.540),
+                                            ("conv3x3_s2_bias_relu", 0.078)])
+def test_f32_k1_and_k2_are_bound_by_operations(kernel, want_ms):
+    layers = _layer_bounds(torch.float32, "f32")[kernel]
+    total = sum(ms for _layer, ms, _binds in layers)
+    assert total == pytest.approx(want_ms, rel=0.01)
+    by_ops = sum(ms for _layer, ms, binds in layers if binds == "operations")
+    assert by_ops > 0.9 * total
+    # only the RGB stem (3 input channels, 11 FLOP a byte) is bound by bytes
+    assert [layer for layer, _ms, binds in layers if binds == "bytes"] == (
+        ["stem/conv0"] if kernel == "conv3x3_bias_relu" else [])
+
+
+def test_f32_k3_bound_is_its_layers_sum():
+    layers = _layer_bounds(torch.float32, "f32")["up2x2_bias_relu"]
+    binds = {layer: b for layer, _ms, b in layers}
+    assert binds == {"dec3/up": "operations", "dec2/up": "operations", "dec1/up": "bytes"}
+    # 2.34 GFLOP at 67 TFLOP/s is 0.035 ms and the three layers' bytes 0.038
+    # ms; each layer is bound by the larger of its own two: 0.045 ms in all
+    assert sum(ms for _layer, ms, _b in layers) == pytest.approx(0.0450, rel=0.01)
+
+
+@pytest.mark.parametrize("kernel,want_ms", [("conv3x3_bias_relu", 0.077404),
+                                            ("conv3x3_s2_bias_relu", 0.019124),
+                                            ("up2x2_bias_relu", 0.019092)])
+def test_bf16_bounds_are_unchanged(kernel, want_ms):
+    layers = _layer_bounds(torch.bfloat16, "bf16")[kernel]
+    assert sum(ms for _layer, ms, _binds in layers) == pytest.approx(want_ms, rel=1e-4)
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.float32, "f32"), (torch.bfloat16, "bf16")])
+def test_check_convs_bounds_each_dtype_at_its_peak(monkeypatch, dtype, kind):
+    """check_convs on the CPU (the wrappers take their plain versions) at a
+    small tile: each kernel's tallied bound is its layers' conv_bound at
+    the peak of the dtype's type."""
+    from annonet_tpu_torch.models.segnet import init_runtime_params, runtime_params_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    config = cs.flagship_config()
+    params = runtime_params_from_numpy(init_runtime_params(config, 0), config, "cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    tol = cs.F32_TOL if dtype == torch.float32 else cs.BF16_TOL
+    results = cs.check_convs(params, config, "cpu", 1, 32, dtype, tol, 0, gen)
+    for kernel, r in results.items():
+        want = 0.0
+        for k, _layer, shape, c2, key in cs.conv_calls(config, 1, 32):
+            if k == kernel:
+                w, b = params[key + "/w"], params[key + "/b"]
+                x, x2, _w, out = _tensors(k, shape, c2, w.shape[3], dtype)
+                want += cs.conv_bound(k, x, w.to(dtype), b, out, x2, kind)[0]
+        assert r["bound_ms"] == pytest.approx(want, rel=1e-9)
+        assert r["max_abs_err"] == 0.0
