@@ -103,24 +103,96 @@
 // c1 >= 1, c2 >= 0, cout >= 1; offsets are 64-bit (a 25-tile batch of
 // 872^2 at 32 channels is close to 2^31 elements).
 //
-// f32 K3 is a direct convolution: each thread keeps 16 output channels of
-// the four outputs of one input pixel. Numerics: f32 accumulation, + f32
-// bias, ReLU, one rounding to the output dtype.
+// K3 in f32 (up_gemm_f32_kernel) replaces fup_bias_relu
+// (int8_conv_mosaic.py:485, pallas_call at :511), in both of its modes. It
+// is a plain GEMM: A is the input as a row-major [N*H*W, cin] matrix (a run
+// of NHWC pixels across all channels is one contiguous span), B the flipped
+// weights as [cin, 4 taps x cout], C[p][(2u + v) * cout + co] the output
+// out[img, 2i+u, 2j+v, co] of input pixel p = (img, i, j). M = input
+// pixels, N = 4 cout, K = cin (32-128 in the flagship). Its bound on the
+// same 25-tile batch (bytes = input + output + weights once; the same
+// rates):
+//
+//   layer     x -> out                            GFLOP  GB     FLOP/B  bound ms  binds
+//   dec3/up   [25,109,109,128] -> [25,218,218,64]  19.47  0.456   42.7     0.291  FMAs
+//   dec2/up   [25,218,218,64] -> [25,436,436,32]   19.47  0.912   21.3     0.291  FMAs (bytes 0.272)
+//   dec1/up   [25,436,436,32] -> [25,872,872,16]   19.47  1.825   10.7     0.545  bytes
+//
+// So dec3/up is bound by its FMAs, dec2/up sits on the card's 20 FLOP/B
+// line, and dec1/up streams: two thirds of its bytes are the output.
+//
+// The design, against what held the direct convolution it replaces (one
+// input pixel and 16 output channels of its four taps a thread; 10.4 ms a
+// 25-tile forward on an H100 at 700 W):
+//  1. Register tile. A thread owns kUTM = 8 pixels x 8 GEMM columns (64
+//     f32 accumulators): one 4-channel quad of tap (0, v) and the same
+//     quad of tap (1, v). For each 4-channel piece of K it loads its 8
+//     pixels' pieces and the 4 channels' two weight quads, 16 16-byte
+//     shared loads for 256 FMAs (the direct kernel: 17 for 64).
+//  2. Staging. A tile's input is one contiguous span: copied by 16-byte
+//     cp.async into [pixel][piece] rows of kc / 4 + 1 pieces (odd, so the
+//     4 pixel groups of a warp, 1 row apart, fall in 4 distinct 16-byte
+//     bank groups; the 8 lanes of a group read one piece as a broadcast,
+//     and the 8 groups of a warp read 8 neighbouring weight quads). The
+//     weights of the whole K stay in shared memory for every tile a block
+//     runs (128 KB at dec3/up), copied once by cp.async; blocks are
+//     persistent, and the next tile's input is copied while this tile is
+//     computed (two buffers, one barrier a tile). Where the whole K does
+//     not fit (above 96 to 176 input channels, by the slab and the mode),
+//     K runs in chunks of 32 channels, input and weights double-buffered
+//     together.
+//     The requant mode stages the raw int8 bytes and scales them
+//     (__fmul_rn by s_in) into the f32 chunk in one pass (one more
+//     barrier).
+//  3. Stores. Bias and ReLU (or the requant FMA, clip [0, 127] and
+//     truncation) in registers, then 16-byte stores straight from them:
+//     the 8 lanes of a pixel group write 8 neighbouring quads of one
+//     output row, whole 128-byte lines, and the 4 groups of a warp 4
+//     neighbouring input pixels, so at dec1/up one store of a warp is 512
+//     contiguous bytes of output row 2i (or 2i + 1). The tile's layout
+//     makes a pass through shared memory unnecessary.
+//  4. One slab for cout <= 64 (BC = cout rounded up to 16, 32 or 64), so
+//     dec3/up reads its input once; above 64 channels the slabs of 64 run
+//     on grid.y (each slab reads the input again).
+// On an H100 (700 W) dec3/up runs at 55-56% of the f32 peak, dec2/up at
+// 48-50%, and dec1/up moves 2.5-2.6 TB/s, 76-79% of the HBM rate
+// (tools/conv_f32_ab.py); 1.82-1.86 ms a 25-tile forward, 0.15x cuDNN's
+// f32 conv_transpose2d.
+// A tile is kBM consecutive input pixels in N*H*W order (256, 128 or 64 at
+// BC 16, 32, 64): a segment of one or two input rows, whose four taps fill
+// contiguous segments of output rows 2i and 2i + 1; no column is masked
+// where a row ends.
+//
+// Choices (dispatch_up_f32), each covered by tests/test_torch_cuda.py:
+//   BC      16 where cout <= 16, 32 where cout <= 32, else 64 (cout > 64 in
+//           slabs of 64 over grid.y); two blocks an SM (128 registers) in
+//           the float mode at BC 16 and 32, one (up to 167) at BC 64 and
+//           in the requant mode, which spills at 128
+//   K       whole (cin rounded up to 16), the weights resident, where the
+//           weights and two input buffers fit in shared memory; else
+//           chunks of 32 channels
+//   paths   the input by cp.async where x is 16-byte aligned and cin % 4
+//           == 0 (requant: cin % 16 == 0), else gathered element by
+//           element; the weights by cp.async where cout % 4 == 0 and w is
+//           aligned, else element by element; the output as 16-byte (int8:
+//           4-byte) stores where cout % 4 == 0 and out is aligned, else
+//           element by element
+// Any N, H and W; 64-bit offsets (32-bit index division where N*H*W fits).
+// Numerics: f32 sums by FMAs in any order, one f32 bias add, ReLU.
 //
 // K3 has a requant mode, the int8 net's default ``up`` layer
 // (quantized_runtime.py:480-487): the int8 input times the per-channel
 // scale s_in, rounded to the compute dtype, goes through the same
 // transpose conv with f32 accumulation; the sum is rounded to the compute
 // dtype (as XLA's bf16 conv output is) and requantized to int8 with one
-// fused multiply-add, clip [0, 127] and truncation (see ops/qconv.py).
+// fused multiply-add, clip [0, 127] and truncation (see ops/qconv.py). In
+// f32 both roundings are the identity, so the f32 requant mode differs
+// from its plain version only by the order of the f32 sum.
 
 #include "common.cuh"
 
 namespace annonet {
 namespace {
-
-constexpr int kThreads = 256;  // K3: 8 warps
-constexpr int kCpt = 16;       // K3: output channels per thread
 
 // ---------------------------------------------------------------------------
 // K1 and K2 in f32: the implicit GEMM on the CUDA cores
@@ -442,126 +514,366 @@ cudaError_t dispatch_f32(const void* x, const void* x2, const void* w,
 }
 
 // ---------------------------------------------------------------------------
-// K3 in f32 and its requant mode
+// K3 in f32 and its requant mode: a GEMM on the CUDA cores
 // ---------------------------------------------------------------------------
 
-// K3: each thread owns one INPUT pixel and writes the four output pixels
-// (2i+u, 2j+v) it feeds, for 16 output channels: out = x . w[1-u][1-v].
-// REQUANT: x is int8 and is scaled by s_in (rounded to T) on the way into
-// shared memory; ``bias`` is then the requant scale and ``offset`` its
-// offset, and the output is int8.
-template <typename T, bool REQUANT, int GROUPS>
-__global__ void __launch_bounds__(kThreads)
-up2x2_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
-             const T* __restrict__ w, const float* __restrict__ bias,
-             const float* __restrict__ offset, void* __restrict__ outv,
-             int64_t npix, int64_t h, int64_t wd, int cin, int cout) {
-  constexpr int kPix = kThreads / GROUPS;
-  constexpr int kCob = kCpt * GROUPS;
-  constexpr int kCk = 16;
+// the f32 K3 block: kFWarps warps of 4 pixel groups x 8 column groups; a
+// thread owns kUTM pixels of the tile (kPG apart) x 8 GEMM columns: one
+// 4-channel quad of tap (u = 0, v) and the same quad of tap (1, v)
+constexpr int kUTM = 8;
+constexpr int kUChunk = 32;  // channels a chunk where the whole K does not fit
 
-  __shared__ float xs[kCk][kPix];
-  __shared__ __align__(16) float ws[4][kCk][kCob];
+template <int BC>
+struct UShape {
+  static constexpr int kNS = 4 * BC;               // GEMM columns: 4 taps x BC channels
+  static constexpr int kNG = kNS / 8;              // column groups, 8 columns each
+  static constexpr int kWN = kNG / 8;              // warps along the columns
+  static constexpr int kPG = 4 * (kFWarps / kWN);  // pixel groups
+  static constexpr int kBM = kUTM * kPG;           // input pixels a tile: 256, 128, 64
+  static_assert(kWN * kPG / 4 == kFWarps && kNG % 8 == 0, "block shape");
+};
 
-  const int tid = threadIdx.x;
-  const int pl = tid % kPix, g = tid / kPix;
-  const int64_t p0 = (int64_t)blockIdx.x * kPix;
-  const int cob = blockIdx.y * kCob;
+// the dynamic shared memory's carve-up, the same on the host (to size the
+// launch) and on the device. kc channels a chunk (a multiple of 16); two
+// stage buffers, each the chunk's input (f32 pieces, or in the requant
+// mode its raw int8 bytes) and, where K takes several chunks, its weights
+struct USmem {
+  int pitch;                   // 16-byte pieces of a staged pixel: kc / 4 + 1, odd
+  int a_buf, raw_buf, b_buf;   // bytes of an f32 input chunk, a raw one, a weight chunk
+  int stage;                   // bytes of one stage buffer
+  int off_a;                   // requant: the one f32 input chunk, converted
+  int off_b;                   // one chunk: the resident weights of the whole K
+  int total;
+};
 
-  float acc[4][kCpt];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int j = 0; j < kCpt; ++j) acc[s][j] = 0.f;
+__host__ __device__ inline USmem up_carve(int bm, int ns, int kc, int chunks, bool requant) {
+  USmem s;
+  s.pitch = kc / 4 + 1;
+  s.a_buf = bm * s.pitch * 16;
+  s.raw_buf = requant ? bm * kc : 0;
+  s.b_buf = kc * ns * 4;
+  s.stage = (requant ? s.raw_buf : s.a_buf) + (chunks > 1 ? s.b_buf : 0);
+  s.off_a = 2 * s.stage;
+  s.off_b = s.off_a + (requant ? s.a_buf : 0);
+  s.total = s.off_b + (chunks > 1 ? 0 : s.b_buf);
+  return s;
+}
 
-  for (int c0 = 0; c0 < cin; c0 += kCk) {
-    for (int e = tid; e < kPix * kCk; e += kThreads) {
-      const int ci = e % kCk, q = e / kCk;
-      const int64_t pidx = p0 + q;
-      const int c = c0 + ci;
-      float v = 0.f;
-      if (pidx < npix && c < cin) {
-        if constexpr (REQUANT) {
-          const int8_t xq = static_cast<const int8_t*>(xv)[pidx * cin + c];
-          const float s = to_f32(from_f32<T>(s_in[c]));
-          v = to_f32(from_f32<T>(__fmul_rn((float)xq, s)));
-        } else {
-          v = to_f32(static_cast<const T*>(xv)[pidx * cin + c]);
+// C[p][s * BC + j] = sum_c A[p][c] * B[c][s * BC + j], with A the input as
+// [N*H*W, cin], B[c][(2u + v) * BC + j] = w[1-u][1-v][c][cob + j] and cob =
+// blockIdx.y * BC; out[img, 2i+u, 2j'+v, cob + j] = relu(C + bias) for
+// input pixel p = (img, i, j'). REQUANT: x is int8 and is scaled by s_in
+// (__fmul_rn) after staging; e0 is then the requant scale, e1 its offset,
+// and the output int8. Else e0 is the bias.
+// Blocks an SM is to hold: two (128 registers a thread) in the float mode
+// at BC 16 and 32; one at BC 64, which stages the whole K of its 256
+// columns (128 KB at dec3/up's 128 channels), and in the requant mode,
+// whose conversion pass would spill at 128 registers.
+template <bool REQUANT, int BC>
+__global__ void __launch_bounds__(kFThreads, REQUANT || BC == 64 ? 1 : 2)
+up_gemm_f32_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
+                   const float* __restrict__ w, const float* __restrict__ e0,
+                   const float* __restrict__ e1, void* __restrict__ outv, int64_t npix,
+                   int64_t wd, int cin, int cout, int kc, int chunks, int vec_x,
+                   int vec_w, int vec_o) {
+  using S = UShape<BC>;
+  constexpr int kNS = S::kNS, kBM = S::kBM, kPG = S::kPG;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const USmem L = up_carve(kBM, kNS, kc, chunks, REQUANT);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ng = (warp % S::kWN) * 8 + (lane & 7);   // column group
+  const int pg = (warp / S::kWN) * 4 + (lane >> 3);  // pixel group
+  const int cob = blockIdx.y * BC;
+  const int tiles = (int)((npix + kBM - 1) / kBM);
+  if ((int)blockIdx.x >= tiles) return;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  auto stage_base = [&](int buf) { return smem + buf * L.stage; };
+  auto b_of = [&](int buf) {
+    return reinterpret_cast<float*>(
+        chunks > 1 ? stage_base(buf) + (REQUANT ? L.raw_buf : L.a_buf) : smem + L.off_b);
+  };
+  auto tile_rows = [&](int t) {
+    const int64_t left = npix - (int64_t)t * kBM;
+    return left < kBM ? (int)left : kBM;
+  };
+  // the 4-channel pieces of chunk c0 that hold channels below cin
+  auto chunk_pieces = [&](int c0) {
+    const int left = cin - c0;
+    return ((left < kc ? left : kc) + 3) / 4;
+  };
+
+  // copies (or gathers) chunk c0 of tile t into stage buffer buf: the input
+  // of the tile's pixels, then the weights of the chunk (once, for the
+  // whole K, where K is one chunk)
+  auto fill = [&](int t, int c0, int buf, bool weights) {
+    const int64_t p0 = (int64_t)t * kBM;
+    const int rows = tile_rows(t);
+    const int np = chunk_pieces(c0);
+    unsigned char* base = stage_base(buf);
+    if constexpr (REQUANT) {
+      const int8_t* x = static_cast<const int8_t*>(xv) + p0 * cin + c0;
+      int8_t* raw = reinterpret_cast<int8_t*>(base);
+      if (vec_x) {  // cin % 16 == 0: whole 16-byte pieces
+        const int n16 = (np + 3) / 4;
+        for (int e = tid; e < rows * n16; e += kFThreads) {
+          const int p = e / n16, c = e - p * n16;
+          cp_async16(raw + p * kc + 16 * c, x + (int64_t)p * cin + 16 * c);
+        }
+      } else {
+        const int nc = cin - c0 < kc ? cin - c0 : kc;
+        for (int e = tid; e < rows * nc; e += kFThreads) {
+          const int p = e / nc, c = e - p * nc;
+          raw[p * kc + c] = x[(int64_t)p * cin + c];
         }
       }
-      xs[ci][q] = v;
-    }
-    // ws[s = 2u + v] holds the flipped tap w[1-u][1-v]
-    for (int e = tid; e < 4 * kCk * kCob; e += kThreads) {
-      const int col = e % kCob, r = e / kCob;
-      const int ci = r % kCk, s = r / kCk;
-      const int u = s >> 1, v = s & 1;
-      const int c = c0 + ci, co = cob + col;
-      const int tap = (1 - u) * 2 + (1 - v);
-      ws[s][ci][col] =
-          (c < cin && co < cout)
-              ? to_f32(w[((int64_t)tap * cin + c) * cout + co])
-              : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int ci = 0; ci < kCk; ++ci) {
-      const float v = xs[ci][pl];
+    } else {
+      const float* x = static_cast<const float*>(xv) + p0 * cin + c0;
+      float4* a = reinterpret_cast<float4*>(base);
+      for (int e = tid; e < rows * np; e += kFThreads) {
+        const int p = e / np, c = e - p * np;
+        float4* dst = a + p * L.pitch + c;
+        const float* src = x + (int64_t)p * cin + 4 * c;
+        if (vec_x) {
+          cp_async16(dst, src);
+        } else {
+          float v[4];
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const float* wr = &ws[s][ci][g * kCpt];
-#pragma unroll
-        for (int j = 0; j < kCpt; ++j) acc[s][j] = fmaf(v, wr[j], acc[s][j]);
+          for (int j = 0; j < 4; ++j) v[j] = c0 + 4 * c + j < cin ? src[j] : 0.f;
+          *dst = make_float4(v[0], v[1], v[2], v[3]);
+        }
       }
     }
-    __syncthreads();
-  }
-
-  const int64_t pidx = p0 + pl;
-  if (pidx >= npix) return;
-  const int64_t jx = pidx % wd, t = pidx / wd;
-  const int64_t iy = t % h, img = t / h;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int u = s >> 1, v = s & 1;
-    const int64_t o =
-        ((img * 2 * h + 2 * iy + u) * (2 * wd) + 2 * jx + v) * cout;
-#pragma unroll
-    for (int j = 0; j < kCpt; ++j) {
-      const int co = cob + g * kCpt + j;
-      if (co >= cout) continue;
-      if constexpr (REQUANT) {
-        const float r = to_f32(from_f32<T>(acc[s][j]));
-        const float f = __fmaf_rn(r, bias[co], offset[co]);
-        static_cast<int8_t*>(outv)[o + co] =
-            (int8_t)__float2int_rz(fminf(fmaxf(f, 0.f), 127.f));
+    if (!weights) return;
+    // rows k < 4 np of B; BC quads a row, co fastest
+    float* b = b_of(buf);
+    for (int e = tid; e < 4 * np * BC; e += kFThreads) {
+      const int k = e / BC, n = 4 * (e % BC);
+      const int s = n / BC, co = cob + n % BC, c = c0 + k;
+      float4* dst = reinterpret_cast<float4*>(b + k * kNS + n);
+      if (c >= cin || co >= cout) {
+        *dst = zero;
+        continue;
+      }
+      const float* src = w + ((int64_t)(3 - s) * cin + c) * cout + co;  // tap (1-u, 1-v)
+      if (vec_w) {
+        cp_async16(dst, src);
       } else {
-        static_cast<T*>(outv)[o + co] =
-            from_f32<T>(fmaxf(acc[s][j] + bias[co], 0.f));
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = co + j < cout ? src[j] : 0.f;
+        *dst = make_float4(v[0], v[1], v[2], v[3]);
       }
     }
+  };
+
+  // requant: the raw int8 chunk of stage buffer buf times s_in, into the
+  // f32 chunk that every warp reads
+  auto convert = [&](int buf, int c0, int rows) {
+    const int8_t* raw = reinterpret_cast<const int8_t*>(stage_base(buf));
+    float4* a = reinterpret_cast<float4*>(smem + L.off_a);
+    const int np = chunk_pieces(c0);
+    for (int e = tid; e < rows * np; e += kFThreads) {
+      const int p = e / np, c = e - p * np, ch = c0 + 4 * c;
+      const char4 q = *reinterpret_cast<const char4*>(raw + p * kc + 4 * c);
+      const float xq[4] = {(float)q.x, (float)q.y, (float)q.z, (float)q.w};
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = ch + j < cin ? __fmul_rn(xq[j], __ldg(s_in + ch + j)) : 0.f;
+      a[p * L.pitch + c] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  float acc[kUTM][8];
+
+  // acc += this chunk's products: the thread's pixels are rows pg + m * kPG
+  // of the staged input, its columns quads ng (tap u = 0) and ng + kNG
+  // (u = 1) of B; each 4-channel piece is 8 16-byte loads of A and 8 of B
+  // for 256 FMAs
+  auto compute = [&](const float4* a, const float* b, int np) {
+    const float4* ap = a + pg * L.pitch;
+    const int mstride = kPG * L.pitch;
+    const float* bq = b + 4 * ng;
+#pragma unroll 1
+    for (int kp = 0; kp < np; ++kp) {
+      float4 av[kUTM];
+#pragma unroll
+      for (int m = 0; m < kUTM; ++m) av[m] = ap[m * mstride + kp];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        const float* br = bq + (4 * kp + ch) * kNS;
+        const float4 b0 = *reinterpret_cast<const float4*>(br);
+        const float4 b1 = *reinterpret_cast<const float4*>(br + kNS / 2);
+        const float wv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        float v[kUTM];
+#pragma unroll
+        for (int m = 0; m < kUTM; ++m) v[m] = channel(av[m], ch);
+        outer(acc, v, wv);
+      }
+    }
+  };
+
+  // bias + ReLU (or the requant FMA, clip and truncation) in registers, and
+  // 16-byte stores (4 bytes in int8): the 8 lanes of a pixel group write
+  // 8 neighbouring quads of one output row, the 4 groups of a warp 4
+  // neighbouring input pixels
+  auto epilogue = [&](int t) {
+    const int n = 4 * ng;
+    const int v = n / BC, co = cob + n % BC;  // quad a's tap (0, v); quad b's (1, v)
+    if (co >= cout) return;
+    float k0[4], k1[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      k0[j] = co + j < cout ? __ldg(e0 + co + j) : 0.f;
+      k1[j] = REQUANT && co + j < cout ? __ldg(e1 + co + j) : 0.f;
+    }
+    // the pixel of m = 0: flat input row r (img * h + i, whose output rows
+    // are 2r and 2r + 1) and column j
+    int64_t q = (int64_t)t * kBM + pg, r, jx;
+    if (npix <= INT32_MAX) {
+      const uint32_t rr = (uint32_t)q / (uint32_t)wd;
+      r = rr, jx = (uint32_t)q - rr * (uint32_t)wd;
+    } else {
+      r = q / wd, jx = q - r * wd;
+    }
+    const int64_t urow = 2 * wd * cout;  // output row 2i + 1 is + urow
+#pragma unroll
+    for (int m = 0; m < kUTM; ++m) {
+      if (q >= npix) break;
+      const int64_t o = (2 * r * 2 * wd + 2 * jx) * cout + v * cout + co;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* c = &acc[m][4 * u];
+        if constexpr (REQUANT) {
+          int8_t y[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            y[j] = (int8_t)__float2int_rz(fminf(fmaxf(__fmaf_rn(c[j], k0[j], k1[j]), 0.f), 127.f));
+          int8_t* dst = static_cast<int8_t*>(outv) + o + u * urow;
+          if (vec_o) {
+            *reinterpret_cast<char4*>(dst) = make_char4(y[0], y[1], y[2], y[3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (co + j < cout) dst[j] = y[j];
+          }
+        } else {
+          float y[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) y[j] = fmaxf(c[j] + k0[j], 0.f);
+          float* dst = static_cast<float*>(outv) + o + u * urow;
+          if (vec_o) {
+            *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (co + j < cout) dst[j] = y[j];
+          }
+        }
+      }
+      q += kPG;
+      jx += kPG;
+      while (jx >= wd) jx -= wd, ++r;
+    }
+  };
+
+  // stages run over (tile, chunk), the block's tiles gridDim.x apart, each
+  // tile's chunks in turn. Two stage buffers: the next stage is copied
+  // while this one is computed. One block barrier a stage (two in the
+  // requant mode): after it, this stage has landed for every thread and
+  // every warp is done with the last one, whose buffer the next copy takes.
+  int t = blockIdx.x, c = 0, buf = 0;
+  fill(t, 0, 0, true);
+  cp_async_commit();
+  for (;;) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const int cn = c + 1 == chunks ? 0 : c + 1;
+    const int tn = cn == 0 ? t + (int)gridDim.x : t;
+    const bool more = tn < tiles;
+    if (more) fill(tn, cn * kc, buf ^ 1, chunks > 1);
+    cp_async_commit();
+    const int c0 = c * kc;
+    const float4* a = reinterpret_cast<const float4*>(stage_base(buf));
+    if constexpr (REQUANT) {
+      convert(buf, c0, tile_rows(t));
+      __syncthreads();
+      a = reinterpret_cast<const float4*>(smem + L.off_a);
+    }
+    if (c == 0) {
+#pragma unroll
+      for (int m = 0; m < kUTM; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
+    }
+    compute(a, b_of(buf), chunk_pieces(c0));
+    if (c == chunks - 1) epilogue(t);
+    if (!more) break;
+    t = tn;
+    c = cn;
+    buf ^= 1;
   }
 }
 
-template <typename T, bool REQUANT>
-void launch_up(const void* x, const float* s_in, const void* w,
-               const float* bias, const float* offset, void* out, int64_t n,
-               int64_t h, int64_t wd, int cin, int cout, cudaStream_t stream) {
+template <bool REQUANT, int BC>
+cudaError_t launch_up_f32(const void* x, const float* s_in, const float* w,
+                          const float* e0, const float* e1, void* out, int64_t npix,
+                          int64_t wd, int cin, int cout, cudaStream_t stream) {
+  using S = UShape<BC>;
+  int dev = 0, max_smem = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // the whole K (and its weights, resident) where it fits, else chunks
+  int kc = (cin + 15) / 16 * 16, chunks = 1;
+  if (up_carve(S::kBM, S::kNS, kc, 1, REQUANT).total > max_smem) {
+    kc = kUChunk;
+    chunks = (cin + kc - 1) / kc;
+  }
+  const int smem = up_carve(S::kBM, S::kNS, kc, chunks, REQUANT).total;
+  const auto kernel = up_gemm_f32_kernel<REQUANT, BC>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t slabs = (cout + BC - 1) / BC;
+  // persistent blocks, all resident at once, over the tiles
+  const int64_t tiles = (npix + S::kBM - 1) / S::kBM;
+  if (slabs > kMaxGridYZ || tiles * chunks > INT32_MAX) return cudaErrorInvalidValue;
+  int64_t blocks = (int64_t)per_sm * sms / slabs;
+  if (blocks < 1) blocks = 1;
+  if (blocks > tiles) blocks = tiles;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+  const int vec_x = xa % 16 == 0 && cin % (REQUANT ? 16 : 4) == 0;
+  const int vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 && cout % 4 == 0;
+  const int vec_o = oa % (REQUANT ? 4 : 16) == 0 && cout % 4 == 0;
+  kernel<<<dim3((unsigned)blocks, (unsigned)slabs, 1), kFThreads, smem, stream>>>(
+      x, s_in, w, e0, e1, out, npix, wd, cin, cout, kc, chunks, vec_x, vec_w, vec_o);
+  return cudaGetLastError();
+}
+
+// K3 in f32, both modes; the choices are listed in the note at the head of
+// the file
+cudaError_t dispatch_up_f32(const void* x, const float* s_in, const void* w,
+                            const float* e0, const float* e1, void* out, int64_t n,
+                            int64_t h, int64_t wd, int cin, int cout, bool requant,
+                            cudaStream_t s) {
+  const auto* wt = static_cast<const float*>(w);
   const int64_t npix = n * h * wd;
-  const T* wt = static_cast<const T*>(w);
-  if (cout > kCpt) {
-    constexpr int kPix = kThreads / 2;
-    dim3 grid((unsigned)((npix + kPix - 1) / kPix),
-              (unsigned)((cout + 2 * kCpt - 1) / (2 * kCpt)), 1);
-    up2x2_kernel<T, REQUANT, 2><<<grid, kThreads, 0, stream>>>(
-        x, s_in, wt, bias, offset, out, npix, h, wd, cin, cout);
-  } else {
-    dim3 grid((unsigned)((npix + kThreads - 1) / kThreads), 1, 1);
-    up2x2_kernel<T, REQUANT, 1><<<grid, kThreads, 0, stream>>>(
-        x, s_in, wt, bias, offset, out, npix, h, wd, cin, cout);
-  }
+  if (cout <= 16)
+    return requant ? launch_up_f32<true, 16>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s)
+                   : launch_up_f32<false, 16>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s);
+  if (cout <= 32)
+    return requant ? launch_up_f32<true, 32>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s)
+                   : launch_up_f32<false, 32>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s);
+  return requant ? launch_up_f32<true, 64>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s)
+                 : launch_up_f32<false, 64>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s);
 }
-
 
 }  // namespace
 }  // namespace annonet
@@ -599,9 +911,8 @@ extern "C" int annonet_up2x2_bias_relu(const void* x, const void* w,
   if (bf16)
     return (int)up2x2_igemm_bf16(x, nullptr, w, b, nullptr, out, n, h, wd, cin,
                                  cout, false, s);
-  launch_up<float, false>(x, nullptr, w, b, nullptr, out, n, h, wd, cin, cout,
-                          s);
-  return (int)cudaGetLastError();
+  return (int)dispatch_up_f32(x, nullptr, w, b, nullptr, out, n, h, wd, cin, cout,
+                              false, s);
 }
 
 extern "C" int annonet_up2x2_requant(const void* x, const void* s_in,
@@ -620,6 +931,5 @@ extern "C" int annonet_up2x2_requant(const void* x, const void* s_in,
   if (bf16)
     return (int)up2x2_igemm_bf16(x, si, w, sc, of, out, n, h, wd, cin, cout,
                                  true, s);
-  launch_up<float, true>(x, si, w, sc, of, out, n, h, wd, cin, cout, s);
-  return (int)cudaGetLastError();
+  return (int)dispatch_up_f32(x, si, w, sc, of, out, n, h, wd, cin, cout, true, s);
 }

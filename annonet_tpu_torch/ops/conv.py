@@ -7,8 +7,8 @@ current stream (or raises: there is no fallback from a CUDA tensor to the
 plain version) and adds one to its ``launches`` count. In bf16, K1 and K2
 are the tensor-core implicit GEMM of ``csrc/conv_igemm.cu`` and K3 (both
 modes) the tensor-core GEMM of ``csrc/up_igemm.cu``; in f32, K1 and K2 are
-the implicit GEMM on the CUDA cores of ``csrc/conv.cu`` and K3 its direct
-convolution.
+the implicit GEMM on the CUDA cores of ``csrc/conv.cu`` and K3 (both
+modes) its GEMM on the CUDA cores.
 
 Layouts: activations NHWC ([N, H, W, C], bf16 or f32, contiguous), conv
 weights HWIO ([kh, kw, cin, cout], the activations' dtype), bias [cout]

@@ -1,7 +1,8 @@
-"""Time the f32 conv kernels K1-K3 (``csrc/conv.cu``) and an f32
-``infer_arrays`` call in several checkouts of the repo, one after another
-on the same device: the A/B of a change to those kernels against its
-parent, at the shapes of ``chip_smoke.py``'s phase 3.
+"""Time the f32 conv kernels K1-K3 (``csrc/conv.cu``), K3's f32 requant
+mode and an f32 ``infer_arrays`` call in several checkouts of the repo,
+one after another on the same device: the A/B of a change to those
+kernels against its parent, at the shapes of ``chip_smoke.py``'s phase 3.
+A change to one kernel reads the others as its controls.
 
 Each checkout runs in a subprocess of its own (its directory first on
 ``PYTHONPATH``), which builds that checkout's kernels and times, with CUDA
@@ -9,8 +10,11 @@ events (mean of 5 launches after a warm-up), every conv of the
 flagship net (``SegNetConfig(class_count=3, level_count=3,
 base_width=16)``, random weights from seed 0; the layers of this repo's
 ``chip_smoke.conv_calls``) in f32 on the tile batch the inferer plans for
-a 4096x4096 image (25 tiles of 872x872), then the host wall of 5 f32
-``infer_arrays`` calls on a random 4096x4096 image after a warm-up.
+a 4096x4096 image (25 tiles of 872x872), then K3's f32 requant mode
+(``up2x2_requant`` with the f32 weights, as an f32 artifact's int8 net
+runs it) on each up layer's shape with random int8 inputs and scales,
+then the host wall of 5 f32 ``infer_arrays`` calls on a random 4096x4096
+image after a warm-up.
 Only the public wrappers of ``annonet_tpu_torch.ops.conv`` and
 ``TiledInferer`` are used, so any checkout of the port since its first
 slice runs.
@@ -19,7 +23,8 @@ slice runs.
 
 Give the order parent, change, change, parent so that a drift of the card
 over the runs shows as a difference between the two runs of one checkout.
-Prints one JSON line a run (per-layer ms, K1, K2 and K3 sums, the wall)
+Prints one JSON line a run (per-layer ms, the K1, K2, K3 and K3-requant
+sums, the wall)
 and then the card's name and power limit (``nvidia-smi``).
 """
 
@@ -55,23 +60,38 @@ params = runtime_params_from_numpy(params_np, config, device)
 gen = torch.Generator(device=device)
 gen.manual_seed(0)
 layers, sums = {}, {}
+
+
+def timed(name, layer, fn):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    layers[layer] = start.elapsed_time(end) / reps
+    sums[name] = sums.get(name, 0.0) + layers[layer]
+
+
 for kernel, layer, shape, c2, key in calls:
     w, b = params[key + "/w"], params[key + "/b"]
     x = torch.rand(shape, generator=gen, device=device)
     extra = {"x2": torch.rand(shape[:3] + [c2], generator=gen, device=device)} if c2 else {}
     fn = getattr(conv, kernel)
-    fn(x, w, b, **extra)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn(x, w, b, **extra)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
-    layers[layer] = ms
-    sums[kernel] = sums.get(kernel, 0.0) + ms
+    timed(kernel, layer, lambda: fn(x, w, b, **extra))
     del x, extra
+    if kernel != "up2x2_bias_relu":
+        continue
+    cin, cout = w.shape[2], w.shape[3]
+    x = torch.randint(0, 128, shape, generator=gen, device=device, dtype=torch.int8)
+    s_in = torch.rand(cin, generator=gen, device=device) * 0.02 + 0.01
+    scale = torch.rand(cout, generator=gen, device=device) * 20.0 + 10.0
+    offset = torch.rand(cout, generator=gen, device=device) * 30.0 - 9.0
+    timed("up2x2_requant", layer + " requant",
+          lambda: conv.up2x2_requant(x, s_in, w, scale, offset))
+    del x
 torch.cuda.empty_cache()
 image = np.random.default_rng(0).integers(0, 256, (4096, 4096, 3), dtype=np.uint8)
 inferer = TiledInferer(params_np, config, device=device)
@@ -85,6 +105,7 @@ for _ in range(reps):
     walls.append((time.monotonic() - t) * 1e3)
 print(json.dumps({"layers_ms": layers, "k1_ms": sums["conv3x3_bias_relu"],
                   "k2_ms": sums["conv3x3_s2_bias_relu"], "k3_ms": sums["up2x2_bias_relu"],
+                  "k3_requant_ms": sums["up2x2_requant"],
                   "f32_infer_arrays_ms": sum(walls) / reps, "walls_ms": walls}))
 """
 

@@ -9,18 +9,18 @@ Phases (any failure raises, and the exit code is then nonzero):
   2. build    compiles the hand-written kernels (csrc/*.cu) with nvcc, one
               compiler process per source, in parallel; then reads the
               library's SASS (cuobjdump): the 9 f32 K1/K2 kernels
-              (simt_conv_kernel) exist and the direct convolution they
-              replaced does not; the bf16 K1/K2 kernels
+              (simt_conv_kernel) and the 6 f32 K3 kernels of both modes
+              (up_gemm_f32_kernel) exist, and the direct convolutions
+              they replaced do not; the bf16 K1/K2 kernels
               (igemm_kernel), both modes of bf16 K3 (upgemm_kernel) and
               bf16 G1 (gemm_conv_bf16) must hold tensor-core instructions
               (HMMA or HGMMA), every Q1 kernel of both modes, every Q2
               kernel (q1_igemm_kernel<stride, ...>) and Q3's
               (qup_igemm_kernel) int8 ones (IMMA), the accumulator
               mode's at both strides included; no kernel of the
-              library may hold __dp4a, and no bf16 instantiation of the
-              f32 direct convolution of K3 (up2x2) may exist; prints
-              those kernels' registers, stack, local and static shared
-              memory
+              library may hold __dp4a; prints those kernels' registers,
+              stack, local and static shared memory, and fails where an
+              f32 K3 kernel uses local memory
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes, with its bound (the larger of its bytes at the
               HBM rate and its operations at the peak of their type: the
@@ -42,7 +42,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               one flagship forward, each layer fed the int8 net's own
               activations: Q1 and its accumulator mode (the int32 sums,
               bit-identical) on the 8 stride-1 layers, Q2 on the 3
-              stride-2 ones, K3's requant mode and Q3 (with its weights
+              stride-2 ones, K3's requant mode (bf16, and f32 as an f32
+              artifact runs it: within one requant step, at most 5% of
+              the outputs a step off) and Q3 (with its weights
               packed once, as the int8 net passes them) on the 3 up layers;
               then Q1's and Q2's accumulator modes at int8 training's
               shapes (batch 128 at 192², the flagship's 8 stride-1 and 3
@@ -217,7 +219,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               16² crops of a 4-image 48x48 set, TF32 off), saved, loaded
               and tiled by the float and the int8 inferer: pixel accuracy,
               mIoU and int8 pixel accuracy held against PARITY_TARGETS.json's
-              pinned floors
+              pinned floors; the f32 artifact's inferers launch f32 K3 in
+              both modes (the int8 net's up layer is K3's f32 requant mode),
+              counted for the kernel line
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}. Scratch files go to a
@@ -326,7 +330,8 @@ def sass_functions(cuobjdump: str, library: str, what: str) -> dict:
 def short_name(mangled: str) -> str:
     """``igemm_kernel<1, 16>`` for the mangled name of a bf16 K1/K2 kernel,
     ``simt_conv_kernel<1, 32, 2>`` for an f32 one (stride, cout block,
-    4-channel pieces a chunk), ``upgemm_kernel<true>`` for a bf16 K3 one,
+    4-channel pieces a chunk), ``up_gemm_f32_kernel<true, 16>`` for an f32
+    K3 one (requant, cout slab), ``upgemm_kernel<true>`` for a bf16 K3 one,
     ``q1_igemm_kernel<2, 16, true, false>`` for a Q1 or Q2 one (stride,
     cout block, two-row-tap steps, accumulator mode), the plain name of
     G1's and of Q3's kernel, else the name as given."""
@@ -336,6 +341,9 @@ def short_name(mangled: str) -> str:
     m = re.search(r"\d+simt_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"simt_conv_kernel<{', '.join(m.groups())}>"
+    m = re.search(r"\d+up_gemm_f32_kernelILb([01])ELi(\d+)E", mangled)
+    if m:
+        return f"up_gemm_f32_kernel<{'true' if m.group(1) == '1' else 'false'}, {m.group(2)}>"
     m = re.search(r"q1_igemm_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
     if m:
         flags = ", ".join("true" if b == "1" else "false" for b in m.groups()[2:])
@@ -360,8 +368,11 @@ def check_tensor_cores(library: str) -> None:
     no kernel of the library holds __dp4a (IDP.4A); f32 K1/K2 are conv.cu's
     implicit GEMM on the CUDA cores (simt_conv_kernel<stride, cout block,
     pieces>, all that annonet_conv3x3_bias_relu launches for f32; the direct
-    convolution it replaced is gone) and the f32 direct convolution of K3
-    has no bf16 instantiation.
+    convolution it replaced is gone); f32 K3 is conv.cu's GEMM on the CUDA
+    cores (up_gemm_f32_kernel<requant, cout slab>, all that
+    annonet_up2x2_bias_relu and annonet_up2x2_requant launch for f32; the
+    direct convolution up2x2_kernel it replaced is gone) and uses no local
+    memory or stack (prints its FFMA and LDS counts).
     Prints each of those kernels' tensor-core and __dp4a instruction counts
     and resource usage (registers, stack, local memory: a spill shows as
     local memory)."""
@@ -396,14 +407,19 @@ def check_tensor_cores(library: str) -> None:
     # stride 1: 3 cout blocks x 1 or 2 pieces a chunk; stride 2: 3 x 1
     if len(simt) != 9:
         raise AssertionError(f"found {len(simt)} f32 K1/K2 kernels in the SASS: {sorted(simt)}")
-    stale = [k for k in sass if "conv3x3_f32_kernel" in k
-             or ("up2x2_kernel" in k and "bfloat16" in k)]
+    up_f32 = {k for k in sass if short_name(k).startswith("up_gemm_f32_kernel<")}
+    # the float and the requant mode x 3 cout slabs (16, 32, 64)
+    if len(up_f32) != 6:
+        raise AssertionError(f"found {len(up_f32)} f32 K3 kernels in the SASS: {sorted(up_f32)}")
+    stale = [k for k in sass if "conv3x3_f32_kernel" in k or "up2x2_kernel" in k]
     if stale:
         raise AssertionError(f"a replaced direct convolution is still compiled: {stale}")
     dp4a_kernels = {short_name(k) for k in sass if count(k, dp4a)}
     if dp4a_kernels:
         raise AssertionError(f"__dp4a in the library: {sorted(dp4a_kernels)}")
     usage = sass_functions(cuobjdump, library, "resource-usage")
+    if up_f32 - set(usage):
+        raise AssertionError(f"no resource usage for {sorted(up_f32 - set(usage))}")
     for name in sorted(k for k in usage if short_name(k) != k):
         n_hmma, n_imma, n_dp4a = count(name, hmma), count(name, imma), count(name, dp4a)
         res = " ".join(line.strip() for line in usage[name] if "REG:" in line)
@@ -413,6 +429,15 @@ def check_tensor_cores(library: str) -> None:
             raise AssertionError(f"{short_name(name)} holds no HMMA or HGMMA instruction")
         if (name in q1 or name in q3) and (n_imma == 0 or n_dp4a):
             raise AssertionError(f"{short_name(name)}: {n_imma} IMMA, {n_dp4a} IDP.4A")
+        if name in up_f32:
+            # f32 K3: its instruction mix, and no local memory or stack
+            n_ffma, n_lds = count(name, r"\bFFMA\b"), count(name, r"\bLDS\b")
+            n_all = count(name, r"^\s+/\*[0-9a-f]{4,}\*/\s+\S")
+            print(f"  {'':36s} FFMA {n_ffma} ({100 * n_ffma / max(1, n_all):.1f}% of "
+                  f"{n_all} instructions), LDS {n_lds}", flush=True)
+            local = [int(v) for v in re.findall(r"(?:LOCAL|STACK):(\d+)", res)]
+            if len(local) != 2 or any(local):
+                raise AssertionError(f"{short_name(name)} uses local memory: {res}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -600,7 +625,8 @@ def check_convs(params, config, device, n: int, side: int, dtype, tol: float,
             + (f"+{c2}" if c2 else "")
             + f" -> {list(got.shape)} {str(dtype)[6:]}: max|err| {err:.3e}"
             f" (limit {tol * scale:.3e}) kernel {k_ms:.3f} ms plain {p_ms:.3f} ms"
-            f" cuDNN {lib_ms:.3f} ms bound {bnd[0]:.3f} ms ({bnd[1]})",
+            f" cuDNN {lib_ms:.3f} ms bound {bnd[0]:.3f} ms ({bnd[1]}),"
+            f" {100 * bnd[0] / k_ms:.1f}% of it",
             flush=True,
         )
         if not ok:
@@ -771,18 +797,20 @@ def int8_setup(params_np, config, device, generator, n: int, side: int):
 
 def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
     """Q1, its accumulator mode, Q2, Q3 (bit-identical) and K3's requant
-    mode (within one requant step) against their plain versions on each
-    layer's real inputs (the accumulator's bound counts its int32 output);
-    returns {kernel: tally} (no PyTorch call computes an int8 conv with a
-    requant, so no library time) and the share of K3-requant outputs that
-    differ from the plain version's."""
+    mode in bf16 and in f32 (up2x2_requant_f32: the f32 weights, as an f32
+    artifact's int8 net runs it; within one requant step, and in f32 at
+    most 5% of the outputs a step off) against their plain versions on
+    each layer's real inputs (the accumulator's bound counts its int32
+    output); returns {kernel: tally} (no PyTorch call computes an int8
+    conv with a requant, so no library time) and {mode: the share of its
+    K3-requant outputs that differ from the plain version's}."""
     from annonet_tpu_torch.models.segnet import conv_layers
     from annonet_tpu_torch.ops import conv, qconv
 
     to = lambda e: {k: torch.from_numpy(v).to(device).contiguous()  # noqa: E731
                     for k, v in e.items()}
     results: dict = {}
-    differing = [0, 0]
+    differing = {"up2x2_requant": [0, 0], "up2x2_requant_f32": [0, 0]}
     for block, name, _shape in conv_layers(config):
         layer = f"{block}/{name}"
         xs = inputs[layer]
@@ -795,6 +823,11 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
                  lambda: conv.up2x2_requant(xs[0], e["s_in"], w, e["scale"], e["offset"]),
                  lambda: conv.up2x2_requant_plain(xs[0], e["s_in"], w, e["scale"], e["offset"]),
                  w, (e["s_in"], e["scale"], e["offset"]), "bf16"),
+                ("up2x2_requant_f32",
+                 lambda: conv.up2x2_requant(xs[0], e["s_in"], e["w"], e["scale"], e["offset"]),
+                 lambda: conv.up2x2_requant_plain(xs[0], e["s_in"], e["w"], e["scale"],
+                                                  e["offset"]),
+                 e["w"], (e["s_in"], e["scale"], e["offset"]), "f32"),
                 ("qup2x2_requant",
                  lambda: qconv.qup2x2_requant(xs[0], eu["w_q"], eu["scale"], eu["offset"],
                                               packed=packed_up),
@@ -838,18 +871,22 @@ def check_int8_kernels(config, device, qp, qp_up, inputs, reps: int):
                   + f" -> {list(got.shape)}: max|err| {err} (share differing {share:.2e})"
                   f" kernel {k_ms:.3f} ms plain {p_ms:.3f} ms bound {bnd[0]:.3f} ms"
                   f" ({bnd[1]})", flush=True)
-            limit = 1 if kernel == "up2x2_requant" else 0
+            limit = 1 if kernel in differing else 0
             if err > limit:
                 raise AssertionError(f"{kernel} {layer}: max|err| {err} > {limit}")
-            if kernel == "up2x2_requant":
-                differing[0] += int((d > 0).sum().item())
-                differing[1] += d.numel()
+            if kernel == "up2x2_requant_f32" and share > 0.05:
+                raise AssertionError(f"{kernel} {layer}: mean |err| {share} > 0.05")
+            if kernel in differing:
+                differing[kernel][0] += int((d > 0).sum().item())
+                differing[kernel][1] += d.numel()
             tally(results, kernel, err, k_ms, p_ms, None, bnd)
             del got, want, d
-    share = differing[0] / max(1, differing[1])
-    print(f"  up2x2_requant: {differing[0]} of {differing[1]} outputs ({share:.3e}) one "
-          f"requant step from the plain version", flush=True)
-    return results, share
+    shares = {}
+    for kernel, (n_diff, n_all) in differing.items():
+        shares[kernel] = n_diff / max(1, n_all)
+        print(f"  {kernel}: {n_diff} of {n_all} outputs ({shares[kernel]:.3e}) one "
+              f"requant step from the plain version", flush=True)
+    return results, shares
 
 
 def check_blend_bf16(config, device, reps: int, generator):
@@ -2729,26 +2766,36 @@ def autotune_phase(work: str, data: str) -> int:
     return best
 
 
-def accuracy_phase(device) -> None:
+def accuracy_phase(device) -> dict:
     """tools/measure_accuracy.train_and_score on the card: the JAX
     end-to-end test's recipe (40 f32 steps, TF32 off), then the float and
     int8 inferers on its images, held against PARITY_TARGETS.json's pinned
-    floors."""
+    floors. Its artifact computes in f32, so its int8 net's up layer is
+    K3's f32 requant mode: returns the K3 launches of the run {name: n}."""
+    from annonet_tpu_torch.ops import conv
     from annonet_tpu_torch.tools import measure_accuracy
 
     pixel_floor, miou_floor = measure_accuracy.pinned_floors()
     t = time.monotonic()
+    wrappers = (conv.up2x2_bias_relu, conv.up2x2_requant)
     with tempfile.TemporaryDirectory(dir=_REPO, prefix=".chip_smoke_") as td:
         measure_accuracy.write_separable_dataset(td)
+        for fn in wrappers:
+            fn.launches = 0
         run = measure_accuracy.train_and_score(td, seed=0, device=device)
+        launches = {fn.__name__: fn.launches for fn in wrappers}
     print(f"  seed 0 on {device}: loss {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; "
           f"pixel accuracy {run['pixel_accuracy']:.5f} (floor {pixel_floor}), mIoU "
           f"{run['miou']:.5f} (floor {miou_floor}), int8 pixel accuracy "
           f"{run['int8_pixel_accuracy']:.5f} (floor {pixel_floor}); "
           f"{time.monotonic() - t:.1f} s", flush=True)
+    print(f"  f32 K3 launches of the run (float and requant mode): {launches}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the f32 recipe missed an f32 K3 mode: {launches}")
     missed = measure_accuracy.below_floors(run)
     if missed:
         raise AssertionError("under the pinned floors: " + "; ".join(missed))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3211,7 +3258,7 @@ def main() -> int:
           "own activations", flush=True)
     _calibration, qp, qp_up, _x_q, inputs = int8_setup(params_np, config, device, gen,
                                                        n, side)
-    int8_results, requant_share = check_int8_kernels(config, device, qp, qp_up, inputs, 3)
+    int8_results, requant_shares = check_int8_kernels(config, device, qp, qp_up, inputs, 3)
     del inputs, _x_q
     torch.cuda.empty_cache()
     elapsed()
@@ -3310,7 +3357,7 @@ def main() -> int:
     elapsed()
     print("[accuracy_floors] the end-to-end test's recipe trained and scored on the card",
           flush=True)
-    accuracy_phase(device)
+    accuracy_launches = accuracy_phase(device)
     for label, records in (("float", per_image), ("int8", int8_per_image)):
         for rec in records:
             mpx = rec["width"] * rec["height"] / 1e6
@@ -3337,7 +3384,7 @@ def main() -> int:
     modes = {
         "up2x2_bias_relu": {"requant": {
             "launches": int8_launches["up2x2_requant"],
-            "share_differing": requant_share,
+            "share_differing": requant_shares["up2x2_requant"],
             **numbers(int8_results["up2x2_requant"]),
         }},
         "blend_argmax": {f"bfloat16_{variant}": numbers(r) for variant, r in blend_bf16.items()},
@@ -3376,6 +3423,14 @@ def main() -> int:
             "replaces": _TPU_KERNELS[name], "launches": f32_launches[name],
             "f32_infer_call_launches": f32_call_launches[name],
             **numbers(f32_results[name])}
+    # K3's f32 requant mode, timed at the int8 net's up layers; launched by
+    # the accuracy recipe's int8 inferer on its f32 artifact (phase 14)
+    modes["up2x2_bias_relu"]["requant_float32"] = {
+        "name": "up2x2_requant", "route": "cuda", "source": "annonet_tpu_torch/csrc/conv.cu",
+        "replaces": _TPU_KERNELS["up2x2_bias_relu"],
+        "launches": accuracy_launches["up2x2_requant"],
+        "share_differing": requant_shares["up2x2_requant_f32"],
+        **numbers(int8_results["up2x2_requant_f32"])}
     modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
     # the serve phase's own counts: the float server's K1-K4, the int8
     # server's Q1, Q2, K3-requant and K4

@@ -135,9 +135,9 @@ def test_two_input_conv_is_the_decoder_concat(dtype_name):
 FOLD, H, WB, CIN = 8, 16, 4, 16
 
 
-def _folded_case(seed, cout, k):
-    x, w, b = _inputs(seed, 2, H, WB * FOLD, CIN, cout, k)
-    return x, w, b, jnp.asarray(x.reshape(2, H, WB, FOLD * CIN))
+def _folded_case(seed, cout, k, cin=CIN):
+    x, w, b = _inputs(seed, 2, H, WB * FOLD, cin, cout, k)
+    return x, w, b, jnp.asarray(x.reshape(2, H, WB, FOLD * cin))
 
 
 @pytest.mark.parametrize("cout", [16, 8, 32])
@@ -162,9 +162,11 @@ def test_k2_matches_pallas_fconv3x3_s2(cout):
     _close(_port(x, w, b, torch.float32, "s2"), want, "float32")
 
 
-@pytest.mark.parametrize("cout", [8, 16])
-def test_k3_matches_pallas_fup(cout):
-    x, w, b, xf = _folded_case(3, cout, 2)
+# 16 -> 8 and 16 -> 16, then the flagship's three up layers' widths
+@pytest.mark.parametrize("cin,cout", [pytest.param(16, 8, id="8"), pytest.param(16, 16, id="16"),
+                                      (128, 64), (64, 32), (32, 16)])
+def test_k3_matches_pallas_fup(cin, cout):
+    x, w, b, xf = _folded_case(3, cout, 2, cin)
     wf = _fold_up_kernel(w, FOLD)  # [2, 1, fold*cin, 2*fold*cout]
     out = fup_bias_relu(xf, jnp.asarray(wf[1, 0]), jnp.asarray(wf[0, 0]),
                         jnp.asarray(np.tile(b, 2 * FOLD)), rows=8, interpret=True)

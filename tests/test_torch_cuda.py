@@ -32,9 +32,35 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+# (kind, n, h, w, cin, 0, cout) of the up layer; "up+k": the input is a
+# view that starts k elements past an aligned allocation
 UP_EDGES = [("up", 1, 9, 19, 8, 0, 4), ("up", 1, 7, 45, 128, 0, 64), ("up", 1, 11, 70, 64, 0, 32),
             ("up", 2, 13, 100, 32, 0, 16), ("up", 3, 9, 30, 32, 0, 16),
-            ("up", 1, 6, 20, 256, 0, 160)]
+            ("up", 1, 6, 20, 256, 0, 160),
+            # the dispatch paths of f32 K3's GEMM (csrc/conv.cu): cin % 4 != 0
+            # (the input gathered), cout % 4 != 0 (weights and output element by
+            # element) at each cout slab, cout > 64 in slabs with a ragged last
+            # one, K in chunks at 16 output channels, widths 1, 63 and 65
+            # (tiles across rows and images), an unaligned input; then the
+            # flagship's dec1/up on a 2-image batch
+            ("up", 1, 6, 17, 6, 0, 20), ("up", 1, 5, 21, 16, 0, 9), ("up", 1, 5, 21, 32, 0, 18),
+            ("up", 1, 4, 9, 64, 0, 50), ("up", 1, 2, 30, 48, 0, 70), ("up", 1, 3, 7, 300, 0, 8),
+            ("up", 2, 5, 1, 32, 0, 16), ("up", 1, 4, 63, 64, 0, 32), ("up", 1, 3, 65, 128, 0, 64),
+            ("up+1", 2, 5, 33, 32, 0, 16), ("up+3", 1, 3, 30, 64, 0, 32),
+            ("up", 2, 436, 436, 32, 0, 16)]
+
+
+def _offset(t, elems: int):
+    """``t``'s values in a contiguous view that starts ``elems`` elements
+    past the start of its allocation (so not 16-byte aligned)."""
+    if not elems:
+        return t
+    view = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)[elems:]
+    return view.view(t.shape).copy_(t)
+
+
+def _view_offset(kind: str) -> int:
+    return int(kind.partition("+")[2] or 0)
 
 
 @pytest.fixture
@@ -87,8 +113,9 @@ def _rand(shape, device, seed, lo=0.0, scale=1.0):
 def test_conv_kernels_match_plain(device, kind, n, h, w, c1, c2, cout, dtype):
     from annonet_tpu_torch.ops import conv
 
+    kind, offset = kind.partition("+")[0], _view_offset(kind)
     k = 2 if kind == "up" else 3
-    x = _rand((n, h, w, c1), device, 1, -0.3).to(dtype)
+    x = _offset(_rand((n, h, w, c1), device, 1, -0.3).to(dtype), offset)
     x2 = _rand((n, h, w, c2), device, 2).to(dtype) if c2 else None
     wgt = _rand((k, k, c1 + c2, cout), device, 3, -0.5, (2.0 / (k * k * (c1 + c2))) ** 0.5)
     wgt = wgt.to(dtype)
@@ -249,12 +276,14 @@ def test_int8_kernels_are_bit_identical_to_plain(device, kind, n, h, w, c1, c2, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 13, 24, 36), (1, 5, 40, 3, 4), (1, 16, 16, 64, 32),
-                                           *(case[1:5] + case[6:] for case in UP_EDGES)])
-def test_up2x2_requant_within_one_step_of_plain(device, dtype, n, h, w, cin, cout):
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout,offset",
+    [(2, 9, 13, 24, 36, 0), (1, 5, 40, 3, 4, 0), (1, 16, 16, 64, 32, 0),
+     *(case[1:5] + case[6:] + (_view_offset(case[0]),) for case in UP_EDGES)])
+def test_up2x2_requant_within_one_step_of_plain(device, dtype, n, h, w, cin, cout, offset):
     from annonet_tpu_torch.ops import conv
 
-    x = _int8((n, h, w, cin), device, 5)
+    x = _offset(_int8((n, h, w, cin), device, 5), offset)
     s_in = _rand((cin,), device, 6, 0.5, 0.02)
     wgt = _rand((2, 2, cin, cout), device, 7, -0.5, (2.0 / cin) ** 0.5).to(dtype)
     # the float sums reach a few units: scale them over the int8 range
