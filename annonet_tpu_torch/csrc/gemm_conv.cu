@@ -16,7 +16,7 @@
 // (segment s, dy; channel c) is x at the row shifted by dy-1 and the block
 // shifted by 0, -1, +1 for Wc, Wl, Wr. It holds for any weights.
 //
-// What bounds it on an H100. The folded weights are block-banded
+// What bounds the bf16 kernel on an H100. The folded weights are block-banded
 // (build_gemm_kernels_aligned): output pixel j of a block reads input
 // pixels j-1..j+1 only, and Wl and Wr hold one nonzero pixel block each, so
 // only about 1/fold of the dense GEMM's 2*M*NC*9*K1 operations multiply
@@ -52,8 +52,62 @@
 // memory and stores 16 bytes a thread. K1 need not be a multiple of 32 (the
 // RGB stem's 24: the chunk's missing rows are zero-filled); where K1 or NC
 // is no multiple of 8 the copies are element by element.
-// f32 runs on the CUDA cores (a 64 x 64 tile, 4 x 4 outputs a thread,
-// dense): only the f32 configs, used to check the arithmetic, take it.
+//
+// f32 (gemm_conv_f32): f32 FMAs on the CUDA cores, no TF32 (the f32 configs
+// check the arithmetic to 1e-4 of scale). Its table (ops/gemm_conv.py
+// _f32_table) lists 16-row K chunks by 16-column slabs: at fold 8 a block
+// of a 16-channel layer is one input pixel by one output pixel, so on the
+// flagship's layers but the RGB stem the table lists exactly the conv's
+// products (at the stem, K1 = 24, a chunk spans 5.3 pixels: 38.3 GFLOP
+// listed for the conv's 16.4). Over the 25-tile 872^2 batch of a 4096^2
+// image the table lists 826.7 GFLOP (32 x 32 blocks would list 1116.9,
+// the dense GEMM 3810.4) for the conv's 804.8; the bound is 12.20 ms: the
+// six layers with 16 or more input channels at 67 TFLOP/s (26 to 192 FLOP
+// a byte, above the card's f32 line of 20 FLOP/B), the stem by its bytes.
+// What the design does about it:
+// (a) Every warp busy at every step. At fold 8 a 16-row chunk holds
+//     weights for 3 of the 8 slabs, so the bf16 kernel's walk (all warps
+//     on one chunk) would leave 5 of 8 warps idle. Here a warp owns a slab
+//     and walks its own blocks over a staged span of A: a stage copies the
+//     A rows of one row tap dy and 128 K rows (the block's 128 GEMM rows and
+//     one more at each end) once, and Wc, Wl and Wr read them shifted by
+//     0, -1 and +1 row; in each of the stage's steps every warp multiplies
+//     one block of its own slab. At each row tap each slab of the
+//     flagship's layers holds the same number of blocks (3 at fold 8, 6 at
+//     fold 4, 12 at fold 2; the decoder's 256 K rows split into its up and
+//     skip halves, 128 rows a span), so no warp waits in a step (the host
+//     pads a short slab with empty steps). The b-1 term at b = 0 and the
+//     b+1 term at b = WB-1 read rows of the neighbouring image row: those
+//     A values are selected to zero in registers (Wl and Wr blocks only).
+// (b) Register tile: 8 rows x 8 columns a thread, 64 f32 accumulators; a
+//     warp is 16 row groups x 2 column halves of 128 rows x 16 columns. For
+//     each 4 K rows a thread loads its 8 rows' 4-value pieces and 2 pieces
+//     of B for each K row, 16 16-byte shared loads for 256 FMAs.
+// (c) Staging by 16-byte cp.async: A double-buffered by stage (the next
+//     stage's copy is issued at this stage's first step and lands under
+//     its FMAs), B in a ring of 3 blocks per warp, filled two steps ahead
+//     by the warp itself, so a step needs only a warp barrier and a stage
+//     one block barrier. A stage copies whole rows, 512 contiguous bytes a
+//     warp (32 / pieces rows a warp where a span is narrower). Rows outside
+//     the image (row padding), past the ends and K rows past K1 are
+//     zero-fill copies. One block an SM (162 KB of shared memory, at most
+//     255 registers; 167 used, no spill): two blocks an SM with one A
+//     buffer ran 5% faster but spilled 40 bytes at 128 registers.
+// (d) Banks: A rows are 132 floats apart (128 + 4), so the 4 row groups of a
+//     quarter warp (adjacent rows) read 16-byte pieces in 4 distinct bank
+//     groups, and the 2 column halves of a row group read the same piece (a
+//     broadcast); B's 2 pieces a K row are read by every row group alike.
+// (e) Edges: element-by-element A copies where K1 % 4 != 0 or x is not
+//     16-byte aligned, B copies and output stores where NC % 4 != 0 or a
+//     weight or the output is not; K1 24 (the RGB stem) and 12 fill half
+//     or less of a chunk (its missing rows are zero); NC past a multiple of
+//     128 runs a second group (grid.y); any N, H and WB (WB = 1: the
+//     neighbour terms vanish), 64-bit offsets. A table whose header (K1,
+//     NC, groups) is not the call's is not walked: the outputs are NaN.
+// On an H100 (700 W) the flagship's 7 layers take about 29.4 ms over the
+// 25-tile batch, 42% of the bound and 0.56x cuDNN's f32 conv of the same
+// layers: about half the f32 peak at fold 2, 37-40% at fold 8, where a
+// stage has 3 steps and its copy and barrier weigh most (PERF.md).
 //
 // Numerics: f32 accumulation, + f32 bias, ReLU, one rounding to x's dtype,
 // as the Pallas kernel does.
@@ -304,75 +358,238 @@ gemm_conv_bf16(const __nv_bfloat16* __restrict__ x,
 
 // ------------------------------------------------------------------ f32
 
-constexpr int kFM = 64, kFN = 64, kFK = 16;
+// block: kFBM GEMM rows x one group of kFSlabs slabs of kFSlab columns, a
+// warp a slab; A staged a stage at a time (one row tap dy, kFSpan K rows:
+// the tile's rows and one more at each end, for Wl's and Wr's shift); B
+// blocks of kFKC rows x kFSlab columns in a ring of kFDepth per warp.
+// ops/gemm_conv.py builds the table with the same sizes (G1F_*).
+constexpr int kFBM = 128, kFSlab = 16, kFKC = 16, kFSlabs = 8, kFSpan = 128;
+constexpr int kFDepth = 3;            // G1F_MIN_STEPS + 1
+constexpr int kFRec = 16;             // ints a table row (G1F_REC)
+constexpr int kFRows = kFBM + 2;      // staged A rows
+constexpr int kFALd = kFSpan + 4;     // floats a staged A row (banks: below)
+constexpr int kFTM = 8, kFTN = 8;     // a thread's rows and columns
+constexpr int kFAFloats = kFRows * kFALd;
+constexpr int kFBFloats = kFKC * kFSlab;
+constexpr int kFSmemBytes =
+    (2 * kFAFloats + kFSlabs * kFDepth * kFBFloats) * 4 + kFRows * 4;
+static_assert(kFSlabs * 32 == kThreads && 16 * kFTM == kFBM && 2 * kFTN == kFSlab,
+              "a warp a slab; 16 x 2 threads of 8 x 8 outputs a warp");
 
-__global__ void __launch_bounds__(kThreads)
+// channel ``i`` (a constant after unrolling) of a float4
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc += one listed block: A rows a + i * 16 * kFALd (i < 8), kFKC columns
+// from a; B [kFKC][kFSlab] at b, this thread's columns b[0..3] and b[8..11].
+// MASK: rows whose bit is set in ``zero`` read zeros (the b-1 term at b = 0,
+// the b+1 term at b = WB-1).
+template <bool MASK>
+__device__ __forceinline__ void f32_block(float (&acc)[kFTM][kFTN], const float* a,
+                                          const float* b, unsigned zero) {
+#pragma unroll
+  for (int kq = 0; kq < kFKC; kq += 4) {
+    float4 av[kFTM];
+#pragma unroll
+    for (int i = 0; i < kFTM; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a + i * 16 * kFALd + kq);
+      if (MASK && ((zero >> i) & 1)) av[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 = *reinterpret_cast<const float4*>(b + (kq + kk) * kFSlab);
+      const float4 b1 = *reinterpret_cast<const float4*>(b + (kq + kk) * kFSlab + 8);
+      const float bv[kFTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < kFTM; ++i) {
+        const float ai = lane4(av[i], kk);
+#pragma unroll
+        for (int j = 0; j < kFTN; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// table: ops/gemm_conv.py _f32_table, int32 rows of kFRec: a header row
+// [K1, NC, groups], the groups' first records, then one record a step: [q
+// = dy * spans + span, e_0 .. e_7 (chunk * 4 + segment of slab j's block,
+// or -1), first step of a stage, the next stage's q, ...]. A table whose
+// header is not this call's is never walked: every output is NaN (a
+// launch cannot report an error without a sync).
+__global__ void __launch_bounds__(kThreads, 1)
 gemm_conv_f32(const float* __restrict__ x, const float* __restrict__ wc,
               const float* __restrict__ wl, const float* __restrict__ wr,
-              const float* __restrict__ bias, float* __restrict__ out,
-              int64_t rows, int h, int wb, int k1, int nc, int cout) {
-  __shared__ __align__(16) float As[kFK][kFM];  // [k][m]
-  __shared__ __align__(16) float Bs[kFK][kFN];  // [k][n]
+              const float* __restrict__ bias, const int* __restrict__ table,
+              float* __restrict__ out, int64_t rows, int h, int wb, int k1, int nc,
+              int cout, int groups, int vec_a, int vec_b, int vec_o) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* abuf = reinterpret_cast<float*>(smem);           // [2][kFRows][kFALd]
+  float* bbuf = abuf + 2 * kFAFloats;                     // [warp][kFDepth][kFKC][kFSlab]
+  int* hrow = reinterpret_cast<int*>(bbuf + kFSlabs * kFDepth * kFBFloats);  // [kFRows]
 
-  const int tid = threadIdx.x;
-  const int64_t m0 = (int64_t)blockIdx.x * kFM;
-  const int n0 = blockIdx.y * kFN;
-  const int chunks_per_seg = (k1 + kFK - 1) / kFK;
-  // loads: A row tid/4, columns (tid%4)*4 .. +3; B row tid/16, columns
-  // (tid%16)*4 .. +3
-  const int a_r = tid >> 2, a_k = (tid & 3) * 4;
-  const ARow arow = a_row(m0 + a_r, rows, h, wb);
-  const int b_k = tid >> 4, b_c = (tid & 15) * 4;
-  // compute: rows ty*4 .. +3, columns tx*4 .. +3
-  const int ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t m0 = (int64_t)blockIdx.x * kFBM;
+  const int spans = (k1 + kFSpan - 1) / kFSpan;
+  const bool valid = table[0] == k1 && table[1] == nc && table[2] == groups;
+  const int* offsets = table + kFRec;
+  const int* recs = table + kFRec * (1 + (groups + kFRec) / kFRec) +
+                    (valid ? kFRec * offsets[blockIdx.y] : 0);
+  const int steps = valid ? offsets[blockIdx.y + 1] - offsets[blockIdx.y] : 0;
+  const int n_slab = blockIdx.y * (kFSlab * kFSlabs) + warp * kFSlab;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < 9 * chunks_per_seg; ++t) {
-    const int seg = t / chunks_per_seg;
-    const int c0 = (t - seg * chunks_per_seg) * kFK;
-    const int s = seg / 3, dy = seg % 3;
-    const int64_t src = a_src(arow, dy, seg_db(s), h, wb);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + a_k + j;
-      As[a_k + j][a_r] = (src >= 0 && c < k1) ? x[src * k1 + c] : 0.f;
-    }
-    const float* w = s == 0 ? wc : (s == 1 ? wl : wr);
-    const int k = c0 + b_k;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + b_c + j;
-      Bs[b_k][b_c + j] =
-          (k < k1 && col < nc) ? w[((int64_t)dy * k1 + k) * nc + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  // the image row of staged row r's GEMM row m0 - 1 + r, -1 past either end
+  for (int r = tid; r < kFRows; r += kThreads) {
+    const int64_t q = m0 - 1 + r;
+    hrow[r] = q < 0 || q >= rows ? -1 : (int)((q / wb) % h);
   }
+  __syncthreads();
 
+  // stage q's A: staged row r holds x at GEMM row m0 - 1 + r shifted by dy - 1
+  // image rows (zero where that leaves the image), K rows span * kFSpan ..
+  // in whole chunks (zero past K1)
+  auto fill_a = [&](int q, int buf) {
+    const int dy = q / spans, k0 = (q - dy * spans) * kFSpan;
+    const int w4 = (min(kFSpan, k1 - k0) + kFKC - 1) / kFKC * (kFKC / 4);  // pieces a row
+    float* a = abuf + buf * kFAFloats;
+    const float* xr = x + (m0 - 1 + (int64_t)(dy - 1) * wb) * k1 + k0;  // staged row 0
+    if (vec_a && (w4 & (w4 - 1)) == 0) {
+      // a warp copies 32 / w4 whole rows (a whole span: 512 contiguous bytes)
+      const int per = 32 / w4, lr = lane / w4, c = (lane - lr * w4) * 4;
+      const bool in_k = k0 + c < k1;
+      for (int r = warp * per + lr; r < kFRows; r += kFSlabs * per) {
+        const int hh = hrow[r] + dy - 1;
+        const bool ok = in_k && hrow[r] >= 0 && hh >= 0 && hh < h;
+        cp_async16(a + r * kFALd + c, ok ? xr + (int64_t)r * k1 + c : x, ok);
+      }
+      return;
+    }
+    for (int e = tid; e < kFRows * w4; e += kThreads) {
+      const int r = e / w4, c = (e - r * w4) * 4, k = k0 + c;
+      const int hh = hrow[r] + dy - 1;
+      const bool row_ok = hrow[r] >= 0 && hh >= 0 && hh < h;
+      const float* src = xr + (int64_t)r * k1 + c;
+      float* dst = a + r * kFALd + c;
+      if (vec_a) {
+        const bool ok = row_ok && k < k1;
+        cp_async16(dst, ok ? src : x, ok);
+      } else {
+        float v[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t m = m0 + ty * 4 + i;
+        for (int j = 0; j < 4; ++j) v[j] = row_ok && k + j < k1 ? src[j] : 0.f;
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+  // step t's block of this warp's slab into its ring slot t % kFDepth
+  float* bw = bbuf + warp * (kFDepth * kFBFloats);
+  auto fill_b = [&](int t) {
+    const int* rec = recs + t * kFRec;
+    const int e = rec[1 + warp];
+    if (e < 0) return;
+    const int dy = rec[0] / spans;
+    const int k0 = (rec[0] - dy * spans) * kFSpan + (e >> 2) * kFKC;
+    const float* w = (e & 3) == 0 ? wc : ((e & 3) == 1 ? wl : wr);
+    float* b = bw + (t % kFDepth) * kFBFloats;
+#pragma unroll
+    for (int r = 0; r < kFBFloats / 4 / 32; ++r) {  // 16 rows x 4 pieces, 2 a lane
+      const int i = lane + 32 * r;
+      const int kk = i >> 2, c = (i & 3) * 4, k = k0 + kk, col = n_slab + c;
+      const float* src = w + ((int64_t)dy * k1 + k) * nc + col;
+      float* dst = b + kk * kFSlab + c;
+      if (vec_b) {
+        const bool ok = k < k1 && col < nc;
+        cp_async16(dst, ok ? src : w, ok);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = k < k1 && col + j < nc ? src[j] : 0.f;
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+
+  // thread tile: rows rg + 16 i (i < 8) of the block, columns ch * 4 .. +3
+  // and 8 + ch * 4 .. +3 of the warp's slab
+  const int rg = lane >> 1, ch = lane & 1;
+  unsigned zero_l = 0, zero_r = 0;  // rows at b = 0 and at b = WB - 1
+  for (int i = 0, b = (int)((m0 + rg) % wb); i < kFTM; ++i) {
+    zero_l |= (unsigned)(b == 0) << i;
+    zero_r |= (unsigned)(b == wb - 1) << i;
+    b += 16;
+    while (b >= wb) b -= wb;
+  }
+  float acc[kFTM][kFTN];
+#pragma unroll
+  for (int i = 0; i < kFTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kFTN; ++j) acc[i][j] = 0.f;
+
+  if (steps > 0) fill_a(recs[0], 0);
+#pragma unroll
+  for (int t = 0; t < kFDepth - 1; ++t) {
+    if (t < steps) fill_b(t);
+    cp_async_commit();
+  }
+  int stage = -1;
+  for (int t = 0; t < steps; ++t) {
+    const int* rec = recs + t * kFRec;
+    cp_async_wait<kFDepth - 2>();  // step t's B (and its stage's A) landed
+    if (rec[9]) {
+      // a new stage: its A is complete in every thread, and every warp is
+      // done with the last stage, whose buffer takes the next stage's A
+      __syncthreads();
+      ++stage;
+    } else {
+      __syncwarp();  // the warp's B of step t; its slot of step t-1 is free
+    }
+    if (t + kFDepth - 1 < steps) fill_b(t + kFDepth - 1);
+    if (rec[9] && rec[10] >= 0) fill_a(rec[10], (stage + 1) & 1);
+    cp_async_commit();
+    const int e = rec[1 + warp];
+    if (e >= 0) {
+      const int s = e & 3;
+      // Wc reads row m (staged row m - m0 + 1), Wl row m - 1, Wr row m + 1
+      const float* a = abuf + (stage & 1) * kFAFloats +
+                       (rg + (s == 0 ? 1 : (s == 1 ? 0 : 2))) * kFALd + (e >> 2) * kFKC;
+      const float* b = bw + (t % kFDepth) * kFBFloats + ch * 4;
+      if (s == 0)
+        f32_block<false>(acc, a, b, 0u);
+      else
+        f32_block<true>(acc, a, b, s == 1 ? zero_l : zero_r);
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: f32 bias, ReLU; 16-byte stores (a warp's store: 16 rows x 32
+  // contiguous bytes)
+  const int c0 = n_slab + ch * 4;
+  float bv[kFTN];
+#pragma unroll
+  for (int j = 0; j < kFTN; ++j) {
+    const int col = c0 + (j < 4 ? j : 4 + j);
+    bv[j] = col < nc ? bias[col % cout] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kFTM; ++i) {
+    const int64_t m = m0 + rg + 16 * i;
     if (m >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < nc) out[m * nc + col] = fmaxf(acc[i][j] + bias[col % cout], 0.f);
+    for (int half = 0; half < 2; ++half) {
+      const int col = c0 + 8 * half;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = valid ? fmaxf(acc[i][4 * half + j] + bv[4 * half + j], 0.f)
+                     : __int_as_float(0x7fc00000);  // a quiet NaN
+      float* dst = out + m * nc + col;
+      if (vec_o) {
+        if (col < nc) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < nc) dst[j] = v[j];
+      }
     }
   }
 }
@@ -389,7 +606,7 @@ extern "C" int annonet_conv3x3_gemm(const void* x, const void* wc,
   using namespace annonet;
   cudaGetLastError();  // report this launch's error only
   if (k1 <= 0 || nc <= 0 || cout <= 0 || nc % cout || h > INT32_MAX ||
-      wb > INT32_MAX || (bf16 && table == nullptr))
+      wb > INT32_MAX || table == nullptr)
     return (int)cudaErrorInvalidValue;
   const int64_t rows = n * h * wb;
   if (rows == 0) return 0;
@@ -415,11 +632,24 @@ extern "C" int annonet_conv3x3_gemm(const void* x, const void* wc,
         xt, wct, wlt, wrt, b, static_cast<const int*>(table), ot, rows, (int)h,
         (int)wb, k1, nc, cout, groups, vec_a, vec_b, vec_o);
   } else {
-    dim3 grid((unsigned)((rows + kFM - 1) / kFM), (unsigned)((nc + kFN - 1) / kFN));
-    gemm_conv_f32<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wc),
-        static_cast<const float*>(wl), static_cast<const float*>(wr), b,
-        static_cast<float*>(out), rows, (int)h, (int)wb, k1, nc, cout);
+    const auto* xt = static_cast<const float*>(x);
+    const auto* wct = static_cast<const float*>(wc);
+    const auto* wlt = static_cast<const float*>(wl);
+    const auto* wrt = static_cast<const float*>(wr);
+    auto* ot = static_cast<float*>(out);
+    const int vec_a = k1 % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int vec_b = nc % 4 == 0 && reinterpret_cast<uintptr_t>(wc) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(wl) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(wr) % 16 == 0;
+    const int vec_o = nc % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const int groups = (nc + kFSlab * kFSlabs - 1) / (kFSlab * kFSlabs);
+    const cudaError_t e = cudaFuncSetAttribute(
+        gemm_conv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((unsigned)((rows + kFBM - 1) / kFBM), (unsigned)groups);
+    gemm_conv_f32<<<grid, kThreads, kFSmemBytes, s>>>(
+        xt, wct, wlt, wrt, b, static_cast<const int*>(table), ot, rows, (int)h, (int)wb,
+        k1, nc, cout, groups, vec_a, vec_b, vec_o);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """Time the f32 conv kernels K1-K3 (``csrc/conv.cu``), K3's f32 requant
-mode and an f32 ``infer_arrays`` call in several checkouts of the repo,
+mode, f32 G1 (``csrc/gemm_conv.cu``), an f32 ``infer_arrays`` call and an
+f32 ``use_pallas_conv`` one in several checkouts of the repo,
 one after another on the same device: the A/B of a change to those
 kernels against its parent, at the shapes of ``chip_smoke.py``'s phase 3.
 A change to one kernel reads the others as its controls.
@@ -13,18 +14,21 @@ base_width=16)``, random weights from seed 0; the layers of this repo's
 a 4096x4096 image (25 tiles of 872x872), then K3's f32 requant mode
 (``up2x2_requant`` with the f32 weights, as an f32 artifact's int8 net
 runs it) on each up layer's shape with random int8 inputs and scales,
-then the host wall of 5 f32 ``infer_arrays`` calls on a random 4096x4096
-image after a warm-up.
+then f32 G1 at the folded net's 7 stride-1 layers (``FoldedSegNet``'s
+weights, on random inputs of each layer's folded shape, with the table
+that checkout's own ``g1_block_table`` builds), then the host wall of 5
+f32 ``infer_arrays`` calls on a random 4096x4096 image after a warm-up,
+and of 5 such calls of ``TiledInferer(use_pallas_conv=True)``.
 Only the public wrappers of ``annonet_tpu_torch.ops.conv`` and
-``TiledInferer`` are used, so any checkout of the port since its first
-slice runs.
+``ops.gemm_conv``, ``FoldedSegNet`` and ``TiledInferer`` are used, so any
+checkout whose folded net builds its G1 tables runs.
 
     python -m annonet_tpu_torch.tools.conv_f32_ab --checkouts _ab/parent . . _ab/parent
 
 Give the order parent, change, change, parent so that a drift of the card
 over the runs shows as a difference between the two runs of one checkout.
-Prints one JSON line a run (per-layer ms, the K1, K2, K3 and K3-requant
-sums, the wall)
+Prints one JSON line a run (per-layer ms, the K1, K2, K3, K3-requant and
+G1 sums, the walls)
 and then the card's name and power limit (``nvidia-smi``).
 """
 
@@ -46,9 +50,10 @@ CHILD = r"""
 import json, sys, time
 import numpy as np, torch
 from annonet_tpu_torch.infer.core import TiledInferer
+from annonet_tpu_torch.models.folded_runtime import FoldedSegNet, folding_supported
 from annonet_tpu_torch.models.segnet import (SegNetConfig, init_runtime_params,
                                              runtime_params_from_numpy)
-from annonet_tpu_torch.ops import conv
+from annonet_tpu_torch.ops import conv, gemm_conv
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,21 +97,43 @@ for kernel, layer, shape, c2, key in calls:
     timed("up2x2_requant", layer + " requant",
           lambda: conv.up2x2_requant(x, s_in, w, scale, offset))
     del x
+# f32 G1 at the folded net's stride-1 layers: x [n, h, w / fold, fold * cin]
+side = calls[0][2][1]
+net = FoldedSegNet(params_np, config, folding_supported(config, side), device=device)
+shapes = {layer: (shape, c2) for _kernel, layer, shape, c2, _key in calls}
+for kind, name, f in net.entries:
+    if not kind.startswith("s1p:"):
+        continue
+    (n, h, w, c1), c2 = shapes[name]
+    mats = [net.param(name, k) for k in ("wc", "wl", "wr")]
+    b = net.param(name, "b")
+    table = gemm_conv.g1_block_table(*mats)
+    x = torch.rand((n, h, w // f, f * (c1 + c2)), generator=gen, device=device)
+    timed("conv3x3_gemm_aligned", name + " G1",
+          lambda: gemm_conv.conv3x3_gemm_aligned(x, *mats, b, f, c1 + c2, table))
+    del x
+del net
 torch.cuda.empty_cache()
 image = np.random.default_rng(0).integers(0, 256, (4096, 4096, 3), dtype=np.uint8)
-inferer = TiledInferer(params_np, config, device=device)
 gains = np.zeros(3, np.float32)
 levels = np.asarray([0.0, 0.5, 0.0], np.float32)
-inferer.infer_arrays(image, gains, levels)
-walls = []
-for _ in range(reps):
-    t = time.monotonic()
+walls = {}
+for label, pallas in (("default", False), ("use_pallas_conv", True)):
+    inferer = TiledInferer(params_np, config, device=device, use_pallas_conv=pallas)
     inferer.infer_arrays(image, gains, levels)
-    walls.append((time.monotonic() - t) * 1e3)
+    walls[label] = []
+    for _ in range(reps):
+        t = time.monotonic()
+        inferer.infer_arrays(image, gains, levels)
+        walls[label].append((time.monotonic() - t) * 1e3)
+    del inferer
 print(json.dumps({"layers_ms": layers, "k1_ms": sums["conv3x3_bias_relu"],
                   "k2_ms": sums["conv3x3_s2_bias_relu"], "k3_ms": sums["up2x2_bias_relu"],
-                  "k3_requant_ms": sums["up2x2_requant"],
-                  "f32_infer_arrays_ms": sum(walls) / reps, "walls_ms": walls}))
+                  "k3_requant_ms": sums["up2x2_requant"], "g1_ms": sums["conv3x3_gemm_aligned"],
+                  "f32_infer_arrays_ms": sum(walls["default"]) / reps,
+                  "walls_ms": walls["default"],
+                  "f32_pallas_infer_arrays_ms": sum(walls["use_pallas_conv"]) / reps,
+                  "pallas_walls_ms": walls["use_pallas_conv"]}))
 """
 
 

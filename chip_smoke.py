@@ -14,6 +14,7 @@ Phases (any failure raises, and the exit code is then nonzero):
               they replaced do not; the bf16 K1/K2 kernels
               (igemm_kernel), both modes of bf16 K3 (upgemm_kernel) and
               bf16 G1 (gemm_conv_bf16) must hold tensor-core instructions
+              and f32 G1 (gemm_conv_f32) none, and no local memory
               (HMMA or HGMMA), every Q1 kernel of both modes, every Q2
               kernel (q1_igemm_kernel<stride, ...>) and Q3's
               (qup_igemm_kernel) int8 ones (IMMA), the accumulator
@@ -53,11 +54,13 @@ Phases (any failure raises, and the exit code is then nonzero):
               int32 out); and the bf16 blend on the canvas (detection, the argmax
               fold, the normalised argmax) and on the two stress lists.
               Then G1 on the 7 stride-1 layers that the folded net
-              (use_pallas_conv) runs at folds above 1, on the folded net's own activations of the 25-tile
-              batch in bf16 and of one tile in f32, beside the three
-              cuBLAS GEMMs of the same shapes; G1's bound counts the
-              products over its table of nonzero weight blocks (the
-              dense GEMM's beside it). Times come from CUDA events.
+              (use_pallas_conv) runs at folds above 1, on the folded
+              net's own activations of the 25-tile batch, in f32 (its
+              16 x 16 block schedule, beside cuDNN's f32 call, TF32 off)
+              and in bf16, beside the three cuBLAS GEMMs of the same
+              shapes; G1's bound counts the products with a nonzero
+              weight (its table's and the dense GEMM's beside it). Times
+              come from CUDA events.
   4. accuracy the tiled inferer on the card against the same inferer on
               the CPU (plain versions) on a small image; its f32 net's
               forward of one tile launches the f32 K1-K3 (csrc/conv.cu),
@@ -120,7 +123,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               with detection: G1 launched 7 times (and K1 once, K2 and K3
               three times each, K4 once) in one call, labels agreeing with
               the default float path's, and both paths' infer_arrays walls
-              and device stages in turns
+              and device stages in turns; then the same in f32
+              (compute_dtype="float32": f32 G1 and K1-K4) against the
+              default f32 path, labels agreeing on 99.9%
   9m. mesh    TiledInferer(mesh=...) on a virtual 2-shard mesh of the card
               (parallel.mesh.ensure_virtual_devices) against the same
               inferer unsharded, on the 4096x4096 image with detection, on
@@ -269,6 +274,9 @@ QUANTIZE_UP_AGREEMENT = 0.95
 # the folded net (G1 sums each layer in another order and rounds once, after
 # the bias) against the unfolded one, on the 4096x4096 image
 PALLAS_CONV_AGREEMENT = 0.995
+# the same in f32: the CPU tests' bound for the f32 folded path against
+# JAX's (only the order of f32 sums differs)
+PALLAS_CONV_AGREEMENT_F32 = 0.999
 # one NVIDIA H100 SXM: dense tensor-core peaks and the HBM rate (NVIDIA's
 # data sheet), and the f32 rate outside the tensor cores
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -334,7 +342,7 @@ def short_name(mangled: str) -> str:
     K3 one (requant, cout slab), ``upgemm_kernel<true>`` for a bf16 K3 one,
     ``q1_igemm_kernel<2, 16, true, false>`` for a Q1 or Q2 one (stride,
     cout block, two-row-tap steps, accumulator mode), the plain name of
-    G1's and of Q3's kernel, else the name as given."""
+    G1's (both dtypes) and of Q3's kernel, else the name as given."""
     m = re.search(r"\d+igemm_kernelILi(\d+)ELi(\d+)E", mangled)
     if m and "q1_igemm" not in mangled:
         return f"igemm_kernel<{m.group(1)}, {m.group(2)}>"
@@ -348,7 +356,7 @@ def short_name(mangled: str) -> str:
     if m:
         flags = ", ".join("true" if b == "1" else "false" for b in m.groups()[2:])
         return f"q1_igemm_kernel<{m.group(1)}, {m.group(2)}, {flags}>"
-    for plain in ("qup_igemm_kernel", "gemm_conv_bf16"):
+    for plain in ("qup_igemm_kernel", "gemm_conv_bf16", "gemm_conv_f32"):
         if re.search(rf"\d+{plain}E", mangled):
             return plain
     m = re.search(r"\d+upgemm_kernelILb([01])E", mangled)
@@ -372,7 +380,9 @@ def check_tensor_cores(library: str) -> None:
     cores (up_gemm_f32_kernel<requant, cout slab>, all that
     annonet_up2x2_bias_relu and annonet_up2x2_requant launch for f32; the
     direct convolution up2x2_kernel it replaced is gone) and uses no local
-    memory or stack (prints its FFMA and LDS counts).
+    memory or stack (prints its FFMA and LDS counts); f32 G1 is
+    gemm_conv.cu's gemm_conv_f32 on the CUDA cores, no tensor-core
+    instruction, no local memory or stack (its FFMA and LDS counts).
     Prints each of those kernels' tensor-core and __dp4a instruction counts
     and resource usage (registers, stack, local memory: a spill shows as
     local memory)."""
@@ -392,6 +402,9 @@ def check_tensor_cores(library: str) -> None:
     g1 = {k for k in sass if short_name(k) == "gemm_conv_bf16"}
     if len(g1) != 1:
         raise AssertionError(f"found {len(g1)} bf16 G1 kernels in the SASS: {sorted(g1)}")
+    g1f = {k for k in sass if short_name(k) == "gemm_conv_f32"}
+    if len(g1f) != 1:
+        raise AssertionError(f"found {len(g1f)} f32 G1 kernels in the SASS: {sorted(g1f)}")
     q1 = {k for k in sass if "q1_igemm_kernel" in k}
     q2 = {k for k in q1 if short_name(k).startswith("q1_igemm_kernel<2, ")}
     # stride 1: 4 cout blocks x pair or not x requant or accumulator;
@@ -418,8 +431,8 @@ def check_tensor_cores(library: str) -> None:
     if dp4a_kernels:
         raise AssertionError(f"__dp4a in the library: {sorted(dp4a_kernels)}")
     usage = sass_functions(cuobjdump, library, "resource-usage")
-    if up_f32 - set(usage):
-        raise AssertionError(f"no resource usage for {sorted(up_f32 - set(usage))}")
+    if (up_f32 | g1f) - set(usage):
+        raise AssertionError(f"no resource usage for {sorted((up_f32 | g1f) - set(usage))}")
     for name in sorted(k for k in usage if short_name(k) != k):
         n_hmma, n_imma, n_dp4a = count(name, hmma), count(name, imma), count(name, dp4a)
         res = " ".join(line.strip() for line in usage[name] if "REG:" in line)
@@ -429,8 +442,10 @@ def check_tensor_cores(library: str) -> None:
             raise AssertionError(f"{short_name(name)} holds no HMMA or HGMMA instruction")
         if (name in q1 or name in q3) and (n_imma == 0 or n_dp4a):
             raise AssertionError(f"{short_name(name)}: {n_imma} IMMA, {n_dp4a} IDP.4A")
-        if name in up_f32:
-            # f32 K3: its instruction mix, and no local memory or stack
+        if name in g1f and n_hmma:
+            raise AssertionError(f"f32 G1 holds {n_hmma} tensor-core instructions (TF32)")
+        if name in up_f32 or name in g1f:
+            # f32 K3 and G1: their instruction mix, and no local memory or stack
             n_ffma, n_lds = count(name, r"\bFFMA\b"), count(name, r"\bLDS\b")
             n_all = count(name, r"^\s+/\*[0-9a-f]{4,}\*/\s+\S")
             print(f"  {'':36s} FFMA {n_ffma} ({100 * n_ffma / max(1, n_all):.1f}% of "
@@ -949,16 +964,35 @@ def g1_calls(net, tiles):
     return list(zip(names, calls))
 
 
+def g1_bound(xf, wc, wl, wr, b, table, out):
+    """(bound, dense GEMM operations, the table's operations, the weights'
+    operations) of one G1 call. The bound counts the products with a
+    nonzero weight (what these weights need: the conv's own products for
+    the folded weights; the table's blocks list more where a block is
+    wider than a pixel, as at the RGB stem) at the peak of x's type, or the
+    call's bytes at the HBM rate, whichever is larger."""
+    from annonet_tpu_torch.ops import gemm_conv
+
+    k1, nc = xf.shape[3], wc.shape[1]
+    rows = xf.numel() // k1
+    gemm_ops = 2.0 * rows * nc * 9 * k1
+    table_ops = 2.0 * rows * gemm_conv.table_macs(table, k1, nc)
+    weight_ops = 2.0 * rows * sum(int(torch.count_nonzero(m)) for m in (wc, wl, wr))
+    kind = "bf16" if xf.dtype == torch.bfloat16 else "f32"
+    bnd = bound(weight_ops, kind, nbytes(xf, wc, wl, wr, b, table, out))
+    return bnd, gemm_ops, table_ops, weight_ops
+
+
 def check_g1(params_np, config, device, n: int, side: int, reps: int, generator):
     """G1 against its plain version on each layer's own input from one
     forward of the folded net (use_pallas_conv) on an [n, side, side]
     batch: bf16 within one bf16 step at the layer's largest output (both
     sum in f32 and round once), f32 within F32_TOL of the scale. Timed
     beside its plain version, cuDNN's F.conv2d with bias on the NHWC view
-    with the unfolded weight (the same function), and the three cuBLAS
-    GEMMs of G1's dense shapes. The bf16 bound counts the products over
-    the layer's table of nonzero weight blocks (what these weights need;
-    the f32 kernel is dense). Returns {"conv3x3_gemm_aligned": tally}."""
+    with the unfolded weight (the same function; in f32 with TF32 off, as
+    main sets it), and the three cuBLAS GEMMs of G1's dense shapes. The
+    bound counts the products with a nonzero weight (``g1_bound``).
+    Returns {"conv3x3_gemm_aligned": tally}."""
     from annonet_tpu_torch.models.folded_runtime import FoldedSegNet, folding_supported
     from annonet_tpu_torch.ops import gemm_conv
 
@@ -980,12 +1014,9 @@ def check_g1(params_np, config, device, n: int, side: int, reps: int, generator)
         err = (got.float() - want.float()).abs().max().item()
         top = want.float().abs().max().item()
         limit = bf16_step(top) if bf16 else F32_TOL * max(1.0, top)
-        k1, nc = xf.shape[3], wc.shape[1]
+        k1 = xf.shape[3]
         rows = xf.numel() // k1
-        gemm_ops = 2.0 * rows * nc * 9 * k1
-        table_ops = 2.0 * rows * gemm_conv.table_macs(table, k1, nc)
-        bnd = bound(table_ops if bf16 else gemm_ops, "bf16" if bf16 else "f32",
-                    nbytes(xf, wc, wl, wr, b, table, got))
+        bnd, gemm_ops, table_ops, weight_ops = g1_bound(xf, wc, wl, wr, b, table, got)
         k_ms = p_ms = lib_ms = gemm_ms = float("nan")
         if reps:
             k_ms, p_ms = timed_pair(run, run_plain, reps)
@@ -1006,8 +1037,8 @@ def check_g1(params_np, config, device, n: int, side: int, reps: int, generator)
               f"{list(got.shape)} {str(xf.dtype)[6:]}: max|err| {err:.3e} (limit {limit:.3e}) "
               f"G1 {k_ms:.3f} ms plain {p_ms:.3f} ms cuDNN conv {lib_ms:.3f} ms cuBLAS 3 GEMMs "
               f"{gemm_ms:.3f} ms; dense GEMM {gemm_ops / 1e12:.4f} TFLOP, over the table "
-              f"{table_ops / 1e12:.4f} (conv's {gemm_ops / f / 1e12:.4f}), bound "
-              f"{bnd[0]:.3f} ms ({bnd[1]})", flush=True)
+              f"{table_ops / 1e12:.4f}, the nonzero weights' {weight_ops / 1e12:.4f}, bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}), {100 * bnd[0] / k_ms:.1f}% of it", flush=True)
         if not err <= limit:
             raise AssertionError(f"G1 {name}: max|err| {err} > {limit}")
         tally(results, "conv3x3_gemm_aligned", err, k_ms, p_ms, lib_ms, bnd)
@@ -1507,12 +1538,14 @@ def quantize_up_forward(params_np, config, device, inferer, image, plan):
     return launches
 
 
-def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int = 5):
+def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int = 5,
+                     agreement: float = PALLAS_CONV_AGREEMENT):
     """TiledInferer(use_pallas_conv=True) on the image ``name`` with
     detection: launch counts of one call (G1 at every s1p layer of the
     folded spec, none on the default path), labels against the default
-    float path's, then both paths' infer_arrays walls and device stages.
-    Returns the launch counts of the use_pallas_conv call."""
+    path's of the same config (``agreement`` of the pixels or more), then
+    both paths' infer_arrays walls and device stages. Returns the launch
+    counts of the use_pallas_conv call."""
     from annonet_tpu_torch.infer.core import TiledInferer
     from annonet_tpu_torch.models.folded_runtime import folded_spec, folding_supported
     from annonet_tpu_torch.ops import blend, conv, gemm_conv
@@ -1547,8 +1580,9 @@ def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int 
         "up2x2_bias_relu": config.level_count,
         "blend_argmax": 1,
     }
-    print(f"  plan {plan.tile_count} tiles of {plan.tile_height}x{plan.tile_width}, base fold "
-          f"{fold0}; launches in one call: use_pallas_conv {counts['use_pallas_conv']} "
+    print(f"  {config.compute_dtype}: plan {plan.tile_count} tiles of {plan.tile_height}x"
+          f"{plan.tile_width}, base fold {fold0}; launches in one call: use_pallas_conv "
+          f"{counts['use_pallas_conv']} "
           f"(expected {want}), default {counts['default']}", flush=True)
     if counts["use_pallas_conv"] != want or want["conv3x3_gemm_aligned"] != 7:
         raise AssertionError("the use_pallas_conv call did not launch G1 at its 7 layers")
@@ -1556,10 +1590,10 @@ def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int 
         raise AssertionError("the default float path launched G1")
     (l_d, s_d), (l_p, s_p) = counts["default labels"], counts["use_pallas_conv labels"]
     agree, seeds_agree = float((l_p == l_d).mean()), float((s_p == s_d).mean())
-    print(f"  {name}: use_pallas_conv labels agree with the default float path's on "
-          f"{agree:.5f} of pixels, seeds on {seeds_agree:.5f}", flush=True)
-    if agree < PALLAS_CONV_AGREEMENT:
-        raise AssertionError(f"use_pallas_conv labels agree on {agree} < {PALLAS_CONV_AGREEMENT}")
+    print(f"  {name}: use_pallas_conv labels agree with the default {config.compute_dtype} "
+          f"path's on {agree:.5f} of pixels, seeds on {seeds_agree:.5f}", flush=True)
+    if agree < agreement:
+        raise AssertionError(f"use_pallas_conv labels agree on {agree} < {agreement}")
     stages = ("gains + upload + pad + tile gather", "net forward", "blend epilogue (K4)",
               "crop + labels and seeds to host")
     # in turns, so that the two paths share the machine's state
@@ -1567,7 +1601,8 @@ def pallas_conv_path(params_np, config, device, data: str, name: str, reps: int 
                            ("use_pallas_conv", pallas)):
         walls, device_ms = time_infer_arrays(inferer, image, gains, levels, reps)
         wall = sum(walls) / reps
-        print(f"  {label:16s} infer_arrays {wall * 1e3:.3f} ms host wall, mean of {reps} "
+        print(f"  {label:16s} {config.compute_dtype} infer_arrays {wall * 1e3:.3f} ms host "
+              f"wall, mean of {reps} "
               f"calls after a warm-up ({h * w / 1e6 / wall:.2f} Mpx/s; calls "
               + ", ".join(f"{x * 1e3:.3f}" for x in walls) + " ms); device stages (CUDA "
               "events): " + ", ".join(f"{st} {ms:.3f} ms" for st, ms in zip(stages, device_ms)),
@@ -3271,10 +3306,11 @@ def main() -> int:
     blend_bf16 = check_blend_bf16(config, device, 5, gen)
     torch.cuda.empty_cache()
     elapsed()
-    print(f"[kernels] G1, f32, the folded net's 7 stride-1 layers on one {side}x{side} tile",
+    print(f"[kernels] G1, f32, the folded net's 7 stride-1 layers on the {n}-tile batch",
           flush=True)
-    check_g1(params_np, dataclasses.replace(config, compute_dtype="float32"), device,
-             1, side, 0, gen)
+    g1_f32_results = check_g1(params_np, dataclasses.replace(config, compute_dtype="float32"),
+                              device, n, side, 3, gen)
+    torch.cuda.empty_cache()
     elapsed()
     print(f"[kernels] G1, bf16, the folded net's 7 stride-1 layers on the {n}-tile batch",
           flush=True)
@@ -3330,6 +3366,11 @@ def main() -> int:
               flush=True)
         pallas_launches = pallas_conv_path(params_np, config, device,
                                            os.path.join(work, "data"), IMAGE_SIZES[-1][0])
+        torch.cuda.empty_cache()
+        pallas_f32_launches = pallas_conv_path(
+            params_np, dataclasses.replace(config, compute_dtype="float32"), device,
+            os.path.join(work, "data"), IMAGE_SIZES[-1][0],
+            agreement=PALLAS_CONV_AGREEMENT_F32)
         torch.cuda.empty_cache()
         elapsed()
         print(f"[mesh] TiledInferer on a virtual {MESH_SHARDS}-shard mesh of the card, the "
@@ -3431,6 +3472,14 @@ def main() -> int:
         "launches": accuracy_launches["up2x2_requant"],
         "share_differing": requant_shares["up2x2_requant_f32"],
         **numbers(int8_results["up2x2_requant_f32"])}
+    # f32 G1 (csrc/gemm_conv.cu gemm_conv_f32), timed on the 25-tile batch;
+    # launched by the f32 use_pallas_conv call of phase 9 (the serve and
+    # mesh phases run no f32 folded net)
+    modes["conv3x3_gemm_aligned"] = {"float32": {
+        "name": "conv3x3_gemm_aligned", "route": "cuda", "source": _SOURCES["conv3x3_gemm_aligned"],
+        "replaces": _TPU_KERNELS["conv3x3_gemm_aligned"],
+        "launches": pallas_f32_launches["conv3x3_gemm_aligned"], "serve_launches": 0,
+        "mesh_launches": 0, **numbers(g1_f32_results["conv3x3_gemm_aligned"])}}
     modes["blend_argmax"]["bfloat16_detection"]["launches"] = int8_launches["blend_argmax"]
     # the serve phase's own counts: the float server's K1-K4, the int8
     # server's Q1, Q2, K3-requant and K4

@@ -693,6 +693,131 @@ def test_g1_block_sparse_matches_plain(device, n, h, wb, fold, cin, cout, dense)
     assert (got.float() - want.float()).abs().max().item() <= bf16_step(top)
 
 
+def _g1_f32_weights(device, k1, nc, fold, cin, cout, dense):
+    from annonet_tpu_torch.ops import gemm_conv
+
+    scale = (2.0 / (9 * cin)) ** 0.5
+    if dense:
+        return [_rand((3 * k1, nc), device, 32 + i, -0.5, scale) for i in range(3)]
+    k = np.random.default_rng(33).normal(0, scale, (3, 3, cin, cout)).astype(np.float32)
+    return [torch.from_numpy(m).to(device)
+            for m in gemm_conv.build_gemm_kernels_aligned(k, fold)]
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["banded", "dense"])
+@pytest.mark.parametrize(
+    "n,h,wb,fold,cin,cout,shift",
+    [(2, 9, 109, 8, 3, 16, 0),  # K1 = 24: the RGB stem, its second chunk half empty
+     (1, 10, 109, 8, 16, 16, 0), (2, 7, 109, 4, 32, 32, 0), (1, 12, 109, 2, 64, 64, 0),
+     (1, 6, 61, 8, 32, 16, 0),  # K1 = 256: two spans a row tap, as the decoder's
+     (1, 5, 33, 2, 128, 64, 0),  # NC = 128 and K1 = 256 with a 2-span stage
+     (1, 17, 7, 4, 3, 5, 0),  # K1 = 12 in one chunk, NC = 20: a ragged slab
+     (3, 5, 1, 2, 64, 64, 0),  # WB = 1: both neighbour terms vanish
+     (1, 4, 9, 1, 40, 136, 0),  # NC = 136: a second group of one half slab
+     (2, 3, 30, 2, 64, 96, 0),  # NC = 192: a second group of 4 slabs
+     (1, 6, 20, 1, 3, 5, 0),  # K1 = 3, NC = 5: element-by-element copies and stores
+     (1, 9, 21, 4, 8, 8, 1)],  # x one element past a 16-byte boundary: gathered A
+)
+def test_g1_f32_block_sparse_matches_plain(device, n, h, wb, fold, cin, cout, shift, dense):
+    """f32 G1 walks its schedule of nonzero 16 x 16 blocks: on the weights of
+    build_gemm_kernels_aligned it skips the band's zeros, on random dense
+    Wc, Wl, Wr every block is listed; within 1e-4 of the scale of the
+    plain version, at every dispatch path of the kernel."""
+    from annonet_tpu_torch.ops import gemm_conv
+
+    k1, nc = fold * cin, fold * cout
+    x = _offset(_rand((n, h, wb, k1), device, 31, -0.3), shift)
+    mats = _g1_f32_weights(device, k1, nc, fold, cin, cout, dense)
+    bias = _rand((cout,), device, 36, -0.5, 0.2)
+    table = gemm_conv.g1_block_table(*mats)
+    assert table.dim() == 2  # the f32 schedule
+    macs = gemm_conv.table_macs(table, k1, nc)
+    assert (macs == 9 * k1 * nc) if dense else (macs <= 9 * k1 * nc)
+    before = gemm_conv.conv3x3_gemm_aligned.launches
+    got = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin, table)
+    assert gemm_conv.conv3x3_gemm_aligned.launches == before + 1
+    want = gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, bias, fold, cin)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, h, wb, nc) and got.dtype == torch.float32
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("keep", ["row_tap_1", "first_group"])
+def test_g1_f32_on_sparse_schedules(device, keep):
+    """Weights nonzero at one row tap only (one stage a row tile, so the
+    next tile's rows and first stage are prepared in the same step), and
+    weights nonzero in the first group of 128 columns only (the second
+    group has no step: bias and ReLU alone); many tiles a block."""
+    from annonet_tpu_torch.ops import gemm_conv
+
+    n, h, wb, fold, cin, cout = 3, 40, 109, 8, 16, 17
+    k1, nc = fold * cin, fold * cout
+    x = _rand((n, h, wb, k1), device, 51, -0.3)
+    mats = _g1_f32_weights(device, k1, nc, fold, cin, cout, False)
+    for m in mats:
+        if keep == "row_tap_1":
+            m[:k1] = 0
+            m[2 * k1:] = 0
+        else:
+            m[:, gemm_conv.G1F_GROUP:] = 0
+    bias = _rand((cout,), device, 52, -0.5, 0.2)
+    table = gemm_conv.g1_block_table(*mats)
+    got = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin, table)
+    want = gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, bias, fold, cin)
+    torch.cuda.synchronize()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("fold,cin,cout", [(8, 16, 16), (2, 64, 64)])
+def test_g1_f32_skips_exactly_what_the_table_leaves_out(device, fold, cin, cout):
+    """A schedule with one listed block dropped: the kernel follows it (it
+    equals the plain version restricted to the same table), and the result
+    is not the full one."""
+    from annonet_tpu_torch.ops import gemm_conv
+
+    n, h, wb = 2, 11, 37
+    k1, nc = fold * cin, fold * cout
+    x = _rand((n, h, wb, k1), device, 41, -0.3)
+    mats = _g1_f32_weights(device, k1, nc, fold, cin, cout, False)
+    bias = _rand((cout,), device, 42, -0.5, 0.2)
+    table = gemm_conv.g1_block_table(*mats)
+    dropped = table.clone()
+    first = 1 + -(-(int(table[0, 2]) + 1) // gemm_conv.G1F_REC)  # the first record
+    dropped[first, 1] = -1  # slab 0's block of the first step
+    got = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin, dropped)
+    want = gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, bias, fold, cin, dropped)
+    full = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin, table)
+    torch.cuda.synchronize()
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+    assert (got - full).abs().max().item() > 1e-2 * scale
+
+
+@pytest.mark.parametrize("other", [(8, 16, 24), (8, 24, 16), (4, 32, 16)],
+                         ids=["nc_and_groups", "k1", "nc"])
+def test_g1_f32_table_of_another_layer_gives_nan(device, other):
+    """The kernel checks the f32 table's header (K1, NC, groups) against its
+    call: a table built for another layer's shape is never walked, and
+    every output is NaN (a launch cannot raise without a sync)."""
+    from annonet_tpu_torch.ops import gemm_conv
+
+    n, h, wb, fold, cin, cout = 2, 5, 9, 8, 16, 16
+    k1, nc = fold * cin, fold * cout
+    x = _rand((n, h, wb, k1), device, 61, -0.3)
+    mats = _g1_f32_weights(device, k1, nc, fold, cin, cout, False)
+    bias = _rand((cout,), device, 62, -0.5, 0.2)
+    f, ci, co = other
+    table = gemm_conv.g1_block_table(*_g1_f32_weights(device, f * ci, f * co, f, ci, co, False))
+    got = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin, table)
+    torch.cuda.synchronize()
+    assert got.shape == (n, h, wb, nc) and torch.isnan(got).all()
+    good = gemm_conv.conv3x3_gemm_aligned(x, *mats, bias, fold, cin)
+    torch.cuda.synchronize()
+    assert torch.isfinite(good).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_g1_on_the_decoders_two_part_input(device, dtype):
     """cat([up, skip]) in folded layout with the concat-permuted weights

@@ -130,15 +130,23 @@ def test_wrapper_rejects_bad_arguments(change):
 
 
 # --------------------------------------------------------------------------
-# the table of nonzero blocks that the bf16 kernel walks
+# the tables of nonzero blocks that the kernels walk: 32 x 32 blocks for
+# bf16, 16 x 16 for f32 (block_sizes)
 # --------------------------------------------------------------------------
 
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 
-def _banded_blocks(fold, cin, cout):
+
+def _mats(mats, dtype):
+    return [torch.from_numpy(np.asarray(m)).to(dtype) for m in mats]
+
+
+def _banded_blocks(fold, cin, cout, dtype):
     """The (segment, dy, rows, columns) blocks that hold a nonzero weight of
     build_gemm_kernels_aligned, from the band itself: Wc links input pixel i
     to output pixel j when |i - j| <= 1, Wl input fold-1 to output 0, Wr
     input 0 to output fold-1."""
+    kc, slab, _group = gemm_conv.block_sizes(dtype)
     k1, nc = fold * cin, fold * cout
     i = np.arange(k1)[:, None] // cin
     j = np.arange(nc)[None, :] // cout
@@ -146,42 +154,66 @@ def _banded_blocks(fold, cin, cout):
     want = set()
     for s, band in enumerate(bands):
         for dy in range(3):
-            for r0 in range(0, k1, gemm_conv.G1_KC):
-                for n0 in range(0, nc, gemm_conv.G1_SLAB):
-                    r1, n1 = min(k1, r0 + gemm_conv.G1_KC), min(nc, n0 + gemm_conv.G1_SLAB)
+            for r0 in range(0, k1, kc):
+                for n0 in range(0, nc, slab):
+                    r1, n1 = min(k1, r0 + kc), min(nc, n0 + slab)
                     if band[r0:r1, n0:n1].any():
                         want.add((s, dy, (r0, r1), (n0, n1)))
     return want
 
 
+def _drop_first_block(table, nc):
+    """``table`` (of NC columns) with the first block it lists left out."""
+    dropped = table.clone()
+    if gemm_conv.table_dtype(table) == torch.float32:
+        first = 1 + -(-(int(table[0, 2]) + 1) // gemm_conv.G1F_REC)  # the first record
+        slab = int(np.flatnonzero(table[first, 1:9].numpy() >= 0)[0])
+        dropped[first, 1 + slab] = -1
+    else:
+        groups = -(-nc // gemm_conv.G1_GROUP)
+        dropped[groups + 1] &= ~15  # the first entry lists no slab
+    return dropped
+
+
+@DTYPES
 @pytest.mark.parametrize("fold,cin,cout", [(8, 3, 16), (8, 16, 16), (8, 32, 16), (4, 32, 32),
                                            (4, 6, 5), (2, 64, 64), (2, 128, 64)])
-def test_block_table_lists_exactly_the_banded_blocks(fold, cin, cout):
+def test_block_table_lists_exactly_the_banded_blocks(fold, cin, cout, dtype):
     w = np.random.default_rng(cin + cout).normal(size=(3, 3, cin, cout)).astype(np.float32)
-    mats = [torch.from_numpy(m) for m in gemm_conv.build_gemm_kernels_aligned(w, fold)]
+    mats = _mats(gemm_conv.build_gemm_kernels_aligned(w, fold), dtype)
     table = gemm_conv.g1_block_table(*mats)
-    assert table.dtype == torch.int32
+    assert table.dtype == torch.int32 and gemm_conv.table_dtype(table) == dtype
     got = list(gemm_conv.table_blocks(table, fold * cin, fold * cout))
-    assert len(got) == len(set(got)) and set(got) == _banded_blocks(fold, cin, cout)
-    # what the kernel multiplies: at most half of the dense GEMM, once the
-    # columns span more than one slab
+    assert len(got) == len(set(got)) and set(got) == _banded_blocks(fold, cin, cout, dtype)
     dense = 9 * fold * cin * fold * cout
     macs = gemm_conv.table_macs(table, fold * cin, fold * cout)
-    assert (2 * macs <= dense) if fold * cout > gemm_conv.G1_SLAB else macs <= dense
+    if dtype == torch.bfloat16:
+        # at most half of the dense GEMM, once the columns span more than one slab
+        assert (2 * macs <= dense) if fold * cout > gemm_conv.G1_SLAB else macs <= dense
+    elif cin % 16 == 0 and cout % 16 == 0:
+        # 16 x 16 blocks list exactly the conv's products, 9 taps of cin by
+        # cout for each of the fold output pixels of a GEMM row
+        assert macs == 9 * fold * cin * cout
+    else:
+        assert macs < dense
+        if (fold, cin, cout) == (8, 3, 16):  # the RGB stem: K1 = 24 in 16-row chunks
+            assert macs == 8064
 
 
+@DTYPES
 @pytest.mark.parametrize("k1,nc", [(24, 128), (128, 128), (256, 128), (12, 20), (40, 136)])
-def test_block_table_of_dense_weights_lists_every_block(k1, nc):
+def test_block_table_of_dense_weights_lists_every_block(k1, nc, dtype):
     rng = np.random.default_rng(k1 + nc)
-    mats = [torch.from_numpy(rng.normal(size=(3 * k1, nc)).astype(np.float32)) for _ in range(3)]
+    mats = _mats([rng.normal(size=(3 * k1, nc)).astype(np.float32) for _ in range(3)], dtype)
     table = gemm_conv.g1_block_table(*mats)
     blocks = list(gemm_conv.table_blocks(table, k1, nc))
-    chunks, slabs = -(-k1 // gemm_conv.G1_KC), -(-nc // gemm_conv.G1_SLAB)
+    kc, slab, _group = gemm_conv.block_sizes(dtype)
+    chunks, slabs = -(-k1 // kc), -(-nc // slab)
     assert len(blocks) == len(set(blocks)) == 9 * chunks * slabs
     assert gemm_conv.table_macs(table, k1, nc) == 9 * k1 * nc
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@DTYPES
 @pytest.mark.parametrize("dense", [False, True], ids=["built", "dense"])
 @pytest.mark.parametrize("n,h,wb,fold,cin,cout", SHAPES)
 def test_plain_restricted_to_the_table_equals_the_full_plain(n, h, wb, fold, cin, cout, dense,
@@ -199,8 +231,120 @@ def test_plain_restricted_to_the_table_equals_the_full_plain(n, h, wb, fold, cin
     assert torch.equal(gemm_conv.conv3x3_gemm_aligned(x, *mats, b, fold, cin, table), full)
     # a table that drops a listed block changes the result
     if not dense:
-        groups = -(-fold * cout // gemm_conv.G1_GROUP)
-        dropped = table.clone()
-        dropped[groups + 1] &= ~15  # the first entry lists no slab
+        dropped = _drop_first_block(table, fold * cout)
         assert not torch.equal(
             gemm_conv.conv3x3_gemm_aligned_plain(x, *mats, b, fold, cin, dropped), full)
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["built", "dense"])
+@pytest.mark.parametrize("n,h,wb,fold,cin,cout", SHAPES)
+def test_plain_restricted_to_the_f32_table_matches_pallas_interpret(n, h, wb, fold, cin, cout,
+                                                                    dense):
+    """What the f32 kernel multiplies (the plain version over the f32
+    table's blocks) against the Pallas kernel in interpret mode, in f32."""
+    x, mats, b = _case(n, h, wb, fold, cin, cout, dense, seed=5 * n + h + wb + cin)
+    tm = _mats(mats, torch.float32)
+    table = gemm_conv.g1_block_table(*tm)
+    assert gemm_conv.table_dtype(table) == torch.float32
+    got = gemm_conv.conv3x3_gemm_aligned(torch.from_numpy(x), *tm, torch.from_numpy(b), fold,
+                                         cin, table).numpy()
+    want = _jax(x, mats, b, fold, cin, torch.float32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@DTYPES
+def test_a_table_of_the_other_dtype_is_refused(dtype):
+    """Each kernel walks its own layout and block sizes: a table built from
+    weights of the other dtype never reaches it."""
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    x, mats, b = _case(1, 4, 4, 4, 8, 4, False, 0)
+    table = gemm_conv.g1_block_table(*_mats(mats, other))
+    assert gemm_conv.table_dtype(table) == other
+    with pytest.raises(ValueError, match="built for"):
+        gemm_conv.conv3x3_gemm_aligned(torch.from_numpy(x).to(dtype), *_mats(mats, dtype),
+                                       torch.from_numpy(b), 4, 8, table)
+    with pytest.raises(ValueError):
+        gemm_conv.g1_block_table(*_mats(mats, torch.float64))
+
+
+@pytest.mark.parametrize("other", [(4, 4, 4), (4, 8, 8), (2, 8, 4)], ids=["k1", "nc", "both"])
+def test_an_f32_table_of_another_layer_is_refused(other):
+    """The f32 table's header names the K1 and NC it was built for: the
+    plain version refuses a table of another layer's shape (the kernel
+    reads the same header)."""
+    x, mats, b = _case(1, 4, 4, 4, 8, 4, False, 0)
+    fold, cin, cout = other
+    _x, other_mats, _b = _case(1, 4, 4, fold, cin, cout, False, 1)
+    table = gemm_conv.g1_block_table(*_mats(other_mats, torch.float32))
+    with pytest.raises(ValueError, match="not an f32 G1 table of K1 32, NC 16"):
+        gemm_conv.conv3x3_gemm_aligned(torch.from_numpy(x), *_mats(mats, torch.float32),
+                                       torch.from_numpy(b), 4, 8, table)
+
+
+@pytest.mark.parametrize("fold,cin,cout,concat", [
+    (8, 16, 16, False), (4, 32, 32, False), (2, 64, 64, False), (8, 3, 16, False),
+    (8, 32, 16, False),
+    # the decoder's layers: rows of [up, skip] (the folded net's _concat_perm)
+    (8, 32, 16, True), (4, 64, 32, True), (2, 128, 64, True)])
+def test_f32_schedule_header_stages_and_steps(fold, cin, cout, concat):
+    """The f32 table's header holds K1, NC and the group count; each stage (row tap dy,
+    span of G1F_SPAN K rows) has at least G1F_MIN_STEPS steps, its first
+    step names the next stage; and on the flagship's layers (cin, cout
+    multiples of 16; K1 = 256 only at the decoder, each span one half of
+    its concat) every slab has a block at every step, so no warp of the
+    f32 kernel waits."""
+    from annonet_tpu_torch.models.folded_runtime import _concat_perm
+
+    w = np.random.default_rng(fold + cin).normal(size=(3, 3, cin, cout)).astype(np.float32)
+    mats = gemm_conv.build_gemm_kernels_aligned(w, fold)
+    k1, nc = fold * cin, fold * cout
+    if concat:
+        perm = np.concatenate([_concat_perm(fold, cin // 2, cin // 2) + dy * k1
+                               for dy in range(3)])
+        mats = [m[perm] for m in mats]
+    t = gemm_conv.g1_block_table(*_mats(mats, torch.float32)).numpy()
+    groups = -(-nc // gemm_conv.G1F_GROUP)
+    assert list(t[0]) == [k1, nc, groups] + [0] * (gemm_conv.G1F_REC - 3)
+    off_rows = -(-(groups + 1) // gemm_conv.G1F_REC)
+    records = t[1 + off_rows :]
+    assert t[1 : 1 + off_rows].reshape(-1)[groups] == len(records)
+    stages = [i for i, r in enumerate(records) if r[9]]
+    ends = stages[1:] + [len(records)]
+    assert all(e - s >= gemm_conv.G1F_MIN_STEPS for s, e in zip(stages, ends))
+    assert [records[s][10] for s in stages] == [records[s][0] for s in stages[1:]] + [-1]
+    assert all((records[s:e, 0] == records[s][0]).all() for s, e in zip(stages, ends))
+    balanced = (records[:, 1:9] >= 0).all()
+    if cin % 16 == 0 and cout % 16 == 0 and (k1 <= gemm_conv.G1F_SPAN or concat):
+        assert balanced
+    elif (fold, cin, cout) == (8, 32, 16):
+        # a plain fold-8 conv of 32 channels: span 0 holds pixels 0-3 only
+        assert not balanced
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_folded_net_builds_the_tables_of_its_dtype(compute_dtype):
+    """FoldedSegNet builds each G1 layer's table from its own parameters:
+    16 x 16 blocks for an f32 config, 32 x 32 for a bf16 one, each the
+    nonzero blocks of that layer's weights."""
+    from annonet_tpu_torch.models.folded_runtime import FoldedSegNet, folding_supported
+    from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
+
+    config = SegNetConfig(class_count=3, level_count=2, base_width=8,
+                          compute_dtype=compute_dtype)
+    net = FoldedSegNet(init_runtime_params(config, 0), config, folding_supported(config, 64),
+                       device="cpu")
+    dtype = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    names = [name for kind, name, _f in net.entries if kind.startswith("s1p:")]
+    assert names
+    for name in names:
+        mats = [net.param(name, k) for k in ("wc", "wl", "wr")]
+        table = net.param(name, "table")
+        assert mats[0].dtype == dtype and gemm_conv.table_dtype(table) == dtype
+        k1, nc = mats[0].shape[0] // 3, mats[0].shape[1]
+        kc, slab, _group = gemm_conv.block_sizes(dtype)
+        listed = set(gemm_conv.table_blocks(table, k1, nc))
+        nonzero = {(s, dy, (r0, min(k1, r0 + kc)), (n0, min(nc, n0 + slab)))
+                   for s, m in enumerate(mats) for dy in range(3)
+                   for r0 in range(0, k1, kc) for n0 in range(0, nc, slab)
+                   if (m[dy * k1 + r0 : dy * k1 + min(k1, r0 + kc), n0 : n0 + slab] != 0).any()}
+        assert listed == nonzero

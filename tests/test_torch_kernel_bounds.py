@@ -115,3 +115,60 @@ def test_check_convs_bounds_each_dtype_at_its_peak(monkeypatch, dtype, kind):
                 want += cs.conv_bound(k, x, w.to(dtype), b, out, x2, kind)[0]
         assert r["bound_ms"] == pytest.approx(want, rel=1e-9)
         assert r["max_abs_err"] == 0.0
+
+
+def _g1_bounds(dtype, n):
+    """[(layer, ms, binds)] and the dense GEMM's operations of
+    chip_smoke.g1_bound on the flagship's 7 folded stride-1 layers (weights
+    from seed 0 in ``dtype``, their block tables) at n of the inferer's
+    872x872 tiles."""
+    import dataclasses
+
+    from annonet_tpu_torch.models.folded_runtime import FoldedSegNet, folding_supported
+    from annonet_tpu_torch.models.segnet import init_runtime_params
+
+    config = dataclasses.replace(cs.flagship_config(), compute_dtype=dtype)
+    side = cs.canvas_plan(config).tile_height
+    net = FoldedSegNet(init_runtime_params(config, 0), config, folding_supported(config, side),
+                       device="cpu")
+    shapes = {layer: (shape, c2) for _k, layer, shape, c2, _key in cs.conv_calls(config, n, side)}
+    dense, layers = 0.0, []
+    for kind, name, f in net.entries:
+        if not kind.startswith("s1p:"):
+            continue
+        (nb, h, w, cin), c2 = shapes[name]
+        mats = [net.param(name, k) for k in ("wc", "wl", "wr")]
+        b = net.param(name, "b")
+        x = torch.empty((nb, h, w // f, f * (cin + c2)), device="meta", dtype=mats[0].dtype)
+        out = torch.empty((nb, h, w // f, mats[0].shape[1]), device="meta", dtype=mats[0].dtype)
+        (ms, binds), gemm_ops, _table_ops, _weight_ops = cs.g1_bound(
+            x, *mats, b, net.param(name, "table"), out)
+        dense += gemm_ops
+        layers.append((name, ms, binds))
+    return layers, dense
+
+
+@pytest.mark.parametrize("n,want_ms,stem_ms", [(25, 12.198, 0.4313), (1, 0.488, 0.01728)])
+def test_f32_g1_bound_is_the_table_operations_at_the_f32_peak(n, want_ms, stem_ms):
+    """f32 G1's bound: the products with a nonzero weight, the conv's own
+    (804.8 GFLOP on the 25-tile batch), at 67 TFLOP/s, or the bytes. The
+    RGB stem needs 16.4 GFLOP, less than its 16 x 16 table lists (38.3: a
+    16-row chunk spans 5.3 pixels of K1 = 24), so it is bound by its bytes
+    (0.431 ms on the 25 tiles, x 0.228 GB and out 1.217 GB at 3.35 TB/s); every other layer's table lists exactly
+    its products and is bound by them. The dense GEMM's are 3.81 TFLOP."""
+    layers, dense = _g1_bounds("float32", n)
+    assert len(layers) == 7
+    assert [(name, binds) for name, _ms, binds in layers if binds == "bytes"] == [
+        ("stem/conv0", "bytes")]
+    assert layers[0][1] == pytest.approx(stem_ms, rel=1e-3)
+    assert sum(ms for _name, ms, _b in layers) == pytest.approx(want_ms, abs=0.0005 * n)
+    assert dense / n * 25 == pytest.approx(3.8104e12, rel=1e-4)
+
+
+def test_bf16_g1_bound_is_unchanged():
+    """Counting the nonzero weights' products in place of the 32 x 32
+    table's leaves bf16 G1's bound where it was (every layer but dec3/conv0
+    is bound by its bytes): 1.846 ms on the 25-tile batch."""
+    layers, _dense = _g1_bounds("bfloat16", 25)
+    assert sum(ms for _name, ms, _b in layers) == pytest.approx(1.8461, rel=1e-3)
+    assert [name for name, _ms, binds in layers if binds == "operations"] == ["dec3/conv0"]
