@@ -23,7 +23,12 @@ weights, forward, backward and SGD on the device, losses read back every
 through the port's TiledInferer (the inference kernels; int8 with
 --validation-quantize int8), which keeps one inferer across saves
 (``update_params``). --profile DIR writes a torch.profiler trace of the
-loop; ANNONET_TPU_STEP_TIMING=1 prints each step's host time.
+loop. ANNONET_TPU_STEP_TIMING=1 prints a line after each step: "[step i]
+<s>s", the host's time around the step's dispatch (the device may still
+be working on it), then, on a CUDA device, the device ms of the newest
+step whose work the device has finished, labelled with that step's
+index, and of its phases (utils/profiling.py's timed spans: gather,
+augment, weighting, forward, loss, backward, sgd).
 
 --mesh N trains data-parallel (parallel/train.py: sync BN, the minibatch
 rounded up to a multiple of N) over the first N CUDA devices, or over N
@@ -592,6 +597,7 @@ def _run_impl(args, input_directory, stack) -> int:
 
     print("\nNow training...")
     from annonet_tpu_torch.utils import profiler_trace, set_low_priority
+    from annonet_tpu_torch.utils.profiling import reset_span_stats, span_stats
 
     set_low_priority()  # annonet_train_main.cpp:514
     warnings_already_printed = set()
@@ -633,6 +639,7 @@ def _run_impl(args, input_directory, stack) -> int:
         # errors inside the training loop print the message and exit 2
         # (annonet_train_main.cpp:616-620; the final save is skipped)
         step_timing = os.environ.get("ANNONET_TPU_STEP_TIMING") == "1"
+        reset_span_stats()  # the spans' device steps count from this loop's first
         try:
             with profiler_trace(args.profile, device, TRAIN_TRACE_FILE):
                 while True:
@@ -660,8 +667,8 @@ def _run_impl(args, input_directory, stack) -> int:
                         trainer.train_step_crops(images, labels, crop_options, seed=args.seed)
                     if step_timing:
                         extra = "" if device_pool is None else f" uploads={device_pool.uploads}"
-                        print(f"[step {minibatch}] {time.monotonic() - t0:.3f}s{extra}",
-                              flush=True)
+                        print(f"[step {minibatch}] {time.monotonic() - t0:.3f}s{extra}"
+                              f"{_device_step(span_stats())}", flush=True)
                     if minibatch % args.save_interval == 0:
                         save_inference_net()
                     minibatch += 1
@@ -691,6 +698,17 @@ def _run_impl(args, input_directory, stack) -> int:
 
         dist.barrier()
     return 0
+
+
+def _device_step(stats) -> str:
+    """The step-timing line's device part: " device[step i] <ms>ms (<phase>
+    <ms>, ...)" of the newest ``train_step`` span with a device time in the
+    recorder's ``stats`` (``span_stats()``), or "" when there is none."""
+    newest = stats.get("train_step", {}).get("newest")
+    if newest is None:
+        return ""
+    phases = ", ".join(f"{name} {s * 1e3:.3f}" for name, s in newest["inner"].items())
+    return f" device[step {newest['index']}] {newest['device_s'] * 1e3:.3f}ms ({phases})"
 
 
 def _loop_error(e, multihost: bool, metrics) -> None:

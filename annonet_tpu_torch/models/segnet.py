@@ -40,6 +40,7 @@ from annonet_tpu_torch.ops.conv import (
     conv3x3_s2_bias_relu,
     up2x2_bias_relu,
 )
+from annonet_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -477,12 +478,12 @@ def _unit(*args, up: bool, stride: int, dtype, conv_impl, reducer):
     gammas and betas (n of each). Returns (shards, mean, var)."""
     n = len(args) // 4
     xs, ws, gammas, betas = (list(args[i * n:(i + 1) * n]) for i in range(4))
-    with torch.profiler.record_function("conv_forward"):
+    with span("conv_forward"):
         if up:
             hs = [_conv_transpose_train(x, w, dtype) for x, w in zip(xs, ws)]
         else:
             hs = conv_impl(xs, ws, stride, dtype, reducer)
-    with torch.profiler.record_function("bn"):
+    with span("bn"):
         hs, mean, var = _bn_train(hs, gammas, betas, reducer)
         return [torch.relu(h).to(dtype) for h in hs], mean, var
 
@@ -557,7 +558,7 @@ def apply_train(
         xs = [torch.cat([x, skip], dim=1) for x, skip in zip(xs, skips[i - 1])]
         xs = block(xs, f"dec{i}", ["bn0"], [1])
     logits = []
-    with torch.profiler.record_function("conv_forward"):
+    with span("conv_forward"):
         for x, t in zip(xs, trees):
             # compute-dtype head, then the f32 bias promotes the logits to f32
             out = _conv_train(x, t["head"]["w"], 1, dtype) + t["head"]["b"][:, None, None]

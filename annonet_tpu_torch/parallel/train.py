@@ -45,7 +45,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from annonet_tpu_torch.models.segnet import SegNetConfig, tree_items, tree_map
 from annonet_tpu_torch.ops.augment import AugmentDraws, draw_augmentations
@@ -58,6 +57,7 @@ from annonet_tpu_torch.train.trainer import (
     _sgd,
     train_forward,
 )
+from annonet_tpu_torch.utils.profiling import span
 
 
 def _process_group():
@@ -169,19 +169,19 @@ def make_dp_train_step(model_config: SegNetConfig, trainer_config: TrainerConfig
         names = [k for k, _ in tree_items(params)]
         p_leaves = [t for _, t in tree_items(params)]
         v_by_name = dict(tree_items(velocity))
-        with record_function("shard_params"):
+        with span("shard_params"):
             copies = shard_params(params, reducer.mesh)
         with torch.enable_grad():
             logits, new_stats = train_forward(copies, bn_stats, images, model_config,
                                               trainer_config, bn_momentum, reducer)
-            with record_function("loss"):
+            with span("loss"):
                 losses = [weighted_pixel_cross_entropy(lg, lab, w)
                           for lg, lab, w in zip(logits, labels, weights)]
-            with record_function("backward"):
+            with span("backward"):
                 leaves = [t for tree in copies for _, t in tree_items(tree)]
                 seeds = [torch.full_like(l, 1.0 / reducer.shards) for l in losses]
                 grads = torch.autograd.grad(losses, leaves, seeds)
-        with torch.no_grad(), record_function("grad_sum"):
+        with torch.no_grad(), span("grad_sum"):
             n = len(p_leaves)
             flat = [torch.cat([g.reshape(-1) for g in grads[i * n:(i + 1) * n]])
                     for i in range(len(copies))]
@@ -189,7 +189,7 @@ def make_dp_train_step(model_config: SegNetConfig, trainer_config: TrainerConfig
             sizes = [t.numel() for t in p_leaves]
             summed = [g.reshape(t.shape) for g, t in zip(total.split(sizes), p_leaves)]
             loss = reducer.ordered_sum([l.detach() for l in losses]) / reducer.shards
-        with torch.no_grad(), record_function("sgd"):
+        with torch.no_grad(), span("sgd"):
             _sgd(p_leaves, [v_by_name[k] for k in names], summed, lr, mu, wd)
         return new_stats, loss
 
@@ -277,7 +277,7 @@ class DataParallelTrainer(Trainer):
             d = (_draw_rows(draws, a, b) if draws is not None else
                  self._shard_draws(seed, i, b - a, tuple(x.shape[1:]), crop_options))
             x, lab, w = _augment_and_weigh(x, lab, crop_options, self.model_config.class_count,
-                                           d.to(device), flips_pre_applied=False)
+                                           d.to(device), flips_pre_applied=False, timed=False)
             xs.append(x), labs.append(lab), ws.append(w)
         return self._dispatch_dp(xs, labs, ws)
 
@@ -295,13 +295,13 @@ class DataParallelTrainer(Trainer):
                  self._shard_draws(seed, i, b - a, (dim, dim, pool.images.shape[-1]),
                                    crop_options)).to(device)
             pool_images, pool_labels = pool.tensors(device)
-            with record_function("gather"):
+            with span("gather"):
                 x, lab = gather_crops_packed(
                     pool_images, pool_labels, self._tensor(packed[:, a:b]).to(device), dim,
                     flip_lr=d.flip_lr, flip_ud=d.flip_ud,
                 )
             x, lab, w = _augment_and_weigh(x, lab, crop_options, self.model_config.class_count,
-                                           d, flips_pre_applied=True)
+                                           d, flips_pre_applied=True, timed=False)
             xs.append(x), labs.append(lab), ws.append(w)
         return self._dispatch_dp(xs, labs, ws)
 

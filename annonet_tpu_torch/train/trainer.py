@@ -35,7 +35,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from annonet_tpu_torch import serialization
 from annonet_tpu_torch.models.folded_runtime import apply_train_folded, folded_training_applies
@@ -58,6 +57,7 @@ from annonet_tpu_torch.train.plateau import (
     count_steps_without_decrease,
     count_steps_without_decrease_robust,
 )
+from annonet_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -149,14 +149,16 @@ def make_train_step(model_config: SegNetConfig, trainer_config: TrainerConfig) -
         names = [k for k, _ in tree_items(params)]
         p_leaves = [t for _, t in tree_items(params)]
         v_by_name = dict(tree_items(velocity))
+        device = images.device
         with torch.enable_grad():
-            logits, new_stats = train_forward(params, bn_stats, images, model_config,
-                                              trainer_config, bn_momentum)
-            with record_function("loss"):
+            with span("forward", True, device):
+                logits, new_stats = train_forward(params, bn_stats, images, model_config,
+                                                  trainer_config, bn_momentum)
+            with span("loss", True, device):
                 loss = weighted_pixel_cross_entropy(logits, labels, weights)
-            with record_function("backward"):
+            with span("backward", True, device):
                 grads = torch.autograd.grad(loss, p_leaves)
-        with torch.no_grad(), record_function("sgd"):
+        with torch.no_grad(), span("sgd", True, device):
             _sgd(p_leaves, [v_by_name[k] for k in names], grads, lr, mu, wd)
         return new_stats, loss.detach()
 
@@ -164,9 +166,11 @@ def make_train_step(model_config: SegNetConfig, trainer_config: TrainerConfig) -
 
 
 def _augment_and_weigh(images, labels, crop_options, class_count, draws,
-                       flips_pre_applied: bool):
+                       flips_pre_applied: bool, timed: bool = True):
+    """Augmentation, then the loss weights; ``timed``: their spans are
+    timed on ``images``' device (the one-device trainer's)."""
     co = crop_options
-    with record_function("augment"):
+    with span("augment", timed, images.device):
         images_f, labels = augment_batch(
             draws, images, labels,
             flips_pre_applied=flips_pre_applied,
@@ -179,7 +183,7 @@ def _augment_and_weigh(images, labels, crop_options, class_count, draws,
             noise_level_stddev=co.noise_level_stddev,
             allow_random_color_offset=co.allow_random_color_offset,
         )
-    with record_function("weighting"):
+    with span("weighting", timed, images.device):
         weights = batched_label_weights(labels, co.class_weight, co.image_weight, class_count)
     return images_f, labels, weights
 
@@ -260,8 +264,10 @@ class Trainer:
                    weights: np.ndarray) -> Optional[float]:
         """One update from host crops and host weights (no augmentation).
         Returns the loss when loss_sync_interval == 1, else None."""
-        return self._dispatch(self._tensor(images), self._labels(labels),
-                              self._tensor(weights.astype(np.float32)))
+        with span("train_step", True, self.device):
+            loss = self._dispatch(self._tensor(images), self._labels(labels),
+                                  self._tensor(weights.astype(np.float32)))
+        return self._finish_step(loss)
 
     def augmentation_generator(self, seed: int = 0) -> torch.Generator:
         """The augmentation draws' generator on the device, seeded with
@@ -282,13 +288,15 @@ class Trainer:
         """One update from raw crops: augmentation, loss weights, forward,
         backward and SGD on the device. ``draws`` replaces the generator's
         draws (the seam a test or a cross-device check feeds)."""
-        x, lab = self._tensor(images), self._labels(labels)
-        if draws is None:
-            draws = draw_augmentations(self.augmentation_generator(seed), x.shape[0],
-                                       tuple(x.shape[1:]), crop_options)
-        x, lab, w = _augment_and_weigh(x, lab, crop_options, self.model_config.class_count,
-                                       draws.to(self.device), flips_pre_applied=False)
-        return self._dispatch(x, lab, w)
+        with span("train_step", True, self.device):
+            x, lab = self._tensor(images), self._labels(labels)
+            if draws is None:
+                draws = draw_augmentations(self.augmentation_generator(seed), x.shape[0],
+                                           tuple(x.shape[1:]), crop_options)
+            x, lab, w = _augment_and_weigh(x, lab, crop_options, self.model_config.class_count,
+                                           draws.to(self.device), flips_pre_applied=False)
+            loss = self._dispatch(x, lab, w)
+        return self._finish_step(loss)
 
     @staticmethod
     def _packed_decisions(pool, samples, rects, crop_options):
@@ -323,29 +331,32 @@ class Trainer:
         the pixels stay on the device and the host ships a [5, B] int32
         array (slot, y0, x0, valid_h, valid_w). Flips apply in the gather;
         the result equals train_step_crops on the same crops and draws."""
-        dim, packed = self._packed_decisions(pool, samples, rects, crop_options)
-        if draws is None:
-            draws = draw_augmentations(
-                self.augmentation_generator(seed), packed.shape[1],
-                (dim, dim, pool.images.shape[-1]), crop_options,
-            )
-        draws = draws.to(self.device)
-        with record_function("gather"):
-            images, labels = gather_crops_packed(
-                pool.images, pool.labels, self._tensor(packed), dim,
-                flip_lr=draws.flip_lr, flip_ud=draws.flip_ud,
-            )
-        x, lab, w = _augment_and_weigh(images, labels, crop_options,
-                                       self.model_config.class_count, draws,
-                                       flips_pre_applied=True)
-        return self._dispatch(x, lab, w)
+        with span("train_step", True, self.device):
+            dim, packed = self._packed_decisions(pool, samples, rects, crop_options)
+            if draws is None:
+                draws = draw_augmentations(
+                    self.augmentation_generator(seed), packed.shape[1],
+                    (dim, dim, pool.images.shape[-1]), crop_options,
+                )
+            draws = draws.to(self.device)
+            with span("gather", True, self.device):
+                images, labels = gather_crops_packed(
+                    pool.images, pool.labels, self._tensor(packed), dim,
+                    flip_lr=draws.flip_lr, flip_ud=draws.flip_ud,
+                )
+            x, lab, w = _augment_and_weigh(images, labels, crop_options,
+                                           self.model_config.class_count, draws,
+                                           flips_pre_applied=True)
+            loss = self._dispatch(x, lab, w)
+        return self._finish_step(loss)
 
-    def _dispatch(self, images, labels, weights) -> Optional[float]:
+    def _dispatch(self, images, labels, weights) -> torch.Tensor:
+        """Launch one update; the loss stays on the device."""
         self.bn_stats, loss = self._step_fn(
             self.params, self.bn_stats, self.velocity, self.learning_rate,
             self._bn_momentum(), images, labels, weights,
         )
-        return self._finish_step(loss)
+        return loss
 
     def _bn_momentum(self) -> float:
         """The BN momentum of the next update (step_count persists in the
@@ -379,8 +390,9 @@ class Trainer:
         else:
             batch = self._pending_losses[:count]
             self._pending_losses = self._pending_losses[count:]
-        for value in torch.stack(batch).tolist():
-            self._record_loss(float(value))
+        with span("loss_readback", True, self.device):
+            for value in torch.stack(batch).tolist():
+                self._record_loss(float(value))
         self._maybe_sync()
 
     def _record_loss(self, loss_value: float) -> None:
