@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from annonet_tpu_torch.ops.bn_relu import bn_relu
 from annonet_tpu_torch.ops.conv import (
     conv3x3_bias_relu,
     conv3x3_s2_bias_relu,
@@ -484,6 +485,10 @@ def _unit(*args, up: bool, stride: int, dtype, conv_impl, reducer):
         else:
             hs = conv_impl(xs, ws, stride, dtype, reducer)
     with span("bn"):
+        if reducer is None:
+            # one shard: the hand-written op on the card, _bn_train on the CPU
+            y, mean, var = bn_relu(hs[0], gammas[0], betas[0])
+            return [y], mean, var
         hs, mean, var = _bn_train(hs, gammas, betas, reducer)
         return [torch.relu(h).to(dtype) for h in hs], mean, var
 
@@ -503,7 +508,9 @@ def apply_train(
     ``apply_train``. ``params`` and ``bn_stats`` are trees of f32 tensors
     on the input's device; the convs run in the compute dtype on casts of
     the f32 kernels (through autograd: cuDNN on the card, not the
-    inference kernels K1-K3, which have no backward). ``remat``
+    inference kernels K1-K3, which have no backward); each unit's batch
+    norm and ReLU run as ``ops/bn_relu.py``'s op (its CUDA kernels on the
+    card), except under a ``reducer``. ``remat``
     recomputes each conv + BN + ReLU unit in the backward pass
     (torch.utils.checkpoint, as jax.checkpoint per unit).
 

@@ -75,6 +75,16 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P,
     ],
+    # h, y, gamma, beta, buf, partial, max_blocks, ticket, rows, c, vec,
+    # bf16, device, stream
+    "annonet_bn_relu_forward": [
+        _P, _P, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _P,
+    ],
+    # h, dy, ld_dy, dh, gamma, buf, dgamma, dbeta, partial, max_blocks,
+    # ticket, rows, c, vec, bf16, device, stream
+    "annonet_bn_relu_backward": [
+        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _P,
+    ],
 }
 
 

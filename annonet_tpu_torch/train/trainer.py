@@ -22,7 +22,9 @@ weights -> forward with batch-stat BN -> weighted loss -> backward ->
 SGD, all on the device; losses stay there and are read back every
 ``loss_sync_interval`` steps. The convs run through autograd (cuDNN on the
 card); the inference kernels have no backward, and the JAX package's
-training uses none of its Pallas kernels either.
+training uses none of its Pallas kernels either. Each unit's batch norm and
+ReLU, which XLA fuses in the JAX package, is one hand-written op on the
+card, forward and backward (``ops/bn_relu.py``).
 """
 
 from __future__ import annotations

@@ -21,7 +21,10 @@ Phases (any failure raises, and the exit code is then nonzero):
               mode's at both strides included; no kernel of the
               library may hold __dp4a; prints those kernels' registers,
               stack, local and static shared memory, and fails where an
-              f32 K3 kernel uses local memory
+              f32 K3 kernel uses local memory; the BN + ReLU op's 16
+              kernels (bn_reduce_kernel, bn_relu_apply_kernel,
+              bn_relu_grad_kernel, each dtype and chunk) exist and use
+              no local memory
   3. kernels  every kernel against its plain PyTorch version at the main
               path's shapes, with its bound (the larger of its bytes at the
               HBM rate and its operations at the peak of their type: the
@@ -51,8 +54,17 @@ Phases (any failure raises, and the exit code is then nonzero):
               shapes (batch 128 at 192², the flagship's 8 stride-1 and 3
               stride-2 layers on the operands one int8 training forward
               quantizes), bit-identical, with their bound (int8 in,
-              int32 out); and the bf16 blend on the canvas (detection, the argmax
-              fold, the normalised argmax) and on the two stress lists.
+              int32 out); then the training unit's BN + ReLU op
+              (ops/bn_relu.py, csrc/bn_relu.cu; it replaces no TPU
+              kernel) at the train step's 14 units (batch 128 at 192²,
+              bf16), forward and backward, against the eager unit and
+              its f32 closed-form backward, timed beside the eager
+              unit's forward and autograd backward and its byte bound
+              (the function's bytes: two passes forward, three
+              backward; the two kernels' three and five beside it); and
+              the bf16 blend
+              on the canvas (detection, the argmax fold, the normalised
+              argmax) and on the two stress lists.
               Then G1 on the 7 stride-1 layers that the folded net
               (use_pallas_conv) runs at folds above 1, on the folded
               net's own activations of the 25-tile batch, in f32 (its
@@ -158,7 +170,9 @@ Phases (any failure raises, and the exit code is then nonzero):
               within 5e-3 (of the tensor's largest update); in bf16 the
               losses within 1e-2 relative and each updated tensor within
               5e-2 (or within the distance of the CPU's bf16 step from its
-              f32 step, where bf16 is coarser)
+              f32 step, where bf16 is coarser); each step on the card runs
+              the BN + ReLU op in its 14 units, 4 launches each (the
+              kernel line's launches_per_train_step), the CPU's none
  11m. train_step_mesh one data-parallel step (parallel/train.py) on a
               virtual 2-shard mesh of the card against the single-device
               step, 8 crops of 192², the same draws, f32 and bf16, at
@@ -359,6 +373,13 @@ def short_name(mangled: str) -> str:
     for plain in ("qup_igemm_kernel", "gemm_conv_bf16", "gemm_conv_f32"):
         if re.search(rf"\d+{plain}E", mangled):
             return plain
+    m = re.search(r"(bn_reduce_kernel|bn_relu_apply_kernel|bn_relu_grad_kernel)"
+                  r"I(13__nv_bfloat16|f)Li(\d+)E(?:Lb([01])E)?", mangled)
+    if m:
+        args = ["float" if m.group(2) == "f" else "bf16", m.group(3)]
+        if m.group(4) is not None:
+            args.append("true" if m.group(4) == "1" else "false")
+        return f"{m.group(1)}<{', '.join(args)}>"
     m = re.search(r"\d+upgemm_kernelILb([01])E", mangled)
     return f"upgemm_kernel<{'true' if m.group(1) == '1' else 'false'}>" if m else mangled
 
@@ -424,6 +445,11 @@ def check_tensor_cores(library: str) -> None:
     # the float and the requant mode x 3 cout slabs (16, 32, 64)
     if len(up_f32) != 6:
         raise AssertionError(f"found {len(up_f32)} f32 K3 kernels in the SASS: {sorted(up_f32)}")
+    bn = {k for k in sass if short_name(k).startswith(("bn_reduce_kernel<", "bn_relu_"))}
+    # the BN + ReLU op: 2 dtypes x 16-byte or element chunks, the reduction
+    # forward and backward, the normalisation, the input gradient
+    if len(bn) != 16:
+        raise AssertionError(f"found {len(bn)} BN + ReLU kernels in the SASS: {sorted(bn)}")
     stale = [k for k in sass if "conv3x3_f32_kernel" in k or "up2x2_kernel" in k]
     if stale:
         raise AssertionError(f"a replaced direct convolution is still compiled: {stale}")
@@ -431,8 +457,8 @@ def check_tensor_cores(library: str) -> None:
     if dp4a_kernels:
         raise AssertionError(f"__dp4a in the library: {sorted(dp4a_kernels)}")
     usage = sass_functions(cuobjdump, library, "resource-usage")
-    if (up_f32 | g1f) - set(usage):
-        raise AssertionError(f"no resource usage for {sorted((up_f32 | g1f) - set(usage))}")
+    if (up_f32 | g1f | bn) - set(usage):
+        raise AssertionError(f"no resource usage for {sorted((up_f32 | g1f | bn) - set(usage))}")
     for name in sorted(k for k in usage if short_name(k) != k):
         n_hmma, n_imma, n_dp4a = count(name, hmma), count(name, imma), count(name, dp4a)
         res = " ".join(line.strip() for line in usage[name] if "REG:" in line)
@@ -444,6 +470,8 @@ def check_tensor_cores(library: str) -> None:
             raise AssertionError(f"{short_name(name)}: {n_imma} IMMA, {n_dp4a} IDP.4A")
         if name in g1f and n_hmma:
             raise AssertionError(f"f32 G1 holds {n_hmma} tensor-core instructions (TF32)")
+        if name in bn and any(int(v) for v in re.findall(r"(?:LOCAL|STACK):(\d+)", res)):
+            raise AssertionError(f"{short_name(name)} uses local memory: {res}")
         if name in up_f32 or name in g1f:
             # f32 K3 and G1: their instruction mix, and no local memory or stack
             n_ffma, n_lds = count(name, r"\bFFMA\b"), count(name, r"\bLDS\b")
@@ -489,6 +517,24 @@ def bound(ops: float, kind: str, moved: int):
     t_ops = ops / PEAK_OPS[kind] * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Mean device time of the kernels ``fn`` launches, over ``reps``
+    calls (after a warm-up): their durations in a profiler trace, without
+    the gaps between them (where the host is slower than small kernels,
+    ``cuda_ms`` times the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
 
 
 def bf16_step(value: float) -> float:
@@ -2124,10 +2170,14 @@ def check_train_step(device, data: str) -> None:
     the losses and every updated tensor agree within TRAIN_F32_TOL; in bf16
     the losses within TRAIN_LOSS_RTOL and every updated tensor within
     TRAIN_UPDATE_TOL of its largest update, or within the distance between
-    the CPU's bf16 step and its f32 step."""
+    the CPU's bf16 step and its f32 step. Each step on the card runs the
+    BN + ReLU op in its 14 units (4 launches each, every output gradient
+    read in place), the CPU's none; returns the card's bf16 step's
+    {"units", "launches"}."""
     from annonet_tpu_torch.data.crop import CropOptions
     from annonet_tpu_torch.models.segnet import tree_items, tree_to_numpy
     from annonet_tpu_torch.ops.augment import draw_augmentations
+    from annonet_tpu_torch.ops.bn_relu import bn_relu
     from annonet_tpu_torch.ops.crop_gather import gather_crops
     from annonet_tpu_torch.train import DeviceImagePool, Trainer, TrainerConfig
 
@@ -2157,10 +2207,21 @@ def check_train_step(device, data: str) -> None:
                 torch.from_numpy(hs), torch.from_numpy(ws), dim,
                 flip_lr=draws.flip_lr, flip_ud=draws.flip_ud)]
             t = time.monotonic()
+            counters = (bn_relu.units, bn_relu.launches, bn_relu.dy_copies)
             losses[dtype, side] = trainer.train_step_decisions(pool, crop_samples, rects,
                                                                options, draws=draws)
+            ran = tuple(a - b for a, b in zip(
+                (bn_relu.units, bn_relu.launches, bn_relu.dy_copies), counters))
             print(f"  one {dtype} step on {d}: loss {losses[dtype, side]:.6f}, "
-                  f"{time.monotonic() - t:.2f} s wall (first call)", flush=True)
+                  f"{time.monotonic() - t:.2f} s wall (first call); the BN + ReLU op's "
+                  f"units, launches and output-gradient copies: {ran}", flush=True)
+            want = ((BN_RELU_UNITS, BN_RELU_UNITS * BN_RELU_UNIT_LAUNCHES, 0) if side == "card"
+                    else (0, 0, 0))
+            if ran != want:
+                raise AssertionError(f"the {dtype} step on {d} ran the BN + ReLU op {ran}, "
+                                     f"not {want}")
+            if side == "card":
+                bn_relu_per_step = {"units": ran[0], "launches": ran[1]}
             params[dtype, side] = dict(tree_items(tree_to_numpy(trainer.params)))
     same = all(torch.equal(a, b) for a, b in zip(crops["card"], crops["cpu"]))
     print(f"  pool gather of {len(rects)} crops of {dim}² (flips, past the corner): card "
@@ -2209,6 +2270,7 @@ def check_train_step(device, data: str) -> None:
                if g > max(TRAIN_UPDATE_TOL, cpu_coarse[k])]
     if failed:
         raise AssertionError(f"the card's train step disagrees with the CPU's at {failed}")
+    return bn_relu_per_step
 
 
 class StepStamps(io.StringIO):
@@ -2445,8 +2507,8 @@ def detection_phase(device) -> None:
 
 def training_phases(device) -> tuple:
     """The training slice's phases in one scratch directory; returns the
-    int8 validation's launch counts and the int8 training run's (counts,
-    per step)."""
+    int8 validation's launch counts, the int8 training run's (counts, per
+    step) and the BN + ReLU op's units and launches in a train step."""
     from annonet_tpu_torch.data import default_anno_classes
 
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_REPO)
@@ -2458,7 +2520,7 @@ def training_phases(device) -> tuple:
             write_dataset(path, sizes, default_anno_classes(), seed)
         elapsed()
         print("[train_step] one train step of the flagship, card against CPU", flush=True)
-        check_train_step(device, data)
+        bn_relu_per_step = check_train_step(device, data)
         elapsed()
         print(f"[train_step_mesh] one data-parallel step on a virtual {DP_SHARDS}-shard mesh "
               "of the card against the single-device step", flush=True)
@@ -2492,7 +2554,7 @@ def training_phases(device) -> tuple:
         mesh_autotune_phase(work, data, best)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return launches, int8_train_launches
+    return launches, int8_train_launches, bn_relu_per_step
 
 
 # ---------------------------------------------------------------------------
@@ -2935,6 +2997,147 @@ def check_train_int8_kernels(device, reps: int, generator):
     return results
 
 
+# the training unit's BN + ReLU op (ops/bn_relu.py): the launches of one
+# unit, forward and backward, and the units of the flagship's train step
+BN_RELU_UNIT_LAUNCHES = 4
+BN_RELU_UNITS = 14
+_BN_RELU_SOURCE = "annonet_tpu_torch/csrc/bn_relu.cu"
+_BN_RELU_REPLACES = ("no TPU kernel: XLA fuses the JAX package's batch norm and ReLU "
+                     "(annonet_tpu/models/segnet.py _bn_train)")
+_BN_RELU_PATH = "annonet_tpu_torch/ops/bn_relu.py"
+
+
+def bn_relu_units(config, side: int):
+    """(unit, C, side, its output gradient a slice of the decoder's concat)
+    of the training net's units at ``side``² crops, in forward order."""
+    from annonet_tpu_torch.models.segnet import conv_layers
+
+    out = []
+    for block, conv, shape in conv_layers(config):
+        if conv == "up" or (block.startswith("enc") and conv == "conv0"):
+            side = side * 2 if conv == "up" else side // 2
+        out.append((f"{block}/{conv}", shape[-1], side, conv == "up"))
+    return out
+
+
+def bn_relu_bound(units, n: int, element_bytes: int = 2, passes=(2, 3)):
+    """(forward, backward) byte bounds in ms of the units at batch ``n``:
+    the function's own bytes by default, two passes over the activations
+    forward (read h, write y) and three backward (read h and dy, write dh).
+    ``passes=BN_RELU_DESIGN_PASSES`` gives the two-kernel design's traffic
+    instead."""
+    values = sum(n * c * side * side for _unit, c, side, _sliced in units)
+    per_pass = values * element_bytes / HBM_BYTES_PER_S * 1e3
+    return passes[0] * per_pass, passes[1] * per_pass
+
+
+# the two-kernel design's passes: the statistics are whole before the first
+# output, so h is read twice forward (sums, then y) and h and dy twice
+# backward (sums, then dh); the second read may come from the L2
+BN_RELU_DESIGN_PASSES = (3, 5)
+
+
+def check_bn_relu(device, reps: int, generator) -> dict:
+    """The op at the flagship train step's 14 units (batch TRAIN_BATCH at
+    192², bf16; an up unit's output gradient its part of the concat's),
+    through ``bn_relu`` and autograd, on h = k/4, k in -2..2: every f32 sum
+    of these sizes is then exact in any order, so the statistics are
+    torch's and y is the eager unit's within one bf16 step. dh is held to
+    the f32 closed form within one bf16 step of its largest term at each
+    element (dh, dz * scale, a, b * h: where the ReLU passes nothing,
+    the batch statistics' terms alone), the coefficients a and b the
+    backward leaves in its buffer within 1e-5 of the closed form's from
+    f64 sums, dgamma and dbeta within 1e-4. Its kernels' device time
+    (``kernel_ms``) beside the eager unit's (autograd's backward) and the
+    byte bound. Returns {"bn_relu": tally, "forward": tally, "backward":
+    tally}."""
+    from annonet_tpu_torch.ops import bn_relu as op
+
+    def rel(got, want):
+        return float(((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item())
+
+    dim = train_crop_dim(flagship_config())
+    results: dict = {}
+    for unit, c, side, sliced in bn_relu_units(flagship_config(), dim):
+        shape = (TRAIN_BATCH, side, side, c)
+        k = torch.randint(-2, 3, shape, generator=generator, device=device)
+        h = (k.to(torch.float32) / 4).to(torch.bfloat16).permute(0, 3, 1, 2)
+        del k
+        gamma = 0.5 + torch.rand(c, generator=generator, device=device)
+        beta = torch.randn(c, generator=generator, device=device) * 0.3
+        dy = torch.randn(shape[:3] + (2 * c if sliced else c,), generator=generator,
+                         device=device).to(torch.bfloat16).permute(0, 3, 1, 2)[:, :c]
+        hg, gg, bg = (t.detach().requires_grad_(True) for t in (h, gamma, beta))
+        y, mean, var = op.bn_relu(hg, gg, bg)
+        rows = op.saved_rows(y)
+        dh, dgamma, dbeta = torch.autograd.grad(y, (hg, gg, bg), dy)
+        y0, mean0, var0 = op.bn_relu_plain(h, gamma, beta)
+        torch.cuda.synchronize()
+        stats_err = max(rel(mean, mean0), rel(var, var0))
+        y = y.detach()
+        y_err = float((y.float() - y0.float()).abs().max())
+        y_tol = bf16_step(float(y0.float().abs().max()))
+        unequal = int((y != y0).sum())
+        del y0, y
+        dh0, dgamma0, dbeta0 = op.bn_relu_backward_plain(h, gamma, beta, dy)
+        terms, a, b = op.bn_relu_backward_terms(h, gamma, beta, dy)
+        coef_err = max(rel(rows["a"], a), rel(rows["b"], b))
+        gap = (dh.float() - dh0).abs()
+        big = torch.maximum(dh0.abs(), terms).clamp(min=1e-30)
+        del dh0
+        dh_over = float((gap / torch.exp2(torch.floor(torch.log2(big)) - 7)).max())
+        dh_err = float(gap.max())
+        del gap, big, terms, dh
+        g_err = max(rel(dgamma, dgamma0), rel(dbeta, dbeta0))
+        k_f = k_b = p_f = p_b = float("nan")
+        if reps:
+            hp = h.detach().requires_grad_(True)
+            y1, _, _ = op.bn_relu_plain(hp, gg, bg)
+            y2, _, _ = op.bn_relu(hg, gg, bg)
+
+            def eager_forward():
+                with torch.no_grad():
+                    op.bn_relu_plain(h, gamma, beta)
+
+            def op_forward():
+                with torch.no_grad():
+                    op.bn_relu(h, gamma, beta)
+
+            p_f, k_f = kernel_ms(eager_forward, reps), kernel_ms(op_forward, reps)
+            k_b = kernel_ms(lambda: torch.autograd.grad(y2, (hg, gg, bg), dy,
+                                                        retain_graph=True), reps)
+            p_b = kernel_ms(lambda: torch.autograd.grad(y1, (hp, gg, bg), dy,
+                                                        retain_graph=True), reps)
+            k_f = (k_f + kernel_ms(op_forward, reps)) / 2
+            p_f = (p_f + kernel_ms(eager_forward, reps)) / 2
+            del y1, y2, hp
+        b_f, b_b = bn_relu_bound([(unit, c, side, sliced)], TRAIN_BATCH)
+        print(f"  bn_relu {unit:12s} [{TRAIN_BATCH},{c},{side},{side}]: mean/var rel "
+              f"{stats_err:.2e}, y max|err| {y_err:.3e} (step {y_tol:.3e}; {unequal} unequal), "
+              f"dh max|err| {dh_err:.3e}, at most {dh_over:.3f} bf16 steps of its largest "
+              f"term there, a/b rel {coef_err:.2e}, dgamma/dbeta rel {g_err:.2e}; "
+              f"forward {k_f:.3f} ms (eager {p_f:.3f}, bound {b_f:.3f}), backward {k_b:.3f} "
+              f"ms (eager {p_b:.3f}, bound {b_b:.3f})", flush=True)
+        if (stats_err > 1e-6 or y_err > y_tol or dh_over > 1.0 or coef_err > 1e-5
+                or g_err > 1e-4):
+            raise AssertionError(f"bn_relu {unit}: off its eager unit or closed form")
+        tally(results, "forward", y_err, k_f, p_f, None, (b_f, "bytes"))
+        tally(results, "backward", dh_err, k_b, p_b, None, (b_b, "bytes"))
+        tally(results, "bn_relu", max(y_err, dh_err), k_f + k_b, p_f + p_b, None,
+              (b_f + b_b, "bytes"))
+        del h, dy, hg, rows, a, b
+        torch.cuda.empty_cache()
+    units = bn_relu_units(flagship_config(), dim)
+    design = bn_relu_bound(units, TRAIN_BATCH, passes=BN_RELU_DESIGN_PASSES)
+    for name, r in results.items():
+        traffic = {"forward": design[0], "backward": design[1]}.get(name, sum(design))
+        print(f"  bn_relu {name:8s} over the 14 units: {r['ms']:.3f} ms, eager {r['plain_ms']:.3f}"
+              f" ms, bound {r['bound_ms']:.3f} ms ({r['bound_ms'] / r['ms']:.1%} of it); the "
+              f"two kernels' traffic at the memory's rate {traffic:.3f} ms "
+              f"({traffic / r['ms']:.1%})", flush=True)
+    return results
+
+
 def train_samples_and_rects(data: str, n: int, dim: int):
     """n crop decisions over the first two training images (one reaching
     past a corner): (samples, rects)."""
@@ -3301,6 +3504,12 @@ def main() -> int:
           f"{TRAIN_BATCH} at {train_crop_dim(config)}², the operands of one int8 forward",
           flush=True)
     train_acc_results = check_train_int8_kernels(device, 3, gen)
+    torch.cuda.empty_cache()
+    elapsed()
+    print(f"[kernels] the training unit's BN + ReLU op at the train step's {BN_RELU_UNITS} "
+          f"units: batch {TRAIN_BATCH} at {train_crop_dim(config)}², forward and backward",
+          flush=True)
+    bn_relu_results = check_bn_relu(device, 5, gen)
     elapsed()
     print("[kernels] blend epilogue in bf16, 4096x4096 canvas, K=3", flush=True)
     blend_bf16 = check_blend_bf16(config, device, 5, gen)
@@ -3393,7 +3602,8 @@ def main() -> int:
           flush=True)
     acc_launches = repro_qconv_phase(device)
     torch.cuda.empty_cache()
-    train_launches, (int8_train_launches, int8_per_step) = training_phases(device)
+    train_launches, (int8_train_launches, int8_per_step), bn_relu_per_step = \
+        training_phases(device)
     print(f"  int8 validation launches: {train_launches}", flush=True)
     elapsed()
     print("[accuracy_floors] the end-to-end test's recipe trained and scored on the card",
@@ -3502,6 +3712,17 @@ def main() -> int:
         if name in modes:
             entry["modes"] = modes[name]
         kernels.append(entry)
+    # the training unit's BN + ReLU op, which replaces no TPU kernel
+    kernels.append({
+        "name": "bn_relu", "route": "cuda", "source": _BN_RELU_SOURCE,
+        "replaces": _BN_RELU_REPLACES, "path": _BN_RELU_PATH,
+        "launches_per_train_step": bn_relu_per_step["launches"],
+        "units_per_train_step": bn_relu_per_step["units"],
+        "serve_launches": 0, "mesh_launches": 0,
+        **numbers(bn_relu_results["bn_relu"]),
+        "modes": {direction: numbers(bn_relu_results[direction])
+                  for direction in ("forward", "backward")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

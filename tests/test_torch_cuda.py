@@ -1025,3 +1025,214 @@ def test_update_params_then_validation_launches_the_kernels(device):
         assert all(fn.launches > 0 for fn in kernels), [fn.launches for fn in kernels]
         fresh = annonet_infer(TiledInferer(new, config, device=device, quantize=quantize), image)
         assert np.array_equal(labels, fresh)
+
+
+# ------------------------------------------- the training unit's BN + ReLU
+#
+# ops/bn_relu.py's kernels against the eager unit (_bn_train and the ReLU,
+# on the card) and the f32 closed-form backward. Values of h on a grid of
+# 1/8 in [-1, 1] make every f32 sum of these sizes exact in any order, so
+# the kernels' statistics are torch's and their scale and shift the eager
+# path's: y within one step of the dtype (bit-equal in practice); dh
+# within one bf16 step at its largest term (dz * scale, a, b * h) of the
+# closed form, which computes the same f32 function without FMA from sums
+# taken in another order, and in f32 also within 1e-5 of the largest term
+# (one row: dh's terms cancel to a residue of their roundings); the
+# coefficients a and b the backward leaves in its buffer within 1e-5 of
+# the closed form's from f64 sums (the batch statistics' share of dh, which
+# the bf16 step of dh's largest term would not see at a large batch);
+# mean and var within 1e-6 relative, dgamma and dbeta within 1e-4 (f32
+# sums of dy in another order).
+
+_MANTISSA = {torch.bfloat16: 7, torch.float32: 23}
+
+
+def _steps(v: torch.Tensor, dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s values at each |v| (f32 tensor)."""
+    v = v.abs().clamp(min=1e-30)
+    return torch.exp2(torch.floor(torch.log2(v)) - _MANTISSA[dtype])
+
+
+def _grid_h(shape, dtype, device, seed, offset: int = 0):
+    """A channels_last [N, C, H, W] tensor of k/8, k in -8..8; ``offset``
+    elements past an aligned allocation."""
+    n, c, h, w = shape
+    k = np.random.default_rng(seed).integers(-8, 9, (n, h, w, c))
+    flat = torch.empty(n * h * w * c + offset, dtype=dtype, device=device)
+    nhwc = flat[offset:].view(n, h, w, c)
+    nhwc.copy_(torch.from_numpy(k / 8.0).to(dtype))
+    return nhwc.permute(0, 3, 1, 2)
+
+
+def _bn_params(c, device, seed):
+    g = np.random.default_rng(seed)
+    gamma = torch.from_numpy(g.uniform(0.5, 1.5, c).astype(np.float32)).to(device)
+    beta = torch.from_numpy((g.standard_normal(c) * 0.3).astype(np.float32)).to(device)
+    return gamma, beta
+
+
+def _rel(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _check_bn_relu(h, gamma, beta, dy):
+    """Forward and backward of the op against the eager unit and the
+    closed form."""
+    from annonet_tpu_torch.ops import bn_relu as op
+
+    dtype = h.dtype
+    before = (op.bn_relu.units, op.bn_relu.launches, op.bn_relu.dy_copies)
+    hg, g, b = (t.detach().requires_grad_(True) for t in (h, gamma, beta))
+    y, mean, var = op.bn_relu(hg, g, b)
+    rows = op.saved_rows(y)
+    dh, dgamma, dbeta = torch.autograd.grad(y, (hg, g, b), dy)
+    torch.cuda.synchronize()
+    assert (op.bn_relu.units, op.bn_relu.launches, op.bn_relu.dy_copies) == (
+        before[0] + 1, before[1] + 4, before[2])
+    assert y.dtype == dh.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    assert dh.is_contiguous(memory_format=torch.channels_last)
+    y0, mean0, var0 = op.bn_relu_plain(h, gamma, beta)
+    assert _rel(mean, mean0) <= 1e-6 and _rel(var, var0) <= 1e-6
+    assert ((y.float() - y0.float()).abs() <= _steps(y0.float(), dtype)).all()
+    dh0, dgamma0, dbeta0 = op.bn_relu_backward_plain(h, gamma, beta, dy)
+    terms, a, b_ = op.bn_relu_backward_terms(h, gamma, beta, dy)
+    assert _rel(rows["a"], a) <= 1e-5 and _rel(rows["b"], b_) <= 1e-5
+    big = torch.maximum(dh0.abs(), terms)
+    assert ((dh.float() - dh0).abs() <= _steps(big, torch.bfloat16)).all()
+    if dtype == torch.float32:
+        assert (dh - dh0).abs().max() <= 1e-5 * big.max()
+    assert _rel(dgamma, dgamma0) <= 1e-4 and _rel(dbeta, dbeta0) <= 1e-4
+
+
+def _flagship_units():
+    """(unit, C, side, the output gradient a slice of the decoder's concat)
+    of the flagship's 14 units at 192² crops."""
+    from annonet_tpu_torch.models.segnet import SegNetConfig, conv_layers
+
+    config = SegNetConfig(class_count=3, level_count=3, base_width=16)
+    out, side = [], 192
+    for block, conv, shape in conv_layers(config):
+        if conv == "up" or (block.startswith("enc") and conv == "conv0"):
+            side = side * 2 if conv == "up" else side // 2
+        out.append((f"{block}/{conv}", shape[-1], side, conv == "up"))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("unit,c,side,sliced", _flagship_units(),
+                         ids=[u[0] for u in _flagship_units()])
+def test_bn_relu_at_the_flagship_units(device, unit, c, side, sliced, dtype):
+    """Batch 2 at 192² crops; an up unit's output gradient is its part of
+    the decoder's concat gradient (rows at a pitch of 2C), read in place."""
+    h = _grid_h((2, c, side, side), dtype, device, seed=c + side)
+    gamma, beta = _bn_params(c, device, seed=c)
+    g = torch.Generator(device=device).manual_seed(side)
+    dy = torch.randn((2, 2 * c if sliced else c, side, side), generator=g, device=device)
+    dy = dy.to(dtype).contiguous(memory_format=torch.channels_last)[:, :c]
+    _check_bn_relu(h, gamma, beta, dy)
+
+
+# (n, c, h, w, offset): C not a multiple of 8 (the element path in bf16,
+# and in f32 where C % 4 != 0), ragged N*H*W, an unaligned h
+_BN_EDGES = [(3, 3, 7, 5, 0), (1, 12, 13, 11, 0), (2, 20, 9, 9, 0), (1, 24, 5, 31, 0),
+             (2, 40, 3, 3, 0), (1, 1, 17, 3, 0), (5, 16, 7, 7, 0), (2, 16, 9, 5, 1),
+             (1, 8, 1, 1, 0), (2, 256, 11, 3, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,h,w,offset", _BN_EDGES)
+def test_bn_relu_at_ragged_sizes(device, n, c, h, w, offset, dtype):
+    x = _grid_h((n, c, h, w), dtype, device, seed=n * c * h * w, offset=offset)
+    gamma, beta = _bn_params(c, device, seed=c + 1)
+    g = torch.Generator(device=device).manual_seed(c)
+    dy = torch.randn((n, c, h, w), generator=g, device=device).to(dtype)
+    _check_bn_relu(x, gamma, beta, dy.contiguous(memory_format=torch.channels_last))
+
+
+def test_bn_relu_copies_an_output_gradient_of_another_layout_once(device):
+    from annonet_tpu_torch.ops import bn_relu as op
+
+    h = _grid_h((2, 16, 10, 12), torch.bfloat16, device, seed=4)
+    gamma, beta = _bn_params(16, device, seed=4)
+    dy = torch.randn((2, 16, 10, 12), device=device).to(torch.bfloat16)  # NCHW
+    before = op.bn_relu.dy_copies
+    hg = h.detach().requires_grad_(True)
+    y, _, _ = op.bn_relu(hg, gamma, beta)
+    (dh,) = torch.autograd.grad(y, hg, dy)
+    assert op.bn_relu.dy_copies == before + 1
+    dh0 = op.bn_relu_backward_plain(h, gamma, beta, dy)[0]
+    big = torch.maximum(dh0.abs(), op.bn_relu_backward_terms(h, gamma, beta, dy)[0])
+    assert ((dh.float() - dh0).abs() <= _steps(big, torch.bfloat16)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_relu_is_deterministic(device, dtype):
+    """Two runs on random values (sums not exact), 8 crops of the stem's
+    shape: every output bit-identical."""
+    from annonet_tpu_torch.ops import bn_relu as op
+
+    g = torch.Generator(device=device).manual_seed(9)
+    h = (torch.randn((8, 192, 192, 16), generator=g, device=device) * 2 + 0.3).to(dtype)
+    h = h.permute(0, 3, 1, 2)
+    dy = torch.randn((8, 192, 192, 16), generator=g, device=device).to(dtype).permute(0, 3, 1, 2)
+    gamma, beta = _bn_params(16, device, seed=9)
+    runs = []
+    for _ in range(2):
+        hg, gg, bg = (t.detach().requires_grad_(True) for t in (h, gamma, beta))
+        y, mean, var = op.bn_relu(hg, gg, bg)
+        runs.append((y, mean, var, *torch.autograd.grad(y, (hg, gg, bg), dy)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _, mean0, var0 = op.bn_relu_plain(h, gamma, beta)
+    assert _rel(runs[0][1], mean0) <= 1e-6 and _rel(runs[0][2], var0) <= 1e-6
+
+
+def test_bn_relu_refuses_an_nchw_tensor_on_the_card(device):
+    from annonet_tpu_torch.ops import bn_relu as op
+
+    h = torch.randn((2, 16, 8, 8), device=device)
+    gamma, beta = _bn_params(16, device, seed=0)
+    with pytest.raises(ValueError, match="channels_last"):
+        op.bn_relu(h, gamma, beta)
+
+
+def _flagship_step(device, monkeypatch, seed: int):
+    """One train step of the flagship (batch 2, 64² crops) with the eager
+    unit refused; returns (units, launches, dy copies) of the step and the
+    parameters after it."""
+    from annonet_tpu_torch.data.crop import CropOptions
+    from annonet_tpu_torch.models import segnet
+    from annonet_tpu_torch.ops import bn_relu as op
+    from annonet_tpu_torch.train import Trainer, TrainerConfig
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the eager _bn_train ran on the card")
+
+    monkeypatch.setattr(segnet, "_bn_train", refuse)
+    config = segnet.SegNetConfig(class_count=3, level_count=3, base_width=16)
+    trainer = Trainer(config, TrainerConfig(), seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    labels = rng.integers(0, 3, (2, 64, 64)).astype(np.uint16)
+    before = (op.bn_relu.units, op.bn_relu.launches, op.bn_relu.dy_copies)
+    loss = trainer.train_step_crops(images, labels, CropOptions(dim=64))
+    assert np.isfinite(loss)
+    counts = tuple(a - b for a, b in zip(
+        (op.bn_relu.units, op.bn_relu.launches, op.bn_relu.dy_copies), before))
+    return counts, {k: t.detach().clone() for k, t in
+                    segnet.tree_items(trainer.params)}
+
+
+def test_train_step_runs_the_op_in_its_14_units(device, monkeypatch):
+    """14 units, 4 launches each, every output gradient read in place."""
+    counts, _ = _flagship_step(device, monkeypatch, seed=0)
+    assert counts == (14, 56, 0)
+
+
+def test_train_step_with_the_op_is_deterministic(device, monkeypatch):
+    """Two steps from one state give bit-identical parameters (cuDNN held
+    to its deterministic algorithms, so only the op could differ)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    _, first = _flagship_step(device, monkeypatch, seed=3)
+    _, second = _flagship_step(device, monkeypatch, seed=3)
+    assert all(torch.equal(first[k], second[k]) for k in first)

@@ -172,3 +172,30 @@ def test_bf16_g1_bound_is_unchanged():
     layers, _dense = _g1_bounds("bfloat16", 25)
     assert sum(ms for _name, ms, _b in layers) == pytest.approx(1.8461, rel=1e-3)
     assert [name for name, _ms, binds in layers if binds == "operations"] == ["dec3/conv0"]
+
+
+@pytest.mark.parametrize("element_bytes,forward_ms,backward_ms",
+                         [(2, 0.6536, 0.9803), (4, 1.3071, 1.9607)])
+def test_bn_relu_bound_is_its_passes_over_the_units(element_bytes, forward_ms, backward_ms):
+    """The BN + ReLU op's byte bound at the flagship train step (batch 128
+    of 192² crops): its 14 units see 4,276,224 values a crop (stem and dec1
+    2 x 16 x 192², enc1 and dec2 2 x 32 x 96², enc2 and dec3 2 x 64 x 48²,
+    enc3 2 x 128 x 24²), 547.4 M at batch 128; the function's own bytes,
+    two passes forward (h in, y out) and three backward (h and dy in, dh
+    out), at 3.35 TB/s."""
+    units = cs.bn_relu_units(cs.flagship_config(), cs.train_crop_dim(cs.flagship_config()))
+    assert [u[0] for u in units if u[3]] == ["dec3/up", "dec2/up", "dec1/up"]
+    assert len(units) == cs.BN_RELU_UNITS
+    assert sum(c * side * side for _unit, c, side, _sliced in units) == 4_276_224
+    fwd, bwd = cs.bn_relu_bound(units, cs.TRAIN_BATCH, element_bytes)
+    assert fwd == pytest.approx(forward_ms, rel=1e-4)
+    assert bwd == pytest.approx(backward_ms, rel=1e-4)
+
+
+def test_bn_relu_design_traffic_is_three_and_five_passes():
+    """The two-kernel design's traffic (statistics whole before the first
+    output): 0.9803 ms forward and 1.6339 backward in bf16 at batch 128."""
+    units = cs.bn_relu_units(cs.flagship_config(), cs.train_crop_dim(cs.flagship_config()))
+    fwd, bwd = cs.bn_relu_bound(units, cs.TRAIN_BATCH, passes=cs.BN_RELU_DESIGN_PASSES)
+    assert fwd == pytest.approx(0.9803, rel=1e-4)
+    assert bwd == pytest.approx(1.6339, rel=1e-4)
