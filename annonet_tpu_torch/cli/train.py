@@ -42,6 +42,12 @@ the sync file and the metrics, and a dead peer ends every survivor with
 exit code 3. --int8-training runs the 3x3 convs' forward in int8
 (ops/int8_train.py, on Q1's and Q2's accumulator modes).
 
+--topology unet trains the U-Net (models/segnet.py) in place of annonet's
+net, its widths doubling at every level (--level-count 4
+--net-width-scaler 4: the published 64-1024); its artifact carries the
+topology, which annonet_infer of this package reads and the JAX package
+does not. --int8-training refuses it (exit 1).
+
 --steps-per-dispatch is accepted and its K steps are dispatched one by
 one (the JAX package documents its scan superstep as K single
 dispatches); --no-compilation-cache is accepted and does nothing.
@@ -140,6 +146,12 @@ def build_parser() -> argparse.ArgumentParser:
     # runtime versions of the reference's compile-time knobs
     p.add_argument("--level-count", type=int, default=2,
                    help="Downsampling level count (was DLIB_DNN_PIMPL_WRAPPER_LEVEL_COUNT)")
+    p.add_argument("--topology", choices=["segnet", "unet"], default="segnet",
+                   help="The architecture: annonet's net, or the U-Net (max pools, "
+                        "two BN units a decoder level, a linear up layer, widths "
+                        "doubling at every level; --level-count 4 "
+                        "--net-width-scaler 4 gives the published 64-1024). A U-Net "
+                        "artifact is this package's alone")
     p.add_argument("--grayscale", action="store_true",
                    help="Grayscale input (was DLIB_DNN_PIMPL_WRAPPER_GRAYSCALE_INPUT)")
     p.add_argument("--output", default="annonet.dnn",
@@ -375,6 +387,7 @@ def _run_impl(args, input_directory, stack) -> int:
             width_scaler=args.net_width_scaler,
             min_filter_count=args.net_width_min_filter_count,
             grayscale=args.grayscale,
+            topology=args.topology,
         )
 
     model_config = model_config_for(2)  # the class count does not size the crop

@@ -39,11 +39,12 @@ cudaError_t conv3x3_igemm_bf16(const void* x, const void* x2, const void* w,
 
 // K3 in bf16 (up_igemm.cu), both modes: launches the tensor-core GEMM on
 // ``s`` and returns cudaGetLastError(). Float: x, w, out bf16, e0 the f32
-// bias (s_in, e1 null). requant: x and out int8, w bf16, s_in [cin], e0
-// and e1 the f32 requant scale and offset [cout].
+// bias (s_in, e1 null), the ReLU applied where relu != 0. requant: x and
+// out int8, w bf16, s_in [cin], e0 and e1 the f32 requant scale and offset
+// [cout] (relu unused).
 cudaError_t up2x2_igemm_bf16(const void* x, const float* s_in, const void* w,
                              const float* e0, const float* e1, void* out,
                              int64_t n, int64_t h, int64_t wd, int cin,
-                             int cout, bool requant, cudaStream_t s);
+                             int cout, bool requant, int relu, cudaStream_t s);
 
 }  // namespace annonet

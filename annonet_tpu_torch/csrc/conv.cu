@@ -178,7 +178,8 @@
 //           4-byte) stores where cout % 4 == 0 and out is aligned, else
 //           element by element
 // Any N, H and W; 64-bit offsets (32-bit index division where N*H*W fits).
-// Numerics: f32 sums by FMAs in any order, one f32 bias add, ReLU.
+// Numerics: f32 sums by FMAs in any order, one f32 bias add, ReLU (none in
+// annonet_up2x2_bias, the U-Net's linear up layer).
 //
 // K3 has a requant mode, the int8 net's default ``up`` layer
 // (quantized_runtime.py:480-487): the int8 input times the per-channel
@@ -562,9 +563,10 @@ __host__ __device__ inline USmem up_carve(int bm, int ns, int kc, int chunks, bo
 // C[p][s * BC + j] = sum_c A[p][c] * B[c][s * BC + j], with A the input as
 // [N*H*W, cin], B[c][(2u + v) * BC + j] = w[1-u][1-v][c][cob + j] and cob =
 // blockIdx.y * BC; out[img, 2i+u, 2j'+v, cob + j] = relu(C + bias) for
-// input pixel p = (img, i, j'). REQUANT: x is int8 and is scaled by s_in
-// (__fmul_rn) after staging; e0 is then the requant scale, e1 its offset,
-// and the output int8. Else e0 is the bias.
+// input pixel p = (img, i, j') (C + bias where relu is 0: the U-Net's
+// linear up layer). REQUANT: x is int8 and is scaled by s_in (__fmul_rn)
+// after staging; e0 is then the requant scale, e1 its offset, and the
+// output int8. Else e0 is the bias.
 // Blocks an SM is to hold: two (128 registers a thread) in the float mode
 // at BC 16 and 32; one at BC 64, which stages the whole K of its 256
 // columns (128 KB at dec3/up's 128 channels), and in the requant mode,
@@ -575,7 +577,7 @@ up_gemm_f32_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
                    const float* __restrict__ w, const float* __restrict__ e0,
                    const float* __restrict__ e1, void* __restrict__ outv, int64_t npix,
                    int64_t wd, int cin, int cout, int kc, int chunks, int vec_x,
-                   int vec_w, int vec_o) {
+                   int vec_w, int vec_o, int relu) {
   using S = UShape<BC>;
   constexpr int kNS = S::kNS, kBM = S::kBM, kPG = S::kPG;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -760,7 +762,7 @@ up_gemm_f32_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
         } else {
           float y[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) y[j] = fmaxf(c[j] + k0[j], 0.f);
+          for (int j = 0; j < 4; ++j) y[j] = relu ? fmaxf(c[j] + k0[j], 0.f) : c[j] + k0[j];
           float* dst = static_cast<float*>(outv) + o + u * urow;
           if (vec_o) {
             *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
@@ -818,7 +820,7 @@ up_gemm_f32_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
 template <bool REQUANT, int BC>
 cudaError_t launch_up_f32(const void* x, const float* s_in, const float* w,
                           const float* e0, const float* e1, void* out, int64_t npix,
-                          int64_t wd, int cin, int cout, cudaStream_t stream) {
+                          int64_t wd, int cin, int cout, int relu, cudaStream_t stream) {
   using S = UShape<BC>;
   int dev = 0, max_smem = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -853,26 +855,29 @@ cudaError_t launch_up_f32(const void* x, const float* s_in, const float* w,
   const int vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 && cout % 4 == 0;
   const int vec_o = oa % (REQUANT ? 4 : 16) == 0 && cout % 4 == 0;
   kernel<<<dim3((unsigned)blocks, (unsigned)slabs, 1), kFThreads, smem, stream>>>(
-      x, s_in, w, e0, e1, out, npix, wd, cin, cout, kc, chunks, vec_x, vec_w, vec_o);
+      x, s_in, w, e0, e1, out, npix, wd, cin, cout, kc, chunks, vec_x, vec_w, vec_o, relu);
   return cudaGetLastError();
 }
 
-// K3 in f32, both modes; the choices are listed in the note at the head of
-// the file
+// K3 in f32, both modes (relu: the float mode's ReLU, or none); the
+// choices are listed in the note at the head of the file
 cudaError_t dispatch_up_f32(const void* x, const float* s_in, const void* w,
                             const float* e0, const float* e1, void* out, int64_t n,
                             int64_t h, int64_t wd, int cin, int cout, bool requant,
-                            cudaStream_t s) {
+                            int relu, cudaStream_t s) {
   const auto* wt = static_cast<const float*>(w);
   const int64_t npix = n * h * wd;
+  const int r = relu;
   if (cout <= 16)
-    return requant ? launch_up_f32<true, 16>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s)
-                   : launch_up_f32<false, 16>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s);
+    return requant
+               ? launch_up_f32<true, 16>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, r, s)
+               : launch_up_f32<false, 16>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, r, s);
   if (cout <= 32)
-    return requant ? launch_up_f32<true, 32>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s)
-                   : launch_up_f32<false, 32>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s);
-  return requant ? launch_up_f32<true, 64>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s)
-                 : launch_up_f32<false, 64>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, s);
+    return requant
+               ? launch_up_f32<true, 32>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, r, s)
+               : launch_up_f32<false, 32>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, r, s);
+  return requant ? launch_up_f32<true, 64>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, r, s)
+                 : launch_up_f32<false, 64>(x, s_in, wt, e0, e1, out, npix, wd, cin, cout, r, s);
 }
 
 }  // namespace
@@ -897,10 +902,12 @@ extern "C" int annonet_conv3x3_bias_relu(const void* x, const void* x2,
   return (int)dispatch_f32(x, x2, w, b, out, n, h, wd, c1, c2, cout, stride, s);
 }
 
-extern "C" int annonet_up2x2_bias_relu(const void* x, const void* w,
-                                       const void* bias, void* out, int64_t n,
-                                       int64_t h, int64_t wd, int cin,
-                                       int cout, int bf16, void* stream) {
+namespace {
+
+// K3's float mode, with or without its ReLU
+int up2x2_float(const void* x, const void* w, const void* bias, void* out, int64_t n,
+                int64_t h, int64_t wd, int cin, int cout, int bf16, int relu,
+                void* stream) {
   using namespace annonet;
   cudaGetLastError();
   if (cin <= 0 || cout <= 0) return (int)cudaErrorInvalidValue;
@@ -910,9 +917,25 @@ extern "C" int annonet_up2x2_bias_relu(const void* x, const void* w,
   // bf16 on the tensor cores, f32 on the CUDA cores (see the notes)
   if (bf16)
     return (int)up2x2_igemm_bf16(x, nullptr, w, b, nullptr, out, n, h, wd, cin,
-                                 cout, false, s);
+                                 cout, false, relu, s);
   return (int)dispatch_up_f32(x, nullptr, w, b, nullptr, out, n, h, wd, cin, cout,
-                              false, s);
+                              false, relu, s);
+}
+
+}  // namespace
+
+extern "C" int annonet_up2x2_bias_relu(const void* x, const void* w,
+                                       const void* bias, void* out, int64_t n,
+                                       int64_t h, int64_t wd, int cin,
+                                       int cout, int bf16, void* stream) {
+  return up2x2_float(x, w, bias, out, n, h, wd, cin, cout, bf16, 1, stream);
+}
+
+// K3 without the ReLU: the U-Net's linear up layer
+extern "C" int annonet_up2x2_bias(const void* x, const void* w, const void* bias,
+                                  void* out, int64_t n, int64_t h, int64_t wd,
+                                  int cin, int cout, int bf16, void* stream) {
+  return up2x2_float(x, w, bias, out, n, h, wd, cin, cout, bf16, 0, stream);
 }
 
 extern "C" int annonet_up2x2_requant(const void* x, const void* s_in,
@@ -930,6 +953,6 @@ extern "C" int annonet_up2x2_requant(const void* x, const void* s_in,
   const float* of = static_cast<const float*>(offset);
   if (bf16)
     return (int)up2x2_igemm_bf16(x, si, w, sc, of, out, n, h, wd, cin, cout,
-                                 true, s);
-  return (int)dispatch_up_f32(x, si, w, sc, of, out, n, h, wd, cin, cout, true, s);
+                                 true, 0, s);
+  return (int)dispatch_up_f32(x, si, w, sc, of, out, n, h, wd, cin, cout, true, 0, s);
 }

@@ -20,6 +20,7 @@
 // contiguous out[img, 2i+u, 2j:2j+2, :], so a run of pixels along a row
 // gives one contiguous output run per u: no interleave.
 //   float:   out = bf16(relu(C + bias)), one rounding after the f32 bias
+//            (bf16(C + bias) without the ReLU: the U-Net's linear up)
 //   requant: A = bf16(int8 x * bf16(s_in[c])) on the way into shared
 //            memory, r = bf16(C), out = int8(trunc(clip(fma(r, scale,
 //            offset), 0, 127))) (conv.cu's f32 kernel, qup_igemm.cu)
@@ -62,8 +63,13 @@
 // (element by element where cout is not a multiple of 4, in int8 of 8).
 // Where the whole of B and two A buffers do not fit in shared memory
 // (configs wider than the flagship), the columns split into slabs over
-// grid.y (each slab reads A again), then A falls to one buffer; cin up to
-// 512 (bf16) and 384 (requant) fits.
+// grid.y (each slab reads A again). Then, in the float mode, K runs in
+// chunks of kKChunk channels (the U-Net's dec4/up reads 1024): one slab of
+// kNC columns a block, whose accumulators persist over the chunks, and a
+// stage buffer holds a chunk's A rows and B rows together, copied under
+// the previous chunk's products; the sums are the unchunked ones, k-step by
+// k-step in the same order. In the requant mode A falls to one buffer
+// instead; cin up to 384 fits there.
 //
 // What holds it (H100, chip_smoke.py; PERF.md): dec2/up and dec1/up in
 // bf16 move ~2.2 TB/s, two thirds of the HBM rate; dec3/up and the requant
@@ -72,7 +78,10 @@
 // rather than overlap), not by bytes. A deeper ring of copies, one barrier
 // instead of three and 3 blocks per SM changed nothing there, nor did
 // keeping the conversions off the conversion unit; staging B by cp.async
-// helped dec3/up, whose blocks each stage 64 KiB of it.
+// helped dec3/up, whose blocks each stage 64 KiB of it. The U-Net's wide
+// up layers (512 and 1024 input channels, chunked) reach 9% of their
+// operations' bound, slower than cuDNN's transpose conv: every 64-column
+// slab reads A again, and every tile stages its slab's B again.
 //
 // mma.sync and not wgmma: the layers sit at 21-85 FLOP per byte, and a
 // warp's 16 x 64 x K products are a few instructions per 2 KiB of output.
@@ -88,35 +97,40 @@ constexpr int kBM = 16 * kWarps;  // input pixels per tile: 16 per warp
 constexpr int kNC = 64;           // output columns per warp pass: 8 n8 tiles
 constexpr int kStagePitch = (kNC + 8) * 2;  // bytes of a staged bf16 row
 constexpr int kStagePitch8 = kNC + 16;      // bytes of a staged int8 row
+constexpr int kKChunk = 64;  // channels a chunk where the whole K does not fit
 
 // the dynamic shared memory's carve-up; the same arithmetic on the host
 // (to size the launch) and on the device
+// kc: the channels of K a stage holds (all of them, rounded up to 16, or a
+// chunk); chunked: B is staged chunk by chunk beside A, one buffer a stage
 struct Smem {
-  int a_pitch, b_pitch;  // elements of an A row (kp + 8), a B row (ns + 8)
+  int a_pitch, b_pitch;  // elements of an A row (kc + 8), a B row (ns + 8)
   int a_buf, raw_buf;    // bytes of one A buffer, one raw int8 stage
+  int b_buf;             // bytes of B's kc rows
   int off_a, off_raw, off_b, off_stage, off_epi, off_sin, total;
 };
 
-__host__ __device__ inline Smem carve(int kp, int ns, int stages, bool requant,
-                                      int cin) {
+__host__ __device__ inline Smem carve(int kc, int ns, int stages, bool requant,
+                                      int cin, bool chunked) {
   Smem s;
-  s.a_pitch = kp + 8;
+  s.a_pitch = kc + 8;
   s.b_pitch = ns + 8;
   s.a_buf = kBM * s.a_pitch * 2;
   s.raw_buf = requant ? (kBM * cin + 15) / 16 * 16 : 0;
+  s.b_buf = kc * s.b_pitch * 2;
   int o = 0;
   s.off_a = o;
   o += (requant ? 1 : stages) * s.a_buf;  // requant: raw stages, one A
   s.off_raw = o;
   o += (requant ? stages : 0) * s.raw_buf;
   s.off_b = o;
-  o += kp * s.b_pitch * 2;
+  o += (chunked ? stages : 1) * s.b_buf;
   s.off_stage = o;
   o += kWarps * 16 * kStagePitch;
   s.off_epi = o;
   o += 2 * ns * 4;
   s.off_sin = o;
-  o += kp * 4;
+  o += kc * 4;
   s.total = o;
   return s;
 }
@@ -173,60 +187,73 @@ __device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
 }
 
 // REQUANT: x is int8 and e0, e1 are the requant scale and offset, else x is
-// bf16 and e0 the bias. Columns n0 .. n0 + ns - 1 of B (this block's slab,
-// blockIdx.y); ns and kp are multiples of kNC and 16.
-template <bool REQUANT>
+// bf16 and e0 the bias (relu: the ReLU after it, or none). Columns n0 .. n0
+// + ns - 1 of B (this block's slab, blockIdx.y); ns and kc are multiples of
+// kNC and 16. CHUNKED: K is walked in ``chunks`` chunks of kc channels
+// (only in the float mode, with ns == kNC), else in one. The one-chunk
+// kernel is its own instantiation so that its accumulators are dead between
+// tiles: carried over (tile, chunk) stages, they stay live through the next
+// stage's copy, and the flagship's up layers take 4% longer.
+template <bool REQUANT, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads, 2)
 upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
               const __nv_bfloat16* __restrict__ w, const float* __restrict__ e0,
               const float* __restrict__ e1, void* __restrict__ outv,
-              int64_t npix, int64_t h, int64_t wd, int cin, int cout, int kp,
-              int ns, int stages, int vec_x, int vec_w, int vec_o) {
+              int64_t npix, int64_t h, int64_t wd, int cin, int cout, int kc,
+              int chunks, int ns, int stages, int vec_x, int vec_w, int vec_o,
+              int relu) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = carve(kp, ns, stages, REQUANT, cin);
+  const Smem L = carve(kc, ns, stages, REQUANT, cin, CHUNKED);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n4 = 4 * cout, n0 = blockIdx.y * ns;
   const int64_t tiles = (npix + kBM - 1) / kBM;
-  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem + L.off_b);
   float* epi = reinterpret_cast<float*>(smem + L.off_epi);  // [2][ns]
-  float* s_bf = reinterpret_cast<float*>(smem + L.off_sin);  // [kp]
+  float* s_bf = reinterpret_cast<float*>(smem + L.off_sin);  // [kc]
   const uint4 zero = make_uint4(0, 0, 0, 0);
+  // B's rows of stage st (one resident copy of the whole K, unchunked)
+  auto b_of = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + L.off_b + (CHUNKED ? st * L.b_buf : 0));
+  };
 
-  // B[k][n] = w[1-u][1-v][k][co] for column n0 + n = (2u + v) * cout + co;
-  // zero past cin and past 4 cout. 8 columns at a time, co fastest: by
-  // cp.async where cout % 8 == 0 (the pieces then never straddle a parity),
-  // so that these loads overlap the first tile's instead of each waiting
-  // out its own latency. They land with the first tile's commit group.
+  // B[k][n] = w[1-u][1-v][k][co] for column n0 + n = (2u + v) * cout + co,
+  // rows k0 .. k0 + kc - 1 into bs; zero past cin and past 4 cout. 8
+  // columns at a time, co fastest: by cp.async where cout % 8 == 0 (the
+  // pieces then never straddle a parity), so that these loads overlap the
+  // tile's instead of each waiting out its own latency. They land with the
+  // commit group of the tile (or chunk) that follows.
   const int groups = ns / 8;
-  for (int e = tid; e < kp * groups; e += kThreads) {
-    const int k = e / groups, n = (e - k * groups) * 8, col = n0 + n;
-    __nv_bfloat16* dst = bs + k * L.b_pitch + n;
-    if (k >= cin || col >= n4) {
-      *reinterpret_cast<uint4*>(dst) = zero;
-      continue;
-    }
-    if (vec_w) {
-      const int q = col / cout, co = col - q * cout;
-      cp_async16(dst, w + ((int64_t)(3 - q) * cin + k) * cout + co);  // tap (1-u)*2 + (1-v)
-      continue;
-    }
-    __nv_bfloat16 v[8];
+  auto stage_b = [&](__nv_bfloat16* bs, int k0) {
+    for (int e = tid; e < kc * groups; e += kThreads) {
+      const int kr = e / groups, n = (e - kr * groups) * 8, col = n0 + n, k = k0 + kr;
+      __nv_bfloat16* dst = bs + kr * L.b_pitch + n;
+      if (k >= cin || col >= n4) {
+        *reinterpret_cast<uint4*>(dst) = zero;
+        continue;
+      }
+      if (vec_w) {
+        const int q = col / cout, co = col - q * cout;
+        cp_async16(dst, w + ((int64_t)(3 - q) * cin + k) * cout + co);  // tap (1-u)*2 + (1-v)
+        continue;
+      }
+      __nv_bfloat16 v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int q = (col + j) / cout, co = col + j - q * cout;
-      v[j] = col + j < n4 ? w[((int64_t)(3 - q) * cin + k) * cout + co]
-                          : __float2bfloat16_rn(0.f);
+      for (int j = 0; j < 8; ++j) {
+        const int q = (col + j) / cout, co = col + j - q * cout;
+        v[j] = col + j < n4 ? w[((int64_t)(3 - q) * cin + k) * cout + co]
+                            : __float2bfloat16_rn(0.f);
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                                                  pack2(v[4], v[5]), pack2(v[6], v[7]));
     }
-    *reinterpret_cast<uint4*>(dst) = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
-                                                pack2(v[4], v[5]), pack2(v[6], v[7]));
-  }
+  };
+  if (!CHUNKED) stage_b(b_of(0), 0);
   for (int n = tid; n < ns; n += kThreads) {
     const int col = n0 + n, co = col % cout;
     epi[n] = col < n4 ? e0[co] : 0.f;
     epi[ns + n] = REQUANT && col < n4 ? e1[co] : 0.f;
   }
   if (REQUANT)
-    for (int k = tid; k < kp; k += kThreads)
+    for (int k = tid; k < kc; k += kThreads)
       s_bf[k] = k < cin ? __bfloat162float(__float2bfloat16_rn(s_in[k])) : 0.f;
 
   auto tile_rows = [&](int64_t t) {
@@ -234,9 +261,10 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
     return left < kBM ? (int)left : kBM;
   };
 
-  // copies tile t's input into stage st: the bf16 A buffer, or the raw
-  // int8 bytes (one contiguous span of rows * cin bytes)
-  auto fill = [&](int64_t t, int st) {
+  // copies chunk ch of tile t's input into stage st: the bf16 A buffer
+  // (and, chunked, the chunk's B rows), or the raw int8 bytes (one
+  // contiguous span of rows * cin bytes)
+  auto fill = [&](int64_t t, int ch, int st) {
     const int64_t p0 = t * kBM;
     const int rows = tile_rows(t);
     if constexpr (REQUANT) {
@@ -249,10 +277,10 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
     } else {
       const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(xv);
       __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem + L.off_a + st * L.a_buf);
-      const int pieces = kp / 8;
+      const int pieces = kc / 8, k0 = ch * kc;
       for (int e = tid; e < kBM * pieces; e += kThreads) {
-        const int p = e / pieces, c = (e - p * pieces) * 8;
-        uint4* dst = reinterpret_cast<uint4*>(a + p * L.a_pitch + c);
+        const int p = e / pieces, cl = (e - p * pieces) * 8, c = k0 + cl;
+        uint4* dst = reinterpret_cast<uint4*>(a + p * L.a_pitch + cl);
         if (p >= rows || c >= cin) {
           *dst = zero;
           continue;
@@ -268,6 +296,7 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
                             pack2(v[4], v[5]), pack2(v[6], v[7]));
         }
       }
+      if (CHUNKED) stage_b(b_of(st), k0);
     }
   };
 
@@ -275,7 +304,6 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
   const int r0 = warp * 16;
   const int g = lane >> 2, tg = lane & 3;
   unsigned char* stage = smem + L.off_stage + warp * 16 * kStagePitch;
-  const uint32_t b_lane = smem_addr(bs + (lane & 15) * L.b_pitch + (lane >> 4) * 8);
   const int64_t urow = 2 * wd * cout;  // one output row: parity u = 1 is + urow
   constexpr int kPE = REQUANT ? 16 : 8;  // elements in a 16-byte piece
   constexpr int kPPR = kNC / kPE;        // pieces in a staged row
@@ -287,7 +315,7 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
   auto convert = [&](int st, int rows) {
     const int8_t* raw = reinterpret_cast<const int8_t*>(smem + L.off_raw + st * L.raw_buf);
     __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem + L.off_a);
-    const int pieces = kp / 8;
+    const int pieces = kc / 8;
     for (int e = lane; e < 16 * pieces; e += 32) {
       const int pr = e / pieces, p = r0 + pr, c = (e - pr * pieces) * 8;
       float f[8];
@@ -311,7 +339,13 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
     __syncwarp();
   };
 
-  auto compute = [&](const __nv_bfloat16* a, int64_t p0, int rows) {
+  // the accumulators of the warp's 16 x kNC pass; chunked, they carry over
+  // the chunks of one tile (its only pass, ns == kNC)
+  float acc[8][4];
+
+  // chunk ch of the tile's products; at its last chunk the epilogue
+  auto compute = [&](const __nv_bfloat16* a, const __nv_bfloat16* bs, int64_t p0, int rows,
+                     int ch) {
     if (r0 >= rows) return;
     // lane l < 16: the output offset of pixel r0 + l at parity u = 0
     int64_t rowbase = -1;
@@ -329,16 +363,18 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
       rowbase = ((img * 2 * h + 2 * iy) * 2 * wd + 2 * jx) * cout;
     }
     const uint32_t a_lane = smem_addr(a + (r0 + (lane & 15)) * L.a_pitch + (lane >> 4) * 8);
+    const uint32_t b_lane = smem_addr(bs + (lane & 15) * L.b_pitch + (lane >> 4) * 8);
     for (int c0 = 0; c0 < ns && n0 + c0 < n4; c0 += kNC) {
-      float acc[8][4];
+      if (!CHUNKED || ch == 0) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+          for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+      }
       // a k-step's fragments are all loaded before its 8 products (the
       // asm statements keep their order: interleaved, each product would
       // wait out its own load)
-      for (int k0 = 0; k0 < kp; k0 += 16) {
+      for (int k0 = 0; k0 < kc; k0 += 16) {
         uint32_t af[4], bf[4][4];
         ldmatrix_x4(af, a_lane + k0 * 2);
 #pragma unroll
@@ -350,6 +386,7 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
           mma_bf16(acc[2 * np + 1], af, &bf[np][2]);
         }
       }
+      if (CHUNKED && ch != chunks - 1) continue;
       // round into the warp's staging tile: rows g and g + 8, columns
       // nt * 8 + 2 tg and + 1
 #pragma unroll
@@ -371,8 +408,10 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
             }
             *reinterpret_cast<char2*>(stage + row * kStagePitch8 + col) = make_char2(q[0], q[1]);
           } else {
+            float y0 = c[0] + epi[n], y1 = c[1] + epi[n + 1];
+            if (relu) y0 = fmaxf(y0, 0.f), y1 = fmaxf(y1, 0.f);
             *reinterpret_cast<__nv_bfloat162*>(stage + row * kStagePitch + col * 2) =
-                __floats2bfloat162_rn(fmaxf(c[0] + epi[n], 0.f), fmaxf(c[1] + epi[n + 1], 0.f));
+                __floats2bfloat162_rn(y0, y1);
           }
         }
       }
@@ -409,26 +448,31 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
     }
   };
 
-  // two stages: tile t + step is copied while tile t is computed. One
-  // block barrier per tile: after it, tile t has landed for every thread,
-  // and every warp is done with tile t - step, whose buffer the next copy
-  // takes. (One stage: copy, then compute, then a barrier.)
+  // stages run over (tile, chunk), the block's tiles gridDim.x apart, each
+  // tile's chunks in turn. Two stages: the next (tile, chunk) is copied
+  // while this one is computed. One block barrier per stage: after it, this
+  // stage has landed for every thread, and every warp is done with the
+  // last one, whose buffer the next copy takes. (One stage buffer: copy,
+  // then compute, then a barrier.)
   int64_t t = blockIdx.x;
+  int ch = 0;
   const int64_t step = gridDim.x;
   if (stages == 2) {
-    fill(t, 0);
+    fill(t, 0, 0);
     cp_async_commit();
   }
-  for (int it = 0; t < tiles; t += step, ++it) {
+  for (int it = 0; t < tiles; ++it) {
     const int st = stages == 2 ? (it & 1) : 0;
     if (stages == 1) {
-      fill(t, 0);
+      fill(t, ch, 0);
       cp_async_commit();
     }
     cp_async_wait<0>();
     __syncthreads();
+    const int chn = !CHUNKED || ch + 1 == chunks ? 0 : ch + 1;
+    const int64_t tn = chn == 0 ? t + step : t;
     if (stages == 2) {
-      if (t + step < tiles) fill(t + step, st ^ 1);
+      if (tn < tiles) fill(tn, chn, st ^ 1);
       cp_async_commit();
     }
     const int rows = tile_rows(t);
@@ -437,8 +481,10 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
     }
     compute(reinterpret_cast<const __nv_bfloat16*>(
                 smem + L.off_a + (REQUANT ? 0 : st * L.a_buf)),
-            t * kBM, rows);
+            b_of(st), t * kBM, rows, ch);
     if (stages == 1) __syncthreads();  // before the next fill overwrites the buffer
+    t = tn;
+    ch = chn;
   }
 }
 
@@ -447,11 +493,11 @@ upgemm_kernel(const void* __restrict__ xv, const float* __restrict__ s_in,
 cudaError_t up2x2_igemm_bf16(const void* x, const float* s_in, const void* w,
                              const float* e0, const float* e1, void* out,
                              int64_t n, int64_t h, int64_t wd, int cin,
-                             int cout, bool requant, cudaStream_t stream) {
+                             int cout, bool requant, int relu, cudaStream_t stream) {
   const int kp = (cin + 15) / 16 * 16;
   const int n4 = 4 * cout;
   int ns = (n4 + kNC - 1) / kNC * kNC;
-  int stages = 2;
+  int stages = 2, kc = kp, chunks = 1;
   int dev = 0, max_smem = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -459,19 +505,25 @@ cudaError_t up2x2_igemm_bf16(const void* x, const float* s_in, const void* w,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  // wide configs: slabs of columns, then one A buffer
-  while (carve(kp, ns, stages, requant, cin).total > max_smem) {
-    if (ns > kNC)
+  // wide configs: slabs of columns, then K in chunks (float; ns is kNC by
+  // then) or one A buffer (requant)
+  while (carve(kc, ns, stages, requant, cin, chunks > 1).total > max_smem) {
+    if (ns > kNC) {
       ns = (ns / 2 + kNC - 1) / kNC * kNC;
-    else if (stages == 2)
+    } else if (!requant && chunks == 1) {
+      kc = kKChunk;
+      chunks = (kp + kc - 1) / kc;
+    } else if (stages == 2) {
       stages = 1;
-    else
+    } else {
       return cudaErrorInvalidValue;
+    }
   }
-  const int smem = carve(kp, ns, stages, requant, cin).total;
+  const int smem = carve(kc, ns, stages, requant, cin, chunks > 1).total;
   const int slabs = (n4 + ns - 1) / ns;
-  const void* kernel = requant ? (const void*)upgemm_kernel<true>
-                               : (const void*)upgemm_kernel<false>;
+  const void* kernel = requant      ? (const void*)upgemm_kernel<true, false>
+                       : chunks > 1 ? (const void*)upgemm_kernel<false, true>
+                                    : (const void*)upgemm_kernel<false, false>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
@@ -480,6 +532,7 @@ cudaError_t up2x2_igemm_bf16(const void* x, const float* s_in, const void* w,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int64_t npix = n * h * wd;
   const int64_t tiles = (npix + kBM - 1) / kBM;
+  if (tiles * chunks > INT32_MAX) return cudaErrorInvalidValue;
   const int64_t resident = (int64_t)per_sm * sms / slabs;
   const int64_t blocks = tiles < resident ? tiles : (resident > 0 ? resident : 1);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
@@ -490,12 +543,17 @@ cudaError_t up2x2_igemm_bf16(const void* x, const float* s_in, const void* w,
   dim3 grid((unsigned)blocks, (unsigned)slabs, 1);
   const auto* wt = static_cast<const __nv_bfloat16*>(w);
   if (requant)
-    upgemm_kernel<true><<<grid, kThreads, smem, stream>>>(
-        x, s_in, wt, e0, e1, out, npix, h, wd, cin, cout, kp, ns, stages, vec_x, vec_w, vec_o);
+    upgemm_kernel<true, false><<<grid, kThreads, smem, stream>>>(
+        x, s_in, wt, e0, e1, out, npix, h, wd, cin, cout, kc, chunks, ns, stages, vec_x,
+        vec_w, vec_o, 0);
+  else if (chunks > 1)
+    upgemm_kernel<false, true><<<grid, kThreads, smem, stream>>>(
+        x, nullptr, wt, e0, nullptr, out, npix, h, wd, cin, cout, kc, chunks, ns, stages,
+        vec_x, vec_w, vec_o, relu);
   else
-    upgemm_kernel<false><<<grid, kThreads, smem, stream>>>(
-        x, nullptr, wt, e0, nullptr, out, npix, h, wd, cin, cout, kp, ns, stages, vec_x,
-        vec_w, vec_o);
+    upgemm_kernel<false, false><<<grid, kThreads, smem, stream>>>(
+        x, nullptr, wt, e0, nullptr, out, npix, h, wd, cin, cout, kc, chunks, ns, stages,
+        vec_x, vec_w, vec_o, relu);
   return cudaGetLastError();
 }
 

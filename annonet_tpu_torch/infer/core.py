@@ -100,6 +100,7 @@ from annonet_tpu_torch.models.quantized import (
 from annonet_tpu_torch.models.segnet import (
     RuntimeSegNet,
     SegNetConfig,
+    require_segnet,
     required_input_dimension,
 )
 from annonet_tpu_torch.ops.blend import blend_argmax
@@ -176,6 +177,10 @@ class TiledInferer:
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
         if quantize and use_pallas_conv:
             raise ValueError("quantize is incompatible with use_pallas_conv")
+        if quantize:
+            require_segnet(config, "int8 inference (quantize='int8')")
+        if use_pallas_conv:
+            require_segnet(config, "use_pallas_conv (the folded net's G1)")
         self.use_pallas_conv = bool(use_pallas_conv)
         # base fold -> {device: the folded net on that device}
         self._folded: Dict[int, Dict[torch.device, FoldedSegNet]] = {}

@@ -35,6 +35,7 @@ from annonet_tpu_torch.models.segnet import (
     SegNetConfig,
     compute_dtype,
     normalize_input,
+    require_segnet,
 )
 from annonet_tpu_torch.ops.conv import (
     conv3x3_bias_relu,
@@ -55,7 +56,10 @@ def folding_supported(config: SegNetConfig, tile_width: int) -> int:
     """The base fold for this config and tile width, or 0 when folding does
     not apply (``folded_runtime.py:458-478``): the largest of 8, 4, 2 that
     divides the tile width with fold * width(0) <= 128, and at least
-    2**level_count, so that the fold survives every stride-2 level."""
+    2**level_count, so that the fold survives every stride-2 level. The
+    U-Net never folds."""
+    if config.unet:
+        return 0
     fold = 8
     while fold > 1 and (tile_width % fold or fold * config.width(0) > 128):
         fold //= 2
@@ -216,6 +220,7 @@ class FoldedSegNet(nn.Module):
 
     def __init__(self, source, config: SegNetConfig, fold0: int, *, device):
         super().__init__()
+        require_segnet(config, "the folded runtime")
         self.config = config
         self.fold0 = fold0
         self.dtype = compute_dtype(config)
@@ -387,6 +392,7 @@ def apply_train_folded(
     the list of the mesh's shards and the logits a list."""
     from annonet_tpu_torch.models.segnet import _bn_train, _bn_update, _check_train_input
 
+    require_segnet(config, "folded training")
     shards = list(x_uint8) if reducer is not None else [x_uint8]
     trees = list(params) if reducer is not None else [params]
     for x in shards:

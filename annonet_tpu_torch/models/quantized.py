@@ -43,6 +43,7 @@ from annonet_tpu_torch.models.segnet import (
     RuntimeSegNet,
     SegNetConfig,
     compute_dtype,
+    require_segnet,
 )
 from annonet_tpu_torch.ops.conv import up2x2_requant
 from annonet_tpu_torch.ops.qconv import (
@@ -154,6 +155,7 @@ def quantize_net(
     [cout]}; ``up`` layers {"w" f32 HWIO, "s_in" [cin], "scale" (1/s_out),
     "offset" [cout]}, or with ``quantize_up`` {"w_q" int8, "scale",
     "offset" [2, cout]}; the head {"w_q" [C, K] int8, "s_w", "b" [K]}."""
+    require_segnet(config, "int8 inference")
     layout = calibration_layout(config)
     if len(calibration) != len(layout):
         raise ValueError(
@@ -225,6 +227,7 @@ class QuantizedSegNet(nn.Module):
     def __init__(self, qparams: Dict[str, Dict[str, np.ndarray]],
                  config: SegNetConfig, *, device):
         super().__init__()
+        require_segnet(config, "int8 inference")
         self.config = config
         self.quantize_up = any(
             "w_q" in e for k, e in qparams.items() if k.endswith("/up")

@@ -15,12 +15,28 @@ The stem, encoder and decoder convs run through the fused conv + bias +
 ReLU kernels of ``ops/conv.py``; the input normalisation and the 1x1 head
 stay plain torch, as the JAX package computes both outside any kernel.
 
-Topology (``L = level_count``):
+Topology (``L = level_count``), ``topology="segnet"`` (annonet's net, the
+default, widths ``base_width * 2**min(level, 3)``):
     stem:   conv3x3 -> ReLU, conv3x3 -> ReLU                     (width w0)
     enc i:  conv3x3 s2 -> ReLU, conv3x3 -> ReLU                  (width wi)
     dec i:  2x2 transpose-conv s2 -> ReLU, concat skip,
             conv3x3 -> ReLU                                      (width w(i-1))
     head:   conv1x1 -> class_count logits (f32)
+
+``topology="unet"`` (Ronneberger et al. 2015, arXiv:1505.04597, Fig. 1, with
+the same padding and the batch norm of the public PyTorch U-Net,
+github.com/milesial/Pytorch-UNet; widths ``base_width * 2**level``):
+    stem:   conv3x3 -> ReLU, conv3x3 -> ReLU                     (width w0)
+    enc i:  maxpool 2x2, conv3x3 -> ReLU, conv3x3 -> ReLU        (width wi)
+    dec i:  2x2 transpose-conv s2 + bias (linear), concat skip,
+            conv3x3 -> ReLU, conv3x3 -> ReLU                     (width w(i-1))
+    head:   conv1x1 -> class_count logits (f32)
+The concat is [up, skip] as in annonet's net (milesial's is [skip, up]:
+the same function up to a permutation of the decoder conv0's input
+channels). A U-Net artifact is the port's alone: its ``model_config``
+carries ``topology``, which the JAX package does not read. The U-Net runs
+on the float paths only (``RuntimeSegNet``, ``apply_train``); the int8,
+folded and G1 paths refuse it (``require_segnet``).
 """
 
 from __future__ import annotations
@@ -39,19 +55,26 @@ from annonet_tpu_torch.ops.bn_relu import bn_relu
 from annonet_tpu_torch.ops.conv import (
     conv3x3_bias_relu,
     conv3x3_s2_bias_relu,
+    up2x2_bias,
     up2x2_bias_relu,
 )
+from annonet_tpu_torch.ops.pool import max_pool2x2
 from annonet_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
 _BN_EPS = 1e-5
 
+#: the architectures: annonet's net (the default) and the U-Net
+TOPOLOGIES = ("segnet", "unet")
+
 
 @dataclasses.dataclass(frozen=True)
 class SegNetConfig:
-    """Architecture configuration (field for field the JAX package's, so
-    an artifact's ``model_config`` reads into either package)."""
+    """Architecture configuration: field for field the JAX package's, and
+    ``topology``, the port's own. At its default, "segnet", ``to_dict``
+    leaves it out, so an artifact's ``model_config`` reads into either
+    package; a "unet" config is the port's alone."""
 
     class_count: int = 2
     level_count: int = 2
@@ -60,18 +83,31 @@ class SegNetConfig:
     grayscale: bool = False
     base_width: int = 16
     compute_dtype: str = "bfloat16"
+    topology: str = "segnet"
+
+    def __post_init__(self):
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"unknown topology {self.topology!r}: one of {TOPOLOGIES}")
+
+    @property
+    def unet(self) -> bool:
+        return self.topology == "unet"
 
     @property
     def in_channels(self) -> int:
         return 1 if self.grayscale else 3
 
     def width(self, level: int) -> int:
-        """Filter count at pyramid level ``level`` (0 = full resolution)."""
-        base = self.base_width * (2 ** min(level, 3))
+        """Filter count at pyramid level ``level`` (0 = full resolution):
+        the widths double at each level, up to level 3 in annonet's net."""
+        base = self.base_width * (2 ** (level if self.unet else min(level, 3)))
         return max(self.min_filter_count, int(round(base * self.width_scaler)))
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        if not self.unet:
+            del d["topology"]
+        return d
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "SegNetConfig":
@@ -83,16 +119,21 @@ def required_input_dimension(config: SegNetConfig) -> int:
 
     Propagates the influence interval of one input pixel through the op
     sequence (a stride-2 3x3 conv pads (0, 1), so output o taps inputs
-    2o..2o+2; a 2x2 stride-2 transpose conv maps u to {2u, 2u+1}),
-    maximized over the 2**level_count parity classes.
+    2o..2o+2; a 2x2 max pool maps u to u // 2; a 2x2 stride-2 transpose
+    conv maps u to {2u, 2u+1}), maximized over the 2**level_count parity
+    classes.
     """
     L = config.level_count
+    decoder_convs = 2 if config.unet else 1
 
     def conv3_s1(lo, hi):
         return lo - 1, hi + 1
 
     def conv3_s2(lo, hi):
         return -(-(lo - 2) // 2), hi // 2
+
+    def pool2(lo, hi):
+        return lo // 2, hi // 2
 
     def up2(lo, hi):
         return 2 * lo, 2 * hi + 1
@@ -104,13 +145,28 @@ def required_input_dimension(config: SegNetConfig) -> int:
         lo, hi = conv3_s1(lo, hi)  # stem conv0
         lo, hi = conv3_s1(lo, hi)  # stem conv1
         for _ in range(L):
-            lo, hi = conv3_s2(lo, hi)  # encoder downsample conv
+            if config.unet:
+                lo, hi = conv3_s1(*pool2(lo, hi))  # pool, encoder conv0
+            else:
+                lo, hi = conv3_s2(lo, hi)  # encoder downsample conv
             lo, hi = conv3_s1(lo, hi)  # encoder conv
         for _ in range(L):
             lo, hi = up2(lo, hi)  # decoder transpose conv
-            lo, hi = conv3_s1(lo, hi)  # decoder conv
+            for _ in range(decoder_convs):
+                lo, hi = conv3_s1(lo, hi)  # decoder conv
         best = max(best, hi - lo + 1)
     return best
+
+
+def require_segnet(config: SegNetConfig, path: str) -> None:
+    """Raise ValueError where ``path`` (the int8, folded and G1 paths) meets
+    a U-Net config: they compute annonet's net alone."""
+    if config.unet:
+        raise ValueError(
+            f"{path} supports annonet's SegNet topology only; the U-Net runs on "
+            "the float paths (annonet_infer and annonet_train without int8, "
+            "folding or use_pallas_conv)"
+        )
 
 
 def recommended_input_dimension(config: SegNetConfig, requested: int) -> int:
@@ -140,6 +196,14 @@ def conv_layers(config: SegNetConfig) -> Iterator[Tuple[str, str, tuple]]:
         cin, cout = config.width(i), config.width(i - 1)
         yield f"dec{i}", "up", (2, 2, cin, cout)
         yield f"dec{i}", "conv0", (3, 3, 2 * cout, cout)
+        if config.unet:
+            yield f"dec{i}", "conv1", (3, 3, cout, cout)
+
+
+def _linear_up(config: SegNetConfig, conv: str) -> bool:
+    """The U-Net's up layer: a biased transpose conv with no batch norm
+    and no ReLU."""
+    return config.unet and conv == "up"
 
 
 def runtime_param_shapes(config: SegNetConfig) -> Dict[str, tuple]:
@@ -169,6 +233,10 @@ def init_runtime_params(config: SegNetConfig, seed: int) -> Params:
     for block, conv, (kh, kw, cin, cout) in conv_layers(config):
         std = (2.0 / (kh * kw * cin)) ** 0.5
         w = rng.standard_normal((kh, kw, cin, cout)).astype(np.float32) * std
+        if _linear_up(config, conv):  # no batch norm to fold
+            tree.setdefault(block, {})[conv] = {
+                "w": w, "b": (rng.standard_normal(cout) * 0.1).astype(np.float32)}
+            continue
         gamma = rng.uniform(0.5, 1.5, cout).astype(np.float32)
         beta = (rng.standard_normal(cout) * 0.1).astype(np.float32)
         mean = (rng.standard_normal(cout) * 0.1).astype(np.float32)
@@ -276,23 +344,32 @@ class RuntimeSegNet(nn.Module):
                 tap(name, x)
             return x
 
+        unet = self.config.unet
         x = normalize_input(x_uint8, self.dtype)
         x = out("stem/conv0", conv3x3_bias_relu(x, *self.weights("stem", "conv0")))
         x = out("stem/conv1", conv3x3_bias_relu(x, *self.weights("stem", "conv1")))
         skips: List[torch.Tensor] = [x]
         for i in range(1, L + 1):
-            x = out(f"enc{i}/conv0",
-                    conv3x3_s2_bias_relu(x, *self.weights(f"enc{i}", "conv0")))
+            if unet:
+                x = max_pool2x2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                x = conv3x3_bias_relu(x, *self.weights(f"enc{i}", "conv0"))
+            else:
+                x = conv3x3_s2_bias_relu(x, *self.weights(f"enc{i}", "conv0"))
+            x = out(f"enc{i}/conv0", x)
             x = out(f"enc{i}/conv1",
                     conv3x3_bias_relu(x, *self.weights(f"enc{i}", "conv1")))
             if i < L:
                 skips.append(x)
         for i in range(L, 0, -1):
-            x = out(f"dec{i}/up", up2x2_bias_relu(x, *self.weights(f"dec{i}", "up")))
+            up = up2x2_bias if unet else up2x2_bias_relu
+            x = out(f"dec{i}/up", up(x, *self.weights(f"dec{i}", "up")))
             # the decoder's concat([up, skip]) is the kernel's second input
             x = out(f"dec{i}/conv0", conv3x3_bias_relu(
                 x, *self.weights(f"dec{i}", "conv0"), x2=skips.pop()
             ))
+            if unet:
+                x = out(f"dec{i}/conv1",
+                        conv3x3_bias_relu(x, *self.weights(f"dec{i}", "conv1")))
         # head: compute-dtype product (f32 accumulation inside), then the
         # f32 bias promotes the logits to f32 (segnet.py:459-462)
         return torch.matmul(x, self.head_w).to(torch.float32) + self.head_b
@@ -307,6 +384,8 @@ class RuntimeSegNet(nn.Module):
 #   params[block] = {conv: HWIO kernel, bn: {"gamma", "beta"}, ...},
 #   params["head"] = {"w": [1, 1, w0, K], "b": [K]},
 #   bn_stats[block] = {bn: {"mean", "var"}, ...}.
+# The U-Net's up layer has no batch norm: params[block]["up_bias"] [cout]
+# is its bias, and neither tree has a "bnu".
 # On the device the same trees hold f32 tensors (the master parameters);
 # the convs run in the compute dtype on casts of them.
 
@@ -325,6 +404,9 @@ def train_state_shapes(config: SegNetConfig) -> Dict[str, Dict[str, tuple]]:
     for block, conv, shape in conv_layers(config):
         bn, c = _bn_name(conv), shape[-1]
         params[f"{block}/{conv}"] = shape
+        if _linear_up(config, conv):
+            params[f"{block}/up_bias"] = (c,)
+            continue
         params[f"{block}/{bn}/gamma"] = params[f"{block}/{bn}/beta"] = (c,)
         stats[f"{block}/{bn}/mean"] = stats[f"{block}/{bn}/var"] = (c,)
     params["head/w"] = (1, 1, config.width(0), config.class_count)
@@ -350,6 +432,9 @@ def init_state(config: SegNetConfig, seed: int) -> Tuple[Params, Params]:
     for block, conv, shape in conv_layers(config):
         c = shape[-1]
         params.setdefault(block, {})[conv] = he(shape)
+        if _linear_up(config, conv):
+            params[block]["up_bias"] = np.zeros(c, np.float32)
+            continue
         params[block][_bn_name(conv)] = {
             "gamma": np.ones(c, np.float32), "beta": np.zeros(c, np.float32),
         }
@@ -416,12 +501,13 @@ def _conv_train(x, w, stride: int, dtype):
     return F.conv2d(x, wt, padding=w.shape[0] // 2)
 
 
-def _conv_transpose_train(x, w, dtype):
+def _conv_transpose_train(x, w, dtype, bias=None):
     """The 2x2 stride-2 transpose conv: out[2i+u, 2j+v] = x[i, j] .
     w[1-u, 1-v] (lax.conv_transpose flips nothing; conv_transpose2d's
-    kernel is the flipped one)."""
+    kernel is the flipped one). ``bias`` (the U-Net's linear up layer) is
+    cast to the compute dtype and added in the same call."""
     wt = torch.flip(w, dims=(0, 1)).permute(2, 3, 0, 1).to(dtype)
-    return F.conv_transpose2d(x, wt, stride=2)
+    return F.conv_transpose2d(x, wt, bias=None if bias is None else bias.to(dtype), stride=2)
 
 
 def _bn_train(hs, gammas, betas, reducer=None, fold: int = 1):
@@ -519,6 +605,10 @@ def apply_train(
     ``ops/int8_train.py``'s straight-through int8 conv); the transpose
     convs and the head stay exact, as in the JAX package.
 
+    The U-Net (``config.unet``) pools with ``ops/pool.py``'s 2x2 max pool
+    before each encoder level (its ``pool`` span) and runs its linear up
+    layers inside ``conv_forward`` spans, outside any unit.
+
     ``reducer`` (``parallel/train.py``'s ``ShardReducer``) makes this the
     data-parallel forward: ``x_uint8`` and ``params`` are then lists over
     the mesh's local shards (each shard's input and its own copy of the
@@ -557,13 +647,23 @@ def apply_train(
     xs = block(xs, "stem", ["bn0", "bn1"], [1, 1])
     skips = [xs]
     for i in range(1, L + 1):
-        xs = block(xs, f"enc{i}", ["bn0", "bn1"], [2, 1])
+        if config.unet:
+            with span("pool"):
+                xs = [max_pool2x2(x) for x in xs]
+            xs = block(xs, f"enc{i}", ["bn0", "bn1"], [1, 1])
+        else:
+            xs = block(xs, f"enc{i}", ["bn0", "bn1"], [2, 1])
         if i < L:
             skips.append(xs)
     for i in range(L, 0, -1):
-        xs = block(xs, f"dec{i}", ["bnu"], [2])
+        if config.unet:
+            with span("conv_forward"):
+                xs = [_conv_transpose_train(x, t[f"dec{i}"]["up"], dtype, t[f"dec{i}"]["up_bias"])
+                      for x, t in zip(xs, trees)]
+        else:
+            xs = block(xs, f"dec{i}", ["bnu"], [2])
         xs = [torch.cat([x, skip], dim=1) for x, skip in zip(xs, skips[i - 1])]
-        xs = block(xs, f"dec{i}", ["bn0"], [1])
+        xs = block(xs, f"dec{i}", ["bn0", "bn1"] if config.unet else ["bn0"], [1, 1])
     logits = []
     with span("conv_forward"):
         for x, t in zip(xs, trees):
@@ -601,6 +701,11 @@ def fold_batchnorm(params: Params, bn_stats: Params, config: SegNetConfig) -> Pa
 
     folded: Params = {}
     for block, conv, _shape in conv_layers(config):
+        if _linear_up(config, conv):
+            folded.setdefault(block, {})[conv] = {
+                "w": t(params[block][conv]).numpy().copy(),
+                "b": t(params[block]["up_bias"]).numpy().copy()}
+            continue
         bn = params[block][_bn_name(conv)]
         st = bn_stats[block][_bn_name(conv)]
         scale = t(bn["gamma"]) / torch.sqrt(t(st["var"]) + _BN_EPS)

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "annonet_up2x2_bias_relu": [
         _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
+    # x, w, bias, out, n, h, w, cin, cout, bf16, stream
+    "annonet_up2x2_bias": [
+        _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
+    ],
     # x, s_in, w, scale, offset, out, n, h, w, cin, cout, bf16, stream
     "annonet_up2x2_requant": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,

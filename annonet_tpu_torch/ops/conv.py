@@ -27,6 +27,8 @@ rounding of the pre-bias sum (relative 2**-8).
                             and W (XLA SAME: output o taps inputs 2o+d)
   K3 up2x2_bias_relu        2x2 stride-2 transpose conv:
                             out[2i+u, 2j+v] = x[i, j] . w[1-u, 1-v]
+     up2x2_bias             K3 without the ReLU: the U-Net's linear up
+                            layer, the same rounding
      up2x2_requant          K3's requant mode, the int8 net's up layer
                             (quantized_runtime.py:480-487): int8 x times
                             s_in, rounded to w's dtype, through the same
@@ -52,9 +54,10 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def _epilogue(h_nchw: torch.Tensor, bias: torch.Tensor, dtype) -> torch.Tensor:
+def _epilogue(h_nchw: torch.Tensor, bias: torch.Tensor, dtype, relu: bool = True
+              ) -> torch.Tensor:
     h = h_nchw.permute(0, 2, 3, 1).to(torch.float32) + bias
-    return torch.relu(h).to(dtype).contiguous()
+    return (torch.relu(h) if relu else h).to(dtype).contiguous()
 
 
 def conv3x3_bias_relu_plain(x, w, bias, x2: Optional[torch.Tensor] = None):
@@ -80,6 +83,10 @@ def _up2x2(x, w):
 
 def up2x2_bias_relu_plain(x, w, bias):
     return _epilogue(_up2x2(x, w), bias, x.dtype)
+
+
+def up2x2_bias_plain(x, w, bias):
+    return _epilogue(_up2x2(x, w), bias, x.dtype, relu=False)
 
 
 def up2x2_requant_plain(x_q, s_in, w, scale, offset):
@@ -169,6 +176,21 @@ def conv3x3_s2_bias_relu(x, w, bias):
 conv3x3_s2_bias_relu.launches = 0
 
 
+def _launch_up(x, w, bias, relu: bool):
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=x.dtype, device=x.device)
+    name = "annonet_up2x2_bias_relu" if relu else "annonet_up2x2_bias"
+    with torch.cuda.device(x.device):
+        code = getattr(_build.lib(), name)(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            n, h, wd, cin, cout, int(x.dtype == torch.bfloat16),
+            _stream(x.device),
+        )
+    _build.check(code, name)
+    return out
+
+
 def up2x2_bias_relu(x, w, bias):
     """K3: relu(transpose conv 2x2 stride 2 + bias): [N,H,W,C] ->
     [N,2H,2W,C'], with out[2i+u, 2j+v] = x[i, j] . w[1-u, 1-v]."""
@@ -176,20 +198,23 @@ def up2x2_bias_relu(x, w, bias):
     if x.device.type == "cpu":
         return up2x2_bias_relu_plain(x, w, bias)
     up2x2_bias_relu.launches += 1
-    n, h, wd, cin = x.shape
-    cout = w.shape[3]
-    out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _build.lib().annonet_up2x2_bias_relu(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            n, h, wd, cin, cout, int(x.dtype == torch.bfloat16),
-            _stream(x.device),
-        )
-    _build.check(code, "annonet_up2x2_bias_relu")
-    return out
+    return _launch_up(x, w, bias, True)
 
 
 up2x2_bias_relu.launches = 0
+
+
+def up2x2_bias(x, w, bias):
+    """K3 without the ReLU: transpose conv 2x2 stride 2 + bias, [N,H,W,C]
+    -> [N,2H,2W,C'] (the U-Net's up layer)."""
+    _check(x, w, bias, 2, 2, x.shape[3], "up2x2_bias")
+    if x.device.type == "cpu":
+        return up2x2_bias_plain(x, w, bias)
+    up2x2_bias.launches += 1
+    return _launch_up(x, w, bias, False)
+
+
+up2x2_bias.launches = 0
 
 
 def up2x2_requant(x_q, s_in, w, scale, offset):

@@ -31,6 +31,7 @@ import numpy as np
 from numpy.lib import format as npformat
 
 from annonet_tpu_torch.models.segnet import (
+    TOPOLOGIES,
     SegNetConfig,
     runtime_param_shapes,
     train_state_shapes,
@@ -50,6 +51,9 @@ _CONFIG_FIELDS = {
     "class_count", "level_count", "width_scaler", "min_filter_count",
     "grayscale", "base_width", "compute_dtype",
 }
+# written only where it is not the default (a U-Net's artifact, the port's
+# alone), so every other model_config is the JAX package's
+_OPTIONAL_CONFIG_FIELDS = {"topology"}
 _HEADER_READERS = {
     (1, 0): npformat.read_array_header_1_0,
     (2, 0): npformat.read_array_header_2_0,
@@ -162,7 +166,7 @@ def _validated_config(raw, path: str, kind: str = _KIND) -> SegNetConfig:
     and absurd ranges before any shape computation keys off them."""
     if not isinstance(raw, dict):
         raise _corrupt(path, "model_config is not an object", kind)
-    unknown = set(raw) - _CONFIG_FIELDS
+    unknown = set(raw) - _CONFIG_FIELDS - _OPTIONAL_CONFIG_FIELDS
     missing = _CONFIG_FIELDS - set(raw)
     if unknown or missing:
         raise _corrupt(
@@ -190,6 +194,8 @@ def _validated_config(raw, path: str, kind: str = _KIND) -> SegNetConfig:
         raise _corrupt(path, "model_config.grayscale is not a bool", kind)
     if raw["compute_dtype"] not in ("bfloat16", "float32"):
         raise _corrupt(path, f"model_config.compute_dtype={raw['compute_dtype']!r}", kind)
+    if raw.get("topology", "segnet") not in TOPOLOGIES:
+        raise _corrupt(path, f"model_config.topology={raw['topology']!r}", kind)
     return SegNetConfig.from_dict(raw)
 
 

@@ -46,6 +46,7 @@ from annonet_tpu_torch.models.segnet import (
     apply_train,
     fold_batchnorm,
     init_state,
+    require_segnet,
     train_state_from_numpy,
     tree_items,
     tree_to_numpy,
@@ -209,6 +210,10 @@ class Trainer:
             # bits): the f32 compute dtype means f32, as in the JAX package
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        if trainer_config.int8_forward:
+            require_segnet(model_config, "int8 training (--int8-training)")
+        if trainer_config.folded_training:
+            require_segnet(model_config, "folded training")
         self.model_config = model_config
         self.config = trainer_config
         params, bn_stats = init_state(model_config, seed)

@@ -353,7 +353,8 @@ def short_name(mangled: str) -> str:
     """``igemm_kernel<1, 16>`` for the mangled name of a bf16 K1/K2 kernel,
     ``simt_conv_kernel<1, 32, 2>`` for an f32 one (stride, cout block,
     4-channel pieces a chunk), ``up_gemm_f32_kernel<true, 16>`` for an f32
-    K3 one (requant, cout slab), ``upgemm_kernel<true>`` for a bf16 K3 one,
+    K3 one (requant, cout slab), ``upgemm_kernel<true, false>`` for a bf16 K3
+    one (requant, K in chunks),
     ``q1_igemm_kernel<2, 16, true, false>`` for a Q1 or Q2 one (stride,
     cout block, two-row-tap steps, accumulator mode), the plain name of
     G1's (both dtypes) and of Q3's kernel, else the name as given."""
@@ -380,14 +381,17 @@ def short_name(mangled: str) -> str:
         if m.group(4) is not None:
             args.append("true" if m.group(4) == "1" else "false")
         return f"{m.group(1)}<{', '.join(args)}>"
-    m = re.search(r"\d+upgemm_kernelILb([01])E", mangled)
-    return f"upgemm_kernel<{'true' if m.group(1) == '1' else 'false'}>" if m else mangled
+    m = re.search(r"\d+upgemm_kernelILb([01])ELb([01])E", mangled)
+    if m:
+        flags = ", ".join("true" if b == "1" else "false" for b in m.groups())
+        return f"upgemm_kernel<{flags}>"
+    return mangled
 
 
 def check_tensor_cores(library: str) -> None:
     """The bf16 K1/K2 kernels (conv_igemm.cu's igemm_kernel<stride,
     cout block>, all that annonet_conv3x3_bias_relu launches for bf16),
-    bf16 K3's (up_igemm.cu's upgemm_kernel<requant>, all that
+    bf16 K3's (up_igemm.cu's upgemm_kernel<requant, chunked>, all that
     annonet_up2x2_bias_relu and annonet_up2x2_requant launch for bf16) and
     bf16 G1's (gemm_conv.cu's gemm_conv_bf16) hold HMMA or HGMMA
     instructions; Q1's and Q2's in both modes (qconv_igemm.cu's
@@ -418,7 +422,7 @@ def check_tensor_cores(library: str) -> None:
     if len(igemm) != 8:  # 2 strides x 4 cout blocks
         raise AssertionError(f"found {len(igemm)} bf16 K1/K2 kernels in the SASS: {sorted(igemm)}")
     upgemm = {k for k in sass if "upgemm_kernel" in k}
-    if len(upgemm) != 2:  # the float and the requant mode
+    if len(upgemm) != 3:  # the float mode, whole K or in chunks, and the requant mode
         raise AssertionError(f"found {len(upgemm)} bf16 K3 kernels in the SASS: {sorted(upgemm)}")
     g1 = {k for k in sass if short_name(k) == "gemm_conv_bf16"}
     if len(g1) != 1:

@@ -108,13 +108,24 @@ def _rand(shape, device, seed, lo=0.0, scale=1.0):
      # base_width=4's dec1 (cin 8 -> 4), the flagship's 128 -> 64, 64 -> 32
      # and 32 -> 16 at pixel counts that are not a multiple of the tile,
      # n = 3 with an odd H, and 4 cout = 640 columns, which split into slabs
-     *UP_EDGES],
+     *UP_EDGES,
+     # the U-Net's widths: K1 at 1024 input channels (enc4/conv1's 1024 ->
+     # 1024, dec4/conv0's concat of 512 + 512) and enc1/conv0 after a pool;
+     # K3 without the ReLU ("lin") at each of its up layers, 1024 -> 512 and
+     # 512 -> 256 in K chunks in bf16, with a ragged K (520) and pixel
+     # count, and K3 with the ReLU in K chunks
+     ("s1", 1, 6, 10, 1024, 0, 1024), ("s1", 1, 12, 12, 512, 512, 512),
+     ("s1", 2, 10, 34, 64, 0, 128),
+     ("lin", 1, 6, 10, 1024, 0, 512), ("lin", 2, 12, 12, 512, 0, 256),
+     ("lin", 1, 24, 24, 256, 0, 128), ("lin", 1, 48, 40, 128, 0, 64),
+     ("lin", 1, 5, 21, 520, 0, 36), ("lin", 2, 9, 13, 24, 0, 36),
+     ("up", 1, 7, 9, 1024, 0, 512)],
 )
 def test_conv_kernels_match_plain(device, kind, n, h, w, c1, c2, cout, dtype):
     from annonet_tpu_torch.ops import conv
 
     kind, offset = kind.partition("+")[0], _view_offset(kind)
-    k = 2 if kind == "up" else 3
+    k = 2 if kind in ("up", "lin") else 3
     x = _offset(_rand((n, h, w, c1), device, 1, -0.3).to(dtype), offset)
     x2 = _rand((n, h, w, c2), device, 2).to(dtype) if c2 else None
     wgt = _rand((k, k, c1 + c2, cout), device, 3, -0.5, (2.0 / (k * k * (c1 + c2))) ** 0.5)
@@ -124,6 +135,7 @@ def test_conv_kernels_match_plain(device, kind, n, h, w, c1, c2, cout, dtype):
         "s1": (conv.conv3x3_bias_relu, conv.conv3x3_bias_relu_plain),
         "s2": (conv.conv3x3_s2_bias_relu, conv.conv3x3_s2_bias_relu_plain),
         "up": (conv.up2x2_bias_relu, conv.up2x2_bias_relu_plain),
+        "lin": (conv.up2x2_bias, conv.up2x2_bias_plain),
     }[kind]
     extra = {"x2": x2} if c2 else {}
     before = fn.launches
@@ -1003,6 +1015,83 @@ def test_train_step_card_vs_cpu(device):
         assert np.abs(params[0][key] - cpu).max() <= 1e-3 * update, key
 
 
+def _unet_step(d, config, draws_seed=0):
+    """One U-Net pool step on device ``d``: (the trainer, its loss, the
+    parameters before it)."""
+    from annonet_tpu_torch.data.crop import CropOptions
+    from annonet_tpu_torch.models.segnet import tree_items, tree_to_numpy
+    from annonet_tpu_torch.ops.augment import draw_augmentations
+    from annonet_tpu_torch.train import DeviceImagePool, Trainer, TrainerConfig
+
+    samples = _train_samples(2)
+    dim = 64
+    rects = [(x, y, x + dim - 1, y + dim - 1) for x, y in [(-5, -5), (30, 20), (60, 0)]]
+    options = CropOptions(dim=dim, allow_flip_left_right=True, noise_level_stddev=2.0)
+    gen = torch.Generator()
+    gen.manual_seed(draws_seed)
+    draws = draw_augmentations(gen, len(rects), (dim, dim, 3), options)
+    trainer = Trainer(config, TrainerConfig(), seed=0, device=d)
+    before = dict(tree_items(tree_to_numpy(trainer.params)))
+    loss = trainer.train_step_decisions(DeviceImagePool(2, device=d),
+                                        [samples[0], samples[1], samples[0]], rects, options,
+                                        draws=draws)
+    return trainer, loss, before
+
+
+def test_unet_train_step_card_vs_cpu(device):
+    """The U-Net (widths 8-128, four levels) in f32 compute: one pool step
+    on the card (cuDNN, the BN + ReLU kernels, the pools) against the CPU,
+    held as the flagship's step is: the loss within 1e-5 relative, each
+    updated tensor within 1e-3 of its largest update."""
+    from annonet_tpu_torch.models.segnet import SegNetConfig, tree_items, tree_to_numpy
+
+    config = SegNetConfig(class_count=3, level_count=4, base_width=8, compute_dtype="float32",
+                          topology="unet")
+    (card, loss_card, before), (cpu, loss_cpu, _) = (
+        _unet_step(d, config) for d in (device, torch.device("cpu")))
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    got = dict(tree_items(tree_to_numpy(card.params)))
+    for key, want in tree_items(tree_to_numpy(cpu.params)):
+        update = np.abs(want - before[key]).max()
+        assert np.abs(got[key] - want).max() <= 1e-3 * update, key
+
+
+@pytest.mark.parametrize("topology, levels, units, pools",
+                         [("segnet", 3, 14, 0), ("unet", 4, 18, 4)])
+def test_a_train_step_counts_its_bn_units_and_pools(device, topology, levels, units, pools):
+    """bn_relu.units counts 14 units a step of annonet's three-level net
+    and 18 of the four-level U-Net, whose step also pools 4 times on the
+    card (bf16, the cells' dtype)."""
+    from annonet_tpu_torch.models.segnet import SegNetConfig
+    from annonet_tpu_torch.ops.bn_relu import bn_relu
+    from annonet_tpu_torch.ops.pool import max_pool2x2
+
+    config = SegNetConfig(class_count=3, level_count=levels, base_width=8, topology=topology)
+    u0, p0 = bn_relu.units, max_pool2x2.calls
+    _unet_step(device, config)
+    assert (bn_relu.units - u0, max_pool2x2.calls - p0) == (units, pools)
+
+
+def test_unet_tiled_inference_on_the_card_matches_the_cpu(device):
+    """annonet_infer's path with a U-Net artifact (K1, the no-ReLU K3, the
+    pools, K4) on the card against the plain versions on the CPU, f32:
+    the labels agree on nearly every pixel (the logits' sums are only
+    reordered; a label may flip at a near tie)."""
+    from annonet_tpu_torch.infer.core import TiledInferer, annonet_infer
+    from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
+    from annonet_tpu_torch.ops import conv
+
+    config = SegNetConfig(class_count=3, level_count=4, base_width=8, compute_dtype="float32",
+                          topology="unet")
+    params = init_runtime_params(config, 3)
+    image = np.random.default_rng(0).integers(0, 256, (300, 260, 3), dtype=np.uint8)
+    before = conv.up2x2_bias.launches
+    card = annonet_infer(TiledInferer(params, config, device=device), image)
+    assert conv.up2x2_bias.launches > before
+    cpu = annonet_infer(TiledInferer(params, config, device=torch.device("cpu")), image)
+    assert (card == cpu).mean() >= 0.999
+
+
 def test_update_params_then_validation_launches_the_kernels(device):
     from annonet_tpu_torch.infer.core import TiledInferer, annonet_infer
     from annonet_tpu_torch.models.segnet import SegNetConfig, init_runtime_params
@@ -1136,7 +1225,10 @@ def test_bn_relu_at_the_flagship_units(device, unit, c, side, sliced, dtype):
 # and in f32 where C % 4 != 0), ragged N*H*W, an unaligned h
 _BN_EDGES = [(3, 3, 7, 5, 0), (1, 12, 13, 11, 0), (2, 20, 9, 9, 0), (1, 24, 5, 31, 0),
              (2, 40, 3, 3, 0), (1, 1, 17, 3, 0), (5, 16, 7, 7, 0), (2, 16, 9, 5, 1),
-             (1, 8, 1, 1, 0), (2, 256, 11, 3, 0)]
+             (1, 8, 1, 1, 0), (2, 256, 11, 3, 0),
+             # the U-Net's widest units: 512 and 1024 channels (1024 in f32 is
+             # the kernels' most chunks a row, 256)
+             (2, 512, 6, 6, 0), (2, 1024, 5, 3, 0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

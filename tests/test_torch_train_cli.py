@@ -55,6 +55,8 @@ def dataset(tmp_path):
 
 
 def test_parser_has_the_jax_flags():
+    """Every flag of the JAX CLI, as it is there; the port adds one of its
+    own, --topology (the U-Net), whose default is annonet's net."""
     def table(parser):
         return {
             tuple(a.option_strings) or (a.dest,): (a.dest, a.default, a.choices, a.type,
@@ -62,7 +64,10 @@ def test_parser_has_the_jax_flags():
             for a in parser._actions
         }
 
-    assert table(cli.build_parser()) == table(jax_cli.build_parser())
+    port = table(cli.build_parser())
+    assert port.pop(("--topology",)) == ("topology", "segnet", ["segnet", "unet"], None,
+                                         None, "_StoreAction")
+    assert port == table(jax_cli.build_parser())
 
 
 def _train(dataset, name, *extra):
