@@ -380,18 +380,6 @@ __global__ void __launch_bounds__(kThreads) bn_relu_grad_kernel(
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// Makes `device` current for a launch and restores the caller's after it.
-struct DeviceScope {
-  int prev = -1;
-  explicit DeviceScope(int device) {
-    if (cudaGetDevice(&prev) != cudaSuccess || prev == device || cudaSetDevice(device) != cudaSuccess)
-      prev = -1;
-  }
-  ~DeviceScope() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
-
 template <typename T, int VEC>
 cudaError_t launch(bool backward, const void* h, const void* dy, int64_t ld_dy,
                    void* out, int64_t rows, int c, const float* gamma,

@@ -29,6 +29,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// Makes `device` current for a launch and restores the caller's after it.
+struct DeviceScope {
+  int prev = -1;
+  explicit DeviceScope(int device) {
+    if (cudaGetDevice(&prev) != cudaSuccess || prev == device || cudaSetDevice(device) != cudaSuccess)
+      prev = -1;
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 // K1/K2 in bf16 (conv_igemm.cu): launches the tensor-core implicit GEMM on
 // ``s`` and returns cudaGetLastError(). x, x2 (may be null when c2 == 0),
 // w and out are bf16; stride is 1 or 2.

@@ -39,6 +39,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # x, x2, w, bias, out, n, h, w, c1, c2, cout, stride, bf16, stream
     "annonet_conv3x3_bias_relu": [
@@ -88,6 +89,11 @@ _SIGNATURES = {
     # ticket, rows, c, vec, bf16, device, stream
     "annonet_bn_relu_backward": [
         _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _P,
+    ],
+    # labels, out, ticket, counts, table, n, hw, k, class exponent, image
+    # weight, vec, device, stream
+    "annonet_label_weights": [
+        _P, _P, _P, _P, _P, _I64, _I64, _I, _D, _D, _I, _I, _P,
     ],
 }
 

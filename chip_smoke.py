@@ -61,8 +61,13 @@ Phases (any failure raises, and the exit code is then nonzero):
               its f32 closed-form backward, timed beside the eager
               unit's forward and autograd backward and its byte bound
               (the function's bytes: two passes forward, three
-              backward; the two kernels' three and five beside it); and
-              the bf16 blend
+              backward; the two kernels' three and five beside it); then
+              the training step's loss weights (ops/weighting.py,
+              csrc/label_weights.cu; it replaces no TPU kernel) at the
+              benchmark cells' batches (16 x 624² and 128 x 192²),
+              bit-identical to the plain version, timed beside it and
+              its byte bounds (the function's 8 bytes a pixel, the op's
+              12); and the bf16 blend
               on the canvas (detection, the argmax fold, the normalised
               argmax) and on the two stress lists.
               Then G1 on the 7 stride-1 layers that the folded net
@@ -2166,7 +2171,7 @@ def augmentations() -> dict:
                 noise_level_stddev=2.0, allow_random_color_offset=True)
 
 
-def check_train_step(device, data: str) -> None:
+def check_train_step(device, data: str) -> dict:
     """One train_step_decisions step of the flagship from one init_state,
     4 crops of 192² (one reaching past the image's corner), on the card and
     on the CPU with the same augmentation draws (made once, on the CPU), in
@@ -2176,13 +2181,15 @@ def check_train_step(device, data: str) -> None:
     TRAIN_UPDATE_TOL of its largest update, or within the distance between
     the CPU's bf16 step and its f32 step. Each step on the card runs the
     BN + ReLU op in its 14 units (4 launches each, every output gradient
-    read in place), the CPU's none; returns the card's bf16 step's
-    {"units", "launches"}."""
+    read in place) and the loss weights' op once (2 launches), the CPU's
+    neither; returns the card's bf16 step's {"bn_relu": {"units",
+    "launches"}, "label_weights": {"calls", "launches"}}."""
     from annonet_tpu_torch.data.crop import CropOptions
     from annonet_tpu_torch.models.segnet import tree_items, tree_to_numpy
     from annonet_tpu_torch.ops.augment import draw_augmentations
     from annonet_tpu_torch.ops.bn_relu import bn_relu
     from annonet_tpu_torch.ops.crop_gather import gather_crops
+    from annonet_tpu_torch.ops.weighting import batched_label_weights as weigh
     from annonet_tpu_torch.train import DeviceImagePool, Trainer, TrainerConfig
 
     config = flagship_config()
@@ -2212,20 +2219,29 @@ def check_train_step(device, data: str) -> None:
                 flip_lr=draws.flip_lr, flip_ud=draws.flip_ud)]
             t = time.monotonic()
             counters = (bn_relu.units, bn_relu.launches, bn_relu.dy_copies)
+            weighed = (weigh.calls, weigh.launches)
             losses[dtype, side] = trainer.train_step_decisions(pool, crop_samples, rects,
                                                                options, draws=draws)
             ran = tuple(a - b for a, b in zip(
                 (bn_relu.units, bn_relu.launches, bn_relu.dy_copies), counters))
+            ran_weights = (weigh.calls - weighed[0], weigh.launches - weighed[1])
             print(f"  one {dtype} step on {d}: loss {losses[dtype, side]:.6f}, "
                   f"{time.monotonic() - t:.2f} s wall (first call); the BN + ReLU op's "
-                  f"units, launches and output-gradient copies: {ran}", flush=True)
+                  f"units, launches and output-gradient copies: {ran}; the loss weights' "
+                  f"calls and launches: {ran_weights}", flush=True)
             want = ((BN_RELU_UNITS, BN_RELU_UNITS * BN_RELU_UNIT_LAUNCHES, 0) if side == "card"
                     else (0, 0, 0))
             if ran != want:
                 raise AssertionError(f"the {dtype} step on {d} ran the BN + ReLU op {ran}, "
                                      f"not {want}")
+            want = (1, LABEL_WEIGHTS_LAUNCHES) if side == "card" else (0, 0)
+            if ran_weights != want:
+                raise AssertionError(f"the {dtype} step on {d} ran the loss weights' op "
+                                     f"{ran_weights}, not {want}")
             if side == "card":
-                bn_relu_per_step = {"units": ran[0], "launches": ran[1]}
+                per_step = {"bn_relu": {"units": ran[0], "launches": ran[1]},
+                            "label_weights": {"calls": ran_weights[0],
+                                              "launches": ran_weights[1]}}
             params[dtype, side] = dict(tree_items(tree_to_numpy(trainer.params)))
     same = all(torch.equal(a, b) for a, b in zip(crops["card"], crops["cpu"]))
     print(f"  pool gather of {len(rects)} crops of {dim}² (flips, past the corner): card "
@@ -2274,7 +2290,7 @@ def check_train_step(device, data: str) -> None:
                if g > max(TRAIN_UPDATE_TOL, cpu_coarse[k])]
     if failed:
         raise AssertionError(f"the card's train step disagrees with the CPU's at {failed}")
-    return bn_relu_per_step
+    return per_step
 
 
 class StepStamps(io.StringIO):
@@ -2512,7 +2528,8 @@ def detection_phase(device) -> None:
 def training_phases(device) -> tuple:
     """The training slice's phases in one scratch directory; returns the
     int8 validation's launch counts, the int8 training run's (counts, per
-    step) and the BN + ReLU op's units and launches in a train step."""
+    step) and the BN + ReLU op's and the loss weights' op's counts in a
+    train step (check_train_step)."""
     from annonet_tpu_torch.data import default_anno_classes
 
     work = tempfile.mkdtemp(prefix=".chip_smoke_", dir=_REPO)
@@ -2524,7 +2541,7 @@ def training_phases(device) -> tuple:
             write_dataset(path, sizes, default_anno_classes(), seed)
         elapsed()
         print("[train_step] one train step of the flagship, card against CPU", flush=True)
-        bn_relu_per_step = check_train_step(device, data)
+        per_step = check_train_step(device, data)
         elapsed()
         print(f"[train_step_mesh] one data-parallel step on a virtual {DP_SHARDS}-shard mesh "
               "of the card against the single-device step", flush=True)
@@ -2558,7 +2575,7 @@ def training_phases(device) -> tuple:
         mesh_autotune_phase(work, data, best)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return launches, int8_train_launches, bn_relu_per_step
+    return launches, int8_train_launches, per_step
 
 
 # ---------------------------------------------------------------------------
@@ -3142,6 +3159,76 @@ def check_bn_relu(device, reps: int, generator) -> dict:
     return results
 
 
+# the training step's loss weights (ops/weighting.py, csrc/label_weights.cu):
+# the op's launches a call, and the benchmark cells' batches (n, h, w)
+LABEL_WEIGHTS_LAUNCHES = 2
+LABEL_WEIGHTS_BATCHES = (("unet.train_b16_c624", 16, 624, 624),
+                         ("l3rgb.train_b128", TRAIN_BATCH, 192, 192))
+_LABEL_WEIGHTS_SOURCE = "annonet_tpu_torch/csrc/label_weights.cu"
+_LABEL_WEIGHTS_REPLACES = ("no TPU kernel: the JAX package weighs the loss in plain jnp "
+                           "(annonet_tpu/ops/weighting.py batched_label_weights)")
+_LABEL_WEIGHTS_PATH = "annonet_tpu_torch/ops/weighting.py"
+# the op reads the labels twice (the counts, then each pixel's weight):
+# the second read may come from the L2
+LABEL_WEIGHTS_DESIGN_READS = 2
+
+
+def label_weights_bytes(n: int, h: int, w: int, label_reads: int = 1) -> int:
+    """The loss weights' bytes at batch n of h x w crops: the int32 labels
+    read ``label_reads`` times and the f32 weights written once (the
+    function's own bytes by default, ``LABEL_WEIGHTS_DESIGN_READS`` the
+    op's)."""
+    return n * h * w * 4 * (label_reads + 1)
+
+
+def label_weights_bound(n: int, h: int, w: int, label_reads: int = 1) -> float:
+    """``label_weights_bytes`` at the memory's rate, in ms."""
+    return label_weights_bytes(n, h, w, label_reads) / HBM_BYTES_PER_S * 1e3
+
+
+def check_label_weights(device, reps: int) -> dict:
+    """The loss weights' op at the benchmark cells' batches (3 classes, a
+    tenth of the pixels ignored, class weight and image weight 0.5, the
+    cells' own): bit-identical to the plain version on the card, 1 call
+    and 2 launches counted a call; its kernels' device time (``kernel_ms``)
+    beside the plain version's and the byte bounds, the function's and the
+    op's two reads. Returns {cell: tally}."""
+    from annonet_tpu_torch.classes import IGNORE_LABEL
+    from annonet_tpu_torch.ops import weighting
+
+    op = weighting.batched_label_weights
+    results: dict = {}
+    for cell, n, h, w in LABEL_WEIGHTS_BATCHES:
+        rng = np.random.default_rng(n)
+        labels = rng.integers(0, 3, (n, h, w)).astype(np.int32)
+        labels[rng.random((n, h, w)) < 0.1] = IGNORE_LABEL
+        labels = torch.from_numpy(labels).to(device)
+        before = (op.calls, op.launches)
+        got = op(labels, 0.5, 0.5, 3)
+        counted = (op.calls - before[0], op.launches - before[1])
+        want = weighting.batched_label_weights_plain(labels, 0.5, 0.5, 3)
+        torch.cuda.synchronize()
+        unequal = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        k_ms = kernel_ms(lambda: op(labels, 0.5, 0.5, 3), reps)
+        p_ms = kernel_ms(lambda: weighting.batched_label_weights_plain(labels, 0.5, 0.5, 3),
+                         reps)
+        bound = label_weights_bound(n, h, w)
+        design = label_weights_bound(n, h, w, LABEL_WEIGHTS_DESIGN_READS)
+        print(f"  label_weights {cell} [{n},{h},{w}]: {unequal} weights unequal to the plain "
+              f"version's; calls and launches counted {counted}; {k_ms * 1e3:.1f} us (plain "
+              f"{p_ms:.3f} ms), bound {bound * 1e3:.1f} us "
+              f"({label_weights_bytes(n, h, w) / 1e6:.1f} MB, {bound / k_ms:.1%} of it), the "
+              f"op's two reads {design * 1e3:.1f} us "
+              f"({label_weights_bytes(n, h, w, LABEL_WEIGHTS_DESIGN_READS) / 1e6:.1f} MB, "
+              f"{design / k_ms:.1%})", flush=True)
+        if unequal or counted != (1, LABEL_WEIGHTS_LAUNCHES):
+            raise AssertionError(f"label_weights {cell}: off its plain version or its counts")
+        tally(results, cell, 0.0, k_ms, p_ms, None, (bound, "bytes"))
+        del labels, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
 def train_samples_and_rects(data: str, n: int, dim: int):
     """n crop decisions over the first two training images (one reaching
     past a corner): (samples, rects)."""
@@ -3515,6 +3602,10 @@ def main() -> int:
           flush=True)
     bn_relu_results = check_bn_relu(device, 5, gen)
     elapsed()
+    print("[kernels] the training step's loss weights at the benchmark cells' batches",
+          flush=True)
+    label_weights_results = check_label_weights(device, 10)
+    elapsed()
     print("[kernels] blend epilogue in bf16, 4096x4096 canvas, K=3", flush=True)
     blend_bf16 = check_blend_bf16(config, device, 5, gen)
     torch.cuda.empty_cache()
@@ -3606,7 +3697,7 @@ def main() -> int:
           flush=True)
     acc_launches = repro_qconv_phase(device)
     torch.cuda.empty_cache()
-    train_launches, (int8_train_launches, int8_per_step), bn_relu_per_step = \
+    train_launches, (int8_train_launches, int8_per_step), train_step_ops = \
         training_phases(device)
     print(f"  int8 validation launches: {train_launches}", flush=True)
     elapsed()
@@ -3720,12 +3811,22 @@ def main() -> int:
     kernels.append({
         "name": "bn_relu", "route": "cuda", "source": _BN_RELU_SOURCE,
         "replaces": _BN_RELU_REPLACES, "path": _BN_RELU_PATH,
-        "launches_per_train_step": bn_relu_per_step["launches"],
-        "units_per_train_step": bn_relu_per_step["units"],
+        "launches_per_train_step": train_step_ops["bn_relu"]["launches"],
+        "units_per_train_step": train_step_ops["bn_relu"]["units"],
         "serve_launches": 0, "mesh_launches": 0,
         **numbers(bn_relu_results["bn_relu"]),
         "modes": {direction: numbers(bn_relu_results[direction])
                   for direction in ("forward", "backward")},
+    })
+    # the training step's loss weights, which replace no TPU kernel
+    kernels.append({
+        "name": "label_weights", "route": "cuda", "source": _LABEL_WEIGHTS_SOURCE,
+        "replaces": _LABEL_WEIGHTS_REPLACES, "path": _LABEL_WEIGHTS_PATH,
+        "launches_per_train_step": train_step_ops["label_weights"]["launches"],
+        "calls_per_train_step": train_step_ops["label_weights"]["calls"], "serve_launches": 0,
+        "mesh_launches": 0,
+        **numbers(label_weights_results["unet.train_b16_c624"]),
+        "modes": {cell: numbers(r) for cell, r in label_weights_results.items()},
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

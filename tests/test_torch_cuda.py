@@ -22,7 +22,9 @@ mode sums floats in another order
 than cuDNN, so it is held within one requant step. G1 and its plain version
 both sum in f32 and round once: bf16 within one bf16 step at the largest
 output, f32 within 1e-4 of the output scale; on the decoder's two-part input G1 is held to
-K1's plain version (two steps, as K1).
+K1's plain version (two steps, as K1). The loss weights' op is
+bit-identical to its plain version below 128 classes (from 128 within the
+bound stated beside its test).
 """
 
 import numpy as np
@@ -1328,3 +1330,156 @@ def test_train_step_with_the_op_is_deterministic(device, monkeypatch):
     _, first = _flagship_step(device, monkeypatch, seed=3)
     _, second = _flagship_step(device, monkeypatch, seed=3)
     assert all(torch.equal(first[k], second[k]) for k in first)
+
+
+# ---------------------------------------------------------------- loss weights
+# ops/weighting.py's op (csrc/label_weights.cu) against its plain version
+# on the card, bit for bit: the op counts in integers (exact) and computes
+# the weight table with the plain version's f32 roundings, torch's pow
+# special cases and its CUDA sum's order over K < 128 classes.
+
+
+def _weight_labels(device, n, h, w, k, seed, offset=0):
+    """int32 [n, h, w] labels on the card: classes drawn with unequal
+    shares (class j about (j + 1)^2), a tenth IGNORE_LABEL, a twentieth at
+    k..k+3 (past the classes); crop 0 lacks class 0 where k > 1."""
+    from annonet_tpu_torch.classes import IGNORE_LABEL
+
+    rng = np.random.default_rng(seed)
+    share = (np.arange(k) + 1.0) ** 2
+    labels = rng.choice(k, size=(n, h, w), p=share / share.sum()).astype(np.int32)
+    u = rng.random((n, h, w))
+    labels[u < 0.1] = IGNORE_LABEL
+    labels[(u >= 0.1) & (u < 0.15)] = k + rng.integers(0, 4, int(((u >= 0.1) & (u < 0.15)).sum()))
+    if k > 1:
+        labels[0][labels[0] == 0] = 1
+    return _offset(torch.from_numpy(labels).to(device), offset)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _check_label_weights(labels, cw, iw, k):
+    from annonet_tpu_torch.ops import weighting
+
+    before = (weighting.batched_label_weights.calls, weighting.batched_label_weights.launches)
+    got = weighting.batched_label_weights(labels, cw, iw, k)
+    want = weighting.batched_label_weights_plain(labels, cw, iw, k)
+    torch.cuda.synchronize()
+    assert (weighting.batched_label_weights.calls - before[0],
+            weighting.batched_label_weights.launches - before[1]) == (1, 2)
+    assert got.dtype == torch.float32 and got.shape == labels.shape
+    unequal = int((_bits(got) != _bits(want)).sum())
+    assert unequal == 0, f"{unequal} weights differ from the plain version's"
+    return got
+
+
+@pytest.mark.parametrize("n,h,w", [(16, 624, 624), (128, 192, 192)],
+                         ids=["unet_b16_c624", "l3rgb_b128"])
+def test_label_weights_at_the_cells_batches(device, n, h, w):
+    _check_label_weights(_weight_labels(device, n, h, w, 3, seed=n), 0.5, 0.5, 3)
+
+
+@pytest.mark.parametrize("n,h,w,offset", [(3, 7, 9, 0), (2, 13, 11, 0), (5, 1, 3, 0),
+                                          (4, 16, 16, 1), (3, 17, 23, 2), (2, 32, 40, 3),
+                                          (1, 130, 97, 0)])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 16, 64])
+def test_label_weights_at_ragged_sizes_and_class_counts(device, n, h, w, offset, k):
+    """H*W not a multiple of 4, views that start 1-3 elements past an
+    aligned allocation (the apply kernel then writes element by element),
+    1 to 8 classes (counts in registers) and 16 and 64 (shared bins)."""
+    _check_label_weights(_weight_labels(device, n, h, w, k, seed=k * 100 + h, offset=offset),
+                         0.3, 0.7, k)
+
+
+@pytest.mark.parametrize("cw", [0.0, 0.5, 1.0, 0.3, 2.0])
+@pytest.mark.parametrize("iw", [0.0, 0.5, 1.0, 0.7, 2.0, 3.0])
+def test_label_weights_at_every_exponent(device, cw, iw):
+    """Torch's pow: exponent 0 fills ones, 1 copies, +-0.5 and -1 run
+    sqrt, rsqrt and the reciprocal, 2, 3 and -2 multiply out, any other
+    powf."""
+    _check_label_weights(_weight_labels(device, 6, 40, 52, 5, seed=int(cw * 10 + iw * 100)),
+                         cw, iw, 5)
+
+
+def test_label_weights_of_empty_one_class_and_out_of_range_crops(device):
+    from annonet_tpu_torch.classes import IGNORE_LABEL
+
+    labels = _weight_labels(device, 6, 33, 31, 4, seed=7)
+    labels[1] = IGNORE_LABEL  # no valid pixel
+    labels[2] = 2  # one class
+    labels[3] = 4  # every label past the classes
+    labels[4, :, :16] = 9
+    got = _check_label_weights(labels, 0.5, 0.5, 4)
+    assert not got[1].any() and not got[3].any()
+    assert torch.all(got[2] == got[2, 0, 0]) and got[2, 0, 0] > 0
+    _check_label_weights(torch.full((2, 9, 9), IGNORE_LABEL, dtype=torch.int32, device=device),
+                         0.3, 0.7, 3)
+
+
+def test_label_weights_past_128_classes_within_the_sum_order(device):
+    """From 128 classes torch's CUDA sum of the K products vectorises its
+    loads and adds in another order than the op: each weight within
+    (2K + 2) * 2**-24 of the plain version's, relatively (two orders of a
+    sum of K positive terms, then a quotient and a product)."""
+    from annonet_tpu_torch.ops import weighting
+
+    k = 200
+    labels = _weight_labels(device, 3, 70, 90, k, seed=200)
+    got = weighting.batched_label_weights(labels, 0.3, 0.7, k)
+    want = weighting.batched_label_weights_plain(labels, 0.3, 0.7, k)
+    assert torch.equal(got == 0, want == 0)
+    rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+    assert rel <= (2 * k + 2) * 2.0**-24
+
+
+def test_label_weights_are_deterministic_and_leave_the_workspace_zero(device):
+    """Run to run bit-identical; after each call the ticket and every
+    count of the stream's workspace are zero, so a smaller batch after a
+    larger one (whose table lay further out) counts from zero."""
+    from annonet_tpu_torch.ops import weighting
+
+    def counts_and_ticket():
+        torch.cuda.synchronize()
+        work = weighting._SCRATCH[(device.index, torch.cuda.current_stream(device).cuda_stream)]
+        return work[:4 + (work.numel() - 4) // 2]
+
+    labels = _weight_labels(device, 16, 100, 100, 3, seed=11)
+    first = weighting.batched_label_weights(labels, 0.5, 0.5, 3)
+    for _ in range(3):
+        assert torch.equal(_bits(weighting.batched_label_weights(labels, 0.5, 0.5, 3)),
+                           _bits(first))
+    assert not counts_and_ticket().any()
+    for n, h, w, k in [(40, 20, 20, 64), (3, 7, 9, 1), (2, 5, 5, 2), (16, 100, 100, 3)]:
+        _check_label_weights(_weight_labels(device, n, h, w, k, seed=n + k), 0.3, 0.7, k)
+        assert not counts_and_ticket().any()
+
+
+def test_label_weights_refuse_what_the_op_does_not_take(device):
+    from annonet_tpu_torch.ops import weighting
+
+    labels = _weight_labels(device, 2, 8, 8, 3, seed=1)
+    with pytest.raises(ValueError, match="int32"):
+        weighting.batched_label_weights(labels.to(torch.int64), 0.5, 0.5, 3)
+    with pytest.raises(ValueError, match="int32"):
+        weighting.batched_label_weights(labels.transpose(1, 2), 0.5, 0.5, 3)
+    with pytest.raises(ValueError, match="classes"):
+        weighting.batched_label_weights(labels, 0.5, 0.5, weighting._MAX_CLASSES + 1)
+
+
+def test_a_train_step_weighs_its_crops_with_the_op(device, monkeypatch):
+    """One U-Net step on the card: one call of the op, two launches, no
+    plain version."""
+    from annonet_tpu_torch.models.segnet import SegNetConfig
+    from annonet_tpu_torch.ops import weighting
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the plain loss weights ran on the card")
+
+    monkeypatch.setattr(weighting, "batched_label_weights_plain", refuse)
+    config = SegNetConfig(class_count=3, level_count=4, base_width=8, topology="unet")
+    before = (weighting.batched_label_weights.calls, weighting.batched_label_weights.launches)
+    _unet_step(device, config)
+    assert (weighting.batched_label_weights.calls - before[0],
+            weighting.batched_label_weights.launches - before[1]) == (1, 2)

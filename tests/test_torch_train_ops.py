@@ -78,6 +78,58 @@ def test_batched_label_weights_match_jax(class_weight, image_weight):
                                                                 image_weight), rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["past_the_classes", "all_ignored", "one_crop"])
+def test_batched_label_weights_edge_cases_match_jax(case):
+    """Labels at and past ``class_count`` (counted nowhere, weight 0), a
+    batch with no valid pixel, and a batch of one crop."""
+    rng = np.random.default_rng(len(case))
+    k = 3
+    if case == "past_the_classes":
+        labels = _labels(rng, 3, 9, 14, k + 3)  # classes 3-5 lie past k
+        labels[2] = k
+    elif case == "all_ignored":
+        labels = np.full((2, 7, 5), IGNORE_LABEL, np.int32)
+    else:
+        labels = _labels(rng, 1, 13, 11, k)
+    want = np.asarray(jax_weighting.batched_label_weights(jnp.asarray(labels), 0.3, 0.7, k))
+    got = batched_label_weights(torch.from_numpy(labels), 0.3, 0.7, k).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert not got[(labels >= k)].any()
+    if case == "all_ignored":
+        assert not got.any()
+
+
+def test_batched_label_weights_on_the_cpu_count_no_launch():
+    from annonet_tpu_torch.ops import weighting
+
+    before = (weighting.batched_label_weights.calls, weighting.batched_label_weights.launches)
+    labels = torch.from_numpy(_labels(np.random.default_rng(5), 2, 6, 6, 3))
+    got = batched_label_weights(labels, 0.5, 0.5, 3)
+    assert torch.equal(got, weighting.batched_label_weights_plain(labels, 0.5, 0.5, 3))
+    assert (weighting.batched_label_weights.calls,
+            weighting.batched_label_weights.launches) == before
+    with pytest.raises(ValueError, match=r"\[N,H,W\]"):
+        batched_label_weights(labels[0], 0.5, 0.5, 3)
+
+
+def test_the_ops_constants_agree_with_the_wrapper():
+    """csrc/label_weights.cu's class limit and ignore label are the
+    wrapper's (the source is compiled on the card alone)."""
+    import os
+    import re
+
+    from annonet_tpu_torch.ops import weighting
+
+    path = os.path.join(os.path.dirname(weighting.__file__), "..", "csrc", "label_weights.cu")
+    with open(path) as f:
+        source = f.read()
+    constant = {name: int(value, 0) for name, value in
+                re.findall(r"constexpr int (k\w+) = (0x[0-9A-Fa-f]+|\d+);", source)}
+    assert constant["kMaxClasses"] == weighting._MAX_CLASSES
+    assert constant["kIgnore"] == IGNORE_LABEL
+    assert "atomicAdd(" in source and not re.search(r"atomicAdd\(\s*\(?float", source)
+
+
 def _jax_draws(key, n, shape):
     """The draws augment_batch makes from ``key`` (its 8-way split)."""
     ks = jax.random.split(key, 8)
