@@ -1,5 +1,5 @@
-// The training step's batch norm and ReLU (models/segnet.py _bn_train, then
-// _unit's ReLU) as one operation: two kernels forward, two backward.
+// The training step's batch norm and ReLU (ops/bn_relu.py bn_plain, then
+// the ReLU) as one operation: two kernels forward, two backward.
 //
 // Replaces no TPU kernel: in the JAX package the unit's batch norm and ReLU
 // are plain jnp operations (annonet_tpu/models/segnet.py _bn_train) that
@@ -57,7 +57,7 @@ namespace {
 constexpr int kThreads = 256;  // the most a block has; fewer when C/VEC does not divide it
 constexpr int kUnroll = 4;     // loads in flight a thread
 constexpr int kMinRows = 32;   // rows a thread of a reduction walks at least
-constexpr float kEps = 1e-5f;  // models/segnet.py _BN_EPS
+constexpr float kEps = 1e-5f;  // ops/bn_relu.py BN_EPS
 
 // Rows of the per-channel buffer [kRows, C] f32 (ops/bn_relu.py reads the
 // mean and the variance from the first two).

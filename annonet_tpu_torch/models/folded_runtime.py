@@ -287,178 +287,3 @@ class FoldedSegNet(nn.Module):
             if tap is not None:
                 tap(name, x)
         raise AssertionError("the folded walk ends in the head")  # pragma: no cover
-
-
-# --------------------------------------------------------------------------
-# Folded training forward (kernels folded from the live weights each step)
-# --------------------------------------------------------------------------
-#
-# The port of ``apply_train_folded`` (folded_runtime.py:590-722): the
-# training forward in the width-folded layout, every conv at fold * c
-# channels, with the folded kernels built from the f32 master kernels in
-# the step (index scatters that autograd carries back to them). It computes
-# ``apply_train``'s function (the same logits and statistics, summed in
-# another order) and reaches no Pallas kernel in the JAX package; its convs
-# here are cuDNN's. Activations are NCHW views of the folded NHWC layout
-# [n, h, w / fold, fold * c] (channel i * c + k is pixel i of the group).
-
-#: the input fold of folded training (JAX's ``fold0=8``)
-TRAIN_FOLD0 = 8
-
-
-def folded_training_applies(config: SegNetConfig, width: int, remat: bool) -> bool:
-    """The JAX trainer's gate (trainer.py:121-131, parallel/train.py:62-76):
-    not under remat, a crop width that divides by 8, and RGB input (the
-    JAX package keeps grayscale unfolded)."""
-    return not remat and width % TRAIN_FOLD0 == 0 and config.in_channels >= 3
-
-
-def fold_width_kernel(w: torch.Tensor, fold: int) -> torch.Tensor:
-    """HWIO [kh, 3, cin, cout] -> the folded [kh, 3, fold*cin, fold*cout]
-    (``ops/folded_conv.py:36``): block dxb maps input pixel i of the group
-    to output pixel j through tap fold * (dxb - 1) + i - j + 1 where it is
-    0..2."""
-    kh, kw, cin, cout = w.shape
-    assert kw == 3, "width folding is implemented for 3-tap width kernels"
-    i_idx = torch.arange(fold, device=w.device)[:, None]
-    j_idx = torch.arange(fold, device=w.device)[None, :]
-    blocks = []
-    for dxb in range(3):
-        kx = fold * (dxb - 1) + i_idx - j_idx + 1
-        valid = (kx >= 0) & (kx <= 2)
-        block = w[:, kx.clamp(0, 2)]  # [kh, fold, fold, cin, cout]
-        block = torch.where(valid[None, :, :, None, None], block, torch.zeros_like(block))
-        blocks.append(block.permute(0, 1, 3, 2, 4).reshape(kh, fold * cin, fold * cout))
-    return torch.stack(blocks, dim=1)
-
-
-def _fold_s2_kernel(w: torch.Tensor, fold: int) -> torch.Tensor:
-    """The stride-(2, 1) kernel [3, 2, fold*cin, fold/2*cout] of a stride-2
-    3x3 conv on a fold-``fold`` input (``_fold_s2_kernel_jnp``)."""
-    _kh, _kw, cin, cout = w.shape
-    half = fold // 2
-    out = w.new_zeros((3, 2, fold * cin, half * cout))
-    for dx in range(3):
-        for j in range(half):
-            i = 2 * j + dx
-            out[:, i // fold, (i % fold) * cin:(i % fold + 1) * cin,
-                j * cout:(j + 1) * cout] = w[:, dx]
-    return out
-
-
-def _fold_up_kernel(w: torch.Tensor, fold: int) -> torch.Tensor:
-    """The [2, 1, fold*cin, 2*fold*cout] transpose kernel of the 2x2
-    stride-2 up conv on a fold-``fold`` input (``_fold_up_kernel_jnp``)."""
-    _kh, _kw, cin, cout = w.shape
-    out = w.new_zeros((2, 1, fold * cin, 2 * fold * cout))
-    for q in range(2):
-        for v in range(2):
-            for i in range(fold):
-                j = 2 * i + v
-                out[q, 0, i * cin:(i + 1) * cin, j * cout:(j + 1) * cout] = w[q, 1 - v]
-    return out
-
-
-def _fold_1x1_kernel(w: torch.Tensor, fold: int) -> torch.Tensor:
-    _kh, _kw, cin, cout = w.shape
-    out = w.new_zeros((1, 1, fold * cin, fold * cout))
-    for i in range(fold):
-        out[0, 0, i * cin:(i + 1) * cin, i * cout:(i + 1) * cout] = w[0, 0]
-    return out
-
-
-def _conv_hwio(x, w, stride, padding):
-    """NCHW conv with an HWIO kernel; ``padding`` (top, bottom, left,
-    right) applied explicitly."""
-    top, bottom, left, right = padding
-    if any(padding):
-        x = torch.nn.functional.pad(x, (left, right, top, bottom))
-    return torch.nn.functional.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
-
-
-def apply_train_folded(
-    params,
-    bn_stats,
-    x_uint8,
-    config: SegNetConfig,
-    bn_momentum: float = 0.99,
-    fold0: int = TRAIN_FOLD0,
-    reducer=None,
-):
-    """Width-folded training forward (``apply_train_folded``): the function
-    of ``segnet.apply_train`` with every conv on the folded layout, the
-    folded kernels made from the live f32 weights (cast to the compute
-    dtype first). ``reducer`` as for ``apply_train``: ``x_uint8`` is then
-    the list of the mesh's shards and the logits a list."""
-    from annonet_tpu_torch.models.segnet import _bn_train, _bn_update, _check_train_input
-
-    require_segnet(config, "folded training")
-    shards = list(x_uint8) if reducer is not None else [x_uint8]
-    trees = list(params) if reducer is not None else [params]
-    for x in shards:
-        _check_train_input(x, config)
-    dtype = compute_dtype(config)
-    L = config.level_count
-    new_stats = {k: dict(v) for k, v in bn_stats.items()}
-
-    def convs(xs, wfs, stride, padding):
-        return [_conv_hwio(x, wf, stride, padding) for x, wf in zip(xs, wfs)]
-
-    def normalise(hs, block, bn_name, fold):
-        ps = [t[block][bn_name] for t in trees]
-        hs, mean, var = _bn_train(hs, [p["gamma"] for p in ps], [p["beta"] for p in ps],
-                                  reducer, fold)
-        s = new_stats[block]
-        s[bn_name] = _bn_update(s[bn_name], mean, var, bn_momentum)
-        return [torch.relu(h).to(dtype) for h in hs]
-
-    def unit(xs, block, conv_name, bn_name, kind, fold):
-        ws = [t[block][conv_name].to(dtype) for t in trees]
-        if kind == "s1":
-            hs = convs(xs, [fold_width_kernel(w, fold) for w in ws], 1, (1, 1, 1, 1))
-            fold_out = fold
-        elif kind == "s2" and fold > 1:
-            hs = convs(xs, [_fold_s2_kernel(w, fold) for w in ws], (2, 1), (0, 1, 0, 1))
-            fold_out = fold // 2
-        elif kind == "s2":  # XLA's SAME at stride 2 on even sizes: (0, 1)
-            hs, fold_out = convs(xs, ws, 2, (0, 1, 0, 1)), 1
-        else:  # up: lax.conv_transpose (2, 1), no flip; conv_transpose2d flips
-            hs = [torch.nn.functional.conv_transpose2d(
-                x, torch.flip(_fold_up_kernel(w, fold), dims=(0, 1)).permute(2, 3, 0, 1),
-                stride=(2, 1)) for x, w in zip(xs, ws)]
-            fold_out = 2 * fold
-        return normalise(hs, block, bn_name, fold_out), fold_out
-
-    xs = []
-    for x in shards:
-        n, h, width, cin = x.shape
-        assert width % fold0 == 0 and width >= fold0
-        folded = normalize_input(x, dtype).reshape(n, h, width // fold0, fold0 * cin)
-        xs.append(folded.permute(0, 3, 1, 2))
-    f = fold0
-    xs, f = unit(xs, "stem", "conv0", "bn0", "s1", f)
-    xs, f = unit(xs, "stem", "conv1", "bn1", "s1", f)
-    skips = [(xs, f)]
-    for i in range(1, L + 1):
-        xs, f = unit(xs, f"enc{i}", "conv0", "bn0", "s2", f)
-        xs, f = unit(xs, f"enc{i}", "conv1", "bn1", "s1", f)
-        if i < L:
-            skips.append((xs, f))
-    for i in range(L, 0, -1):
-        xs, f = unit(xs, f"dec{i}", "up", "bnu", "up", f)
-        skip_xs, skip_f = skips[i - 1]
-        assert skip_f == f, (skip_f, f)
-        xs = [torch.cat([x, sk], dim=1) for x, sk in zip(xs, skip_xs)]
-        # the concat layout -> the packed folded layout: a row permutation
-        c = config.width(i - 1)
-        perm = torch.from_numpy(_concat_perm(f, c, c))
-        wks = [fold_width_kernel(t[f"dec{i}"]["conv0"].to(dtype), f)[:, :, perm.to(x.device), :]
-               for t, x in zip(trees, xs)]
-        xs = normalise(convs(xs, wks, 1, (1, 1, 1, 1)), f"dec{i}", "bn0", f)
-    logits = []
-    for x, t in zip(xs, trees):
-        out = _conv_hwio(x, _fold_1x1_kernel(t["head"]["w"].to(dtype), f), 1, (0, 0, 0, 0))
-        n, _fk, h, wb = out.shape
-        out = (out + t["head"]["b"].repeat(f)[:, None, None]).to(torch.float32)
-        logits.append(out.permute(0, 2, 3, 1).reshape(n, h, wb * f, config.class_count))
-    return (logits if reducer is not None else logits[0]), new_stats

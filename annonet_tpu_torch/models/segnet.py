@@ -31,6 +31,8 @@ github.com/milesial/Pytorch-UNet; widths ``base_width * 2**level``):
     dec i:  2x2 transpose-conv s2 + bias (linear), concat skip,
             conv3x3 -> ReLU, conv3x3 -> ReLU                     (width w(i-1))
     head:   conv1x1 -> class_count logits (f32)
+``layer_plan`` writes both down once, as the sequence of steps that every
+forward, parameter tree and the receptive field walk.
 The concat is [up, skip] as in annonet's net (milesial's is [skip, up]:
 the same function up to a permutation of the decoder conv0's input
 channels). A U-Net artifact is the port's alone: its ``model_config``
@@ -43,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from annonet_tpu_torch.ops.bn_relu import bn_relu
+from annonet_tpu_torch.ops.bn_relu import BN_EPS, bn_relu_shards
 from annonet_tpu_torch.ops.conv import (
     conv3x3_bias_relu,
     conv3x3_s2_bias_relu,
@@ -62,8 +64,6 @@ from annonet_tpu_torch.ops.pool import max_pool2x2
 from annonet_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
-
-_BN_EPS = 1e-5
 
 #: the architectures: annonet's net (the default) and the U-Net
 TOPOLOGIES = ("segnet", "unet")
@@ -114,46 +114,105 @@ class SegNetConfig:
         return SegNetConfig(**d)
 
 
-def required_input_dimension(config: SegNetConfig) -> int:
-    """Worst-case receptive field of one output pixel, in input pixels.
+# --------------------------------------------------------------------------
+# The layer plan: the one description of the net's topology
+# --------------------------------------------------------------------------
 
-    Propagates the influence interval of one input pixel through the op
-    sequence (a stride-2 3x3 conv pads (0, 1), so output o taps inputs
-    2o..2o+2; a 2x2 max pool maps u to u // 2; a 2x2 stride-2 transpose
-    conv maps u to {2u, 2u+1}), maximized over the 2**level_count parity
-    classes.
-    """
-    L = config.level_count
-    decoder_convs = 2 if config.unet else 1
+#: conv -> BN -> ReLU (a transpose conv when the conv is "up"); in the
+#: BN-folded runtime net, conv + bias -> ReLU
+UNIT = "unit"
+#: the U-Net's up layer: a 2x2 stride-2 transpose conv + bias, no BN, no ReLU
+LINEAR_UP = "linear_up"
+POOL = "pool"  # 2x2 max pool
+KEEP_SKIP = "keep_skip"  # push the activation on the skip stack
+CONCAT_SKIP = "concat_skip"  # pop a skip: the next conv's input is [x, skip]
+HEAD = "head"  # 1x1 conv -> class_count logits (f32)
 
-    def conv3_s1(lo, hi):
+
+class Step(NamedTuple):
+    """One step of the forward. A conv step (UNIT, LINEAR_UP) and the head
+    carry their block, conv name, HWIO kernel shape and stride (2: the
+    downsampling 3x3 conv and the transpose conv); the structural steps
+    carry nothing."""
+
+    op: str
+    block: str = ""
+    conv: str = ""
+    shape: tuple = ()
+    stride: int = 1
+
+    @property
+    def up(self) -> bool:
+        """A 2x2 stride-2 transpose conv."""
+        return self.conv == "up"
+
+    @property
+    def bn(self) -> str:
+        """The BN layer after the conv: conv0 -> bn0, conv1 -> bn1, up -> bnu."""
+        return "bnu" if self.up else self.conv.replace("conv", "bn")
+
+    def receptive(self, lo: int, hi: int) -> Tuple[int, int]:
+        """The interval of outputs that inputs ``lo..hi`` reach: a 3x3 conv
+        widens it by one; a stride-2 3x3 conv pads (0, 1), so output o taps
+        inputs 2o..2o+2; a 2x2 max pool maps u to u // 2; the transpose
+        conv maps u to {2u, 2u+1}; the skips and the 1x1 head keep it."""
+        if self.op == POOL:
+            return lo // 2, hi // 2
+        if self.up:
+            return 2 * lo, 2 * hi + 1
+        if self.op != UNIT:
+            return lo, hi
+        if self.stride == 2:
+            return -(-(lo - 2) // 2), hi // 2
         return lo - 1, hi + 1
 
-    def conv3_s2(lo, hi):
-        return -(-(lo - 2) // 2), hi // 2
 
-    def pool2(lo, hi):
-        return lo // 2, hi // 2
+@functools.lru_cache(maxsize=None)
+def layer_plan(config: SegNetConfig) -> Tuple[Step, ...]:
+    """The net's forward, stem to head, as steps (the topology in the
+    module docstring); built once per config. The decoder level i's skip
+    is the encoder level i - 1's output, kept before that level's
+    downsampling."""
+    L, width, unet = config.level_count, config.width, config.unet
+    w0 = width(0)
+    steps = [Step(UNIT, "stem", "conv0", (3, 3, config.in_channels, w0)),
+             Step(UNIT, "stem", "conv1", (3, 3, w0, w0))]
+    for i in range(1, L + 1):
+        cin, cout = width(i - 1), width(i)
+        steps += [Step(KEEP_SKIP), Step(POOL)] if unet else [Step(KEEP_SKIP)]
+        steps += [Step(UNIT, f"enc{i}", "conv0", (3, 3, cin, cout), 1 if unet else 2),
+                  Step(UNIT, f"enc{i}", "conv1", (3, 3, cout, cout))]
+    for i in range(L, 0, -1):
+        cin, cout = width(i), width(i - 1)
+        steps += [Step(LINEAR_UP if unet else UNIT, f"dec{i}", "up", (2, 2, cin, cout), 2),
+                  Step(CONCAT_SKIP),
+                  Step(UNIT, f"dec{i}", "conv0", (3, 3, 2 * cout, cout))]
+        if unet:
+            steps.append(Step(UNIT, f"dec{i}", "conv1", (3, 3, cout, cout)))
+    steps.append(Step(HEAD, "head", shape=(1, 1, w0, config.class_count)))
+    return tuple(steps)
 
-    def up2(lo, hi):
-        return 2 * lo, 2 * hi + 1
 
+def _conv_steps(config: SegNetConfig) -> Iterator[Step]:
+    return (step for step in layer_plan(config) if step.op in (UNIT, LINEAR_UP))
+
+
+def _head_shape(config: SegNetConfig) -> tuple:
+    """The head's HWIO kernel shape (1, 1, width(0), class_count)."""
+    return layer_plan(config)[-1].shape
+
+
+def required_input_dimension(config: SegNetConfig) -> int:
+    """Worst-case receptive field of one output pixel, in input pixels:
+    the influence interval of one input pixel through the plan's steps,
+    maximized over the 2**level_count parity classes."""
+    L = config.level_count
     best = 1
     base = 4 ** (L + 2)  # keep all intermediate indices positive
     for parity in range(2**L):
         lo = hi = base + parity
-        lo, hi = conv3_s1(lo, hi)  # stem conv0
-        lo, hi = conv3_s1(lo, hi)  # stem conv1
-        for _ in range(L):
-            if config.unet:
-                lo, hi = conv3_s1(*pool2(lo, hi))  # pool, encoder conv0
-            else:
-                lo, hi = conv3_s2(lo, hi)  # encoder downsample conv
-            lo, hi = conv3_s1(lo, hi)  # encoder conv
-        for _ in range(L):
-            lo, hi = up2(lo, hi)  # decoder transpose conv
-            for _ in range(decoder_convs):
-                lo, hi = conv3_s1(lo, hi)  # decoder conv
+        for step in layer_plan(config):
+            lo, hi = step.receptive(lo, hi)
         best = max(best, hi - lo + 1)
     return best
 
@@ -184,37 +243,19 @@ def recommended_input_dimension(config: SegNetConfig, requested: int) -> int:
 def conv_layers(config: SegNetConfig) -> Iterator[Tuple[str, str, tuple]]:
     """(block, conv, HWIO weight shape) of every conv before the head, in
     forward order. The decoder conv's input is the concat [up, skip]."""
-    L = config.level_count
-    w0 = config.width(0)
-    yield "stem", "conv0", (3, 3, config.in_channels, w0)
-    yield "stem", "conv1", (3, 3, w0, w0)
-    for i in range(1, L + 1):
-        cin, cout = config.width(i - 1), config.width(i)
-        yield f"enc{i}", "conv0", (3, 3, cin, cout)
-        yield f"enc{i}", "conv1", (3, 3, cout, cout)
-    for i in range(L, 0, -1):
-        cin, cout = config.width(i), config.width(i - 1)
-        yield f"dec{i}", "up", (2, 2, cin, cout)
-        yield f"dec{i}", "conv0", (3, 3, 2 * cout, cout)
-        if config.unet:
-            yield f"dec{i}", "conv1", (3, 3, cout, cout)
-
-
-def _linear_up(config: SegNetConfig, conv: str) -> bool:
-    """The U-Net's up layer: a biased transpose conv with no batch norm
-    and no ReLU."""
-    return config.unet and conv == "up"
+    for step in _conv_steps(config):
+        yield step.block, step.conv, step.shape
 
 
 def runtime_param_shapes(config: SegNetConfig) -> Dict[str, tuple]:
     """{"block/conv/leaf": shape} of the BN-folded runtime tree: the keys
     (under "params/") and shapes an artifact must hold."""
     shapes = {}
-    for block, conv, shape in conv_layers(config):
-        shapes[f"{block}/{conv}/w"] = shape
-        shapes[f"{block}/{conv}/b"] = (shape[-1],)
-    shapes["head/w"] = (1, 1, config.width(0), config.class_count)
-    shapes["head/b"] = (config.class_count,)
+    for step in _conv_steps(config):
+        shapes[f"{step.block}/{step.conv}/w"] = step.shape
+        shapes[f"{step.block}/{step.conv}/b"] = (step.shape[-1],)
+    head = _head_shape(config)
+    shapes["head/w"], shapes["head/b"] = head, (head[-1],)
     return shapes
 
 
@@ -230,10 +271,11 @@ def init_runtime_params(config: SegNetConfig, seed: int) -> Params:
     """
     rng = np.random.default_rng(seed)
     tree: Params = {}
-    for block, conv, (kh, kw, cin, cout) in conv_layers(config):
+    for step in _conv_steps(config):
+        block, conv, (kh, kw, cin, cout) = step.block, step.conv, step.shape
         std = (2.0 / (kh * kw * cin)) ** 0.5
         w = rng.standard_normal((kh, kw, cin, cout)).astype(np.float32) * std
-        if _linear_up(config, conv):  # no batch norm to fold
+        if step.op == LINEAR_UP:  # no batch norm to fold
             tree.setdefault(block, {})[conv] = {
                 "w": w, "b": (rng.standard_normal(cout) * 0.1).astype(np.float32)}
             continue
@@ -241,12 +283,12 @@ def init_runtime_params(config: SegNetConfig, seed: int) -> Params:
         beta = (rng.standard_normal(cout) * 0.1).astype(np.float32)
         mean = (rng.standard_normal(cout) * 0.1).astype(np.float32)
         var = rng.uniform(0.5, 1.5, cout).astype(np.float32)
-        scale = gamma / np.sqrt(var + np.float32(_BN_EPS))
+        scale = gamma / np.sqrt(var + np.float32(BN_EPS))
         tree.setdefault(block, {})[conv] = {
             "w": (w * scale).astype(np.float32),
             "b": (beta - mean * scale).astype(np.float32),
         }
-    w0, k = config.width(0), config.class_count
+    _, _, w0, k = _head_shape(config)
     tree["head"] = {
         "w": (rng.standard_normal((1, 1, w0, k)) * (2.0 / w0) ** 0.5).astype(
             np.float32
@@ -296,6 +338,23 @@ def normalize_input(x_uint8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (x_uint8.to(torch.float32) * (1.0 / 255.0) - 0.5).to(dtype)
 
 
+def _check_input_shape(x: torch.Tensor, config: SegNetConfig) -> None:
+    """[N,H,W,C] with the config's channels and H, W multiples of
+    2**level_count, or ValueError."""
+    if x.dim() != 4 or x.shape[-1] != config.in_channels:
+        raise ValueError(
+            f"expected input [N,H,W,{config.in_channels}] "
+            f"({'grayscale' if config.grayscale else 'RGB'}), got {tuple(x.shape)}"
+        )
+    align = 2**config.level_count
+    if x.shape[1] % align or x.shape[2] % align:
+        raise ValueError(
+            f"input H,W {x.shape[1]}x{x.shape[2]} must be multiples of "
+            f"{align} (= 2**level_count); round sizes up with "
+            f"recommended_input_dimension()"
+        )
+
+
 class RuntimeSegNet(nn.Module):
     """Inference forward on BN-folded params: [N,H,W,C] uint8 ->
     [N,H,W,K] f32 logits (the counterpart of ``apply_runtime``)."""
@@ -313,19 +372,7 @@ class RuntimeSegNet(nn.Module):
         return getattr(self, f"{block}_{conv}_w"), getattr(self, f"{block}_{conv}_b")
 
     def check_input(self, x: torch.Tensor) -> None:
-        cfg = self.config
-        if x.dim() != 4 or x.shape[-1] != cfg.in_channels:
-            raise ValueError(
-                f"expected input [N,H,W,{cfg.in_channels}] "
-                f"({'grayscale' if cfg.grayscale else 'RGB'}), got {tuple(x.shape)}"
-            )
-        align = 2**cfg.level_count
-        if x.shape[1] % align or x.shape[2] % align:
-            raise ValueError(
-                f"input H,W {x.shape[1]}x{x.shape[2]} must be multiples of "
-                f"{align} (= 2**level_count); round sizes up with "
-                f"recommended_input_dimension()"
-            )
+        _check_input_shape(x, self.config)
         if x.dtype != torch.uint8:
             raise ValueError(f"expected uint8 input, got {x.dtype}")
 
@@ -337,42 +384,31 @@ class RuntimeSegNet(nn.Module):
         layer's post-ReLU output ("stem/conv0", ..., "dec1/up", ...): the
         int8 calibration reads its per-channel maxima there."""
         self.check_input(x_uint8)
-        L = self.config.level_count
-
-        def out(name, x):
-            if tap is not None:
-                tap(name, x)
-            return x
-
-        unet = self.config.unet
         x = normalize_input(x_uint8, self.dtype)
-        x = out("stem/conv0", conv3x3_bias_relu(x, *self.weights("stem", "conv0")))
-        x = out("stem/conv1", conv3x3_bias_relu(x, *self.weights("stem", "conv1")))
-        skips: List[torch.Tensor] = [x]
-        for i in range(1, L + 1):
-            if unet:
-                x = max_pool2x2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-                x = conv3x3_bias_relu(x, *self.weights(f"enc{i}", "conv0"))
-            else:
-                x = conv3x3_s2_bias_relu(x, *self.weights(f"enc{i}", "conv0"))
-            x = out(f"enc{i}/conv0", x)
-            x = out(f"enc{i}/conv1",
-                    conv3x3_bias_relu(x, *self.weights(f"enc{i}", "conv1")))
-            if i < L:
+        skips: List[torch.Tensor] = []
+        pending: Optional[torch.Tensor] = None  # the skip the next conv concats
+        for step in layer_plan(self.config):
+            if step.op == KEEP_SKIP:
                 skips.append(x)
-        for i in range(L, 0, -1):
-            up = up2x2_bias if unet else up2x2_bias_relu
-            x = out(f"dec{i}/up", up(x, *self.weights(f"dec{i}", "up")))
-            # the decoder's concat([up, skip]) is the kernel's second input
-            x = out(f"dec{i}/conv0", conv3x3_bias_relu(
-                x, *self.weights(f"dec{i}", "conv0"), x2=skips.pop()
-            ))
-            if unet:
-                x = out(f"dec{i}/conv1",
-                        conv3x3_bias_relu(x, *self.weights(f"dec{i}", "conv1")))
-        # head: compute-dtype product (f32 accumulation inside), then the
-        # f32 bias promotes the logits to f32 (segnet.py:459-462)
-        return torch.matmul(x, self.head_w).to(torch.float32) + self.head_b
+            elif step.op == CONCAT_SKIP:
+                pending = skips.pop()
+            elif step.op == POOL:
+                x = max_pool2x2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            elif step.op == HEAD:
+                # compute-dtype product (f32 accumulation inside), then the
+                # f32 bias promotes the logits to f32 (segnet.py:459-462)
+                return torch.matmul(x, self.head_w).to(torch.float32) + self.head_b
+            else:
+                w, b = self.weights(step.block, step.conv)
+                if step.up:
+                    x = (up2x2_bias if step.op == LINEAR_UP else up2x2_bias_relu)(x, w, b)
+                elif step.stride == 2:
+                    x = conv3x3_s2_bias_relu(x, w, b)
+                else:  # the decoder's concat([up, skip]) is the kernel's second input
+                    x, pending = conv3x3_bias_relu(x, w, b, x2=pending), None
+                if tap is not None:
+                    tap(f"{step.block}/{step.conv}", x)
+        raise AssertionError("the plan ends in the head")  # pragma: no cover
 
 
 # --------------------------------------------------------------------------
@@ -390,27 +426,22 @@ class RuntimeSegNet(nn.Module):
 # the convs run in the compute dtype on casts of them.
 
 
-def _bn_name(conv: str) -> str:
-    """The BN layer after a conv: conv0 -> bn0, conv1 -> bn1, up -> bnu."""
-    return "bnu" if conv == "up" else conv.replace("conv", "bn")
-
-
 def train_state_shapes(config: SegNetConfig) -> Dict[str, Dict[str, tuple]]:
     """{"params": {"block/leaf path": shape}, "bn_stats": {...}}: the keys
     and shapes (all f32) of the training tree; the velocity tree has the
     params' (the JAX package's ``init_state`` layout)."""
     params: Dict[str, tuple] = {}
     stats: Dict[str, tuple] = {}
-    for block, conv, shape in conv_layers(config):
-        bn, c = _bn_name(conv), shape[-1]
-        params[f"{block}/{conv}"] = shape
-        if _linear_up(config, conv):
+    for step in _conv_steps(config):
+        block, bn, c = step.block, step.bn, step.shape[-1]
+        params[f"{block}/{step.conv}"] = step.shape
+        if step.op == LINEAR_UP:
             params[f"{block}/up_bias"] = (c,)
             continue
         params[f"{block}/{bn}/gamma"] = params[f"{block}/{bn}/beta"] = (c,)
         stats[f"{block}/{bn}/mean"] = stats[f"{block}/{bn}/var"] = (c,)
-    params["head/w"] = (1, 1, config.width(0), config.class_count)
-    params["head/b"] = (config.class_count,)
+    head = _head_shape(config)
+    params["head/w"], params["head/b"] = head, (head[-1],)
     return {"params": params, "bn_stats": stats}
 
 
@@ -429,22 +460,20 @@ def init_state(config: SegNetConfig, seed: int) -> Tuple[Params, Params]:
 
     params: Params = {}
     stats: Params = {}
-    for block, conv, shape in conv_layers(config):
-        c = shape[-1]
-        params.setdefault(block, {})[conv] = he(shape)
-        if _linear_up(config, conv):
+    for step in _conv_steps(config):
+        block, c = step.block, step.shape[-1]
+        params.setdefault(block, {})[step.conv] = he(step.shape)
+        if step.op == LINEAR_UP:
             params[block]["up_bias"] = np.zeros(c, np.float32)
             continue
-        params[block][_bn_name(conv)] = {
+        params[block][step.bn] = {
             "gamma": np.ones(c, np.float32), "beta": np.zeros(c, np.float32),
         }
-        stats.setdefault(block, {})[_bn_name(conv)] = {
+        stats.setdefault(block, {})[step.bn] = {
             "mean": np.zeros(c, np.float32), "var": np.ones(c, np.float32),
         }
-    params["head"] = {
-        "w": he((1, 1, config.width(0), config.class_count)),
-        "b": np.zeros(config.class_count, np.float32),
-    }
+    head = _head_shape(config)
+    params["head"] = {"w": he(head), "b": np.zeros(head[-1], np.float32)}
     return params, stats
 
 
@@ -510,42 +539,6 @@ def _conv_transpose_train(x, w, dtype, bias=None):
     return F.conv_transpose2d(x, wt, bias=None if bias is None else bias.to(dtype), stride=2)
 
 
-def _bn_train(hs, gammas, betas, reducer=None, fold: int = 1):
-    """Batch norm of NCHW ``hs`` over (N, H, W), as segnet.py's _bn_train:
-    f32 statistics of the compute-dtype activations, var = max(E[h^2] -
-    E[h]^2, 0), scale and shift rounded to the compute dtype once per
-    channel, the normalisation in the compute dtype. Returns (outs, mean,
-    var). Not F.batch_norm: its running statistics take the unbiased
-    variance.
-
-    ``hs``, ``gammas`` and ``betas`` are lists over the shards, one of each
-    without a ``reducer``. With one (sync BN, ``parallel/train.py``), each
-    shard's mean and mean square are averaged over every shard of the
-    mesh, its other processes' too (JAX's ``pmean`` under shard_map), and
-    each shard is normalised with those statistics on its own device.
-    ``fold`` > 1 takes the statistics of a width-folded activation
-    (``folded_runtime.py``) per real channel: its channel axis is ``fold``
-    groups of the real channels, each group more reduction elements."""
-    moments = []
-    for h in hs:
-        # [N, fold, C, H, W]: a view in any layout, reduced in memory order
-        x32 = h.to(torch.float32).unflatten(1, (fold, -1))
-        moments.append(torch.stack([x32.mean(dim=(0, 1, 3, 4)),
-                                    x32.square().mean(dim=(0, 1, 3, 4))]))
-    moments = moments if reducer is None else reducer.mean(moments)
-    out, stats = [], None
-    for h, (mean, mean_sq), g, b in zip(hs, moments, gammas, betas):
-        var = torch.clamp(mean_sq - mean.square(), min=0.0)
-        inv = torch.rsqrt(var + _BN_EPS)
-        scale = (inv * g).to(h.dtype)
-        shift = (b - mean * inv * g).to(h.dtype)
-        if fold > 1:
-            scale, shift = scale.repeat(fold), shift.repeat(fold)
-        out.append(h * scale[:, None, None] + shift[:, None, None])
-        stats = stats or (mean, var)  # the first shard's, on the home device
-    return out, *stats
-
-
 def _bn_update(stats: Params, mean, var, momentum: float) -> Params:
     return {
         "mean": stats["mean"] * momentum + mean.detach() * (1.0 - momentum),
@@ -571,12 +564,7 @@ def _unit(*args, up: bool, stride: int, dtype, conv_impl, reducer):
         else:
             hs = conv_impl(xs, ws, stride, dtype, reducer)
     with span("bn"):
-        if reducer is None:
-            # one shard: the hand-written op on the card, _bn_train on the CPU
-            y, mean, var = bn_relu(hs[0], gammas[0], betas[0])
-            return [y], mean, var
-        hs, mean, var = _bn_train(hs, gammas, betas, reducer)
-        return [torch.relu(h).to(dtype) for h in hs], mean, var
+        return bn_relu_shards(hs, gammas, betas, reducer)
 
 
 def apply_train(
@@ -596,7 +584,7 @@ def apply_train(
     the f32 kernels (through autograd: cuDNN on the card, not the
     inference kernels K1-K3, which have no backward); each unit's batch
     norm and ReLU run as ``ops/bn_relu.py``'s op (its CUDA kernels on the
-    card), except under a ``reducer``. ``remat``
+    card; ``bn_relu_shards``). ``remat``
     recomputes each conv + BN + ReLU unit in the backward pass
     (torch.utils.checkpoint, as jax.checkpoint per unit).
 
@@ -605,9 +593,9 @@ def apply_train(
     ``ops/int8_train.py``'s straight-through int8 conv); the transpose
     convs and the head stay exact, as in the JAX package.
 
-    The U-Net (``config.unet``) pools with ``ops/pool.py``'s 2x2 max pool
-    before each encoder level (its ``pool`` span) and runs its linear up
-    layers inside ``conv_forward`` spans, outside any unit.
+    The forward walks ``layer_plan``: the U-Net's pools run
+    ``ops/pool.py``'s 2x2 max pool (each in a ``pool`` span), its linear up
+    layers run inside ``conv_forward`` spans, outside any unit.
 
     ``reducer`` (``parallel/train.py``'s ``ShardReducer``) makes this the
     data-parallel forward: ``x_uint8`` and ``params`` are then lists over
@@ -617,75 +605,50 @@ def apply_train(
     shards = list(x_uint8) if reducer is not None else [x_uint8]
     trees = list(params) if reducer is not None else [params]
     for x in shards:
-        _check_train_input(x, config)
+        _check_input_shape(x, config)
     dtype = compute_dtype(config)
     conv_impl = exact_convs if conv_impl is None else conv_impl
-    L = config.level_count
     new_stats: Params = {k: dict(v) for k, v in bn_stats.items()}
 
-    def run_unit(xs, block_name, name, stride):
-        up = name == "bnu"
-        conv = "up" if up else name.replace("bn", "conv")
-        ps = [t[block_name] for t in trees]
-        args = (*xs, *(p[conv] for p in ps), *(p[name]["gamma"] for p in ps),
-                *(p[name]["beta"] for p in ps))
-        fn = functools.partial(_unit, up=up, stride=stride, dtype=dtype,
+    def run_unit(xs, step):
+        ps = [t[step.block] for t in trees]
+        args = (*xs, *(p[step.conv] for p in ps), *(p[step.bn]["gamma"] for p in ps),
+                *(p[step.bn]["beta"] for p in ps))
+        fn = functools.partial(_unit, up=step.up, stride=step.stride, dtype=dtype,
                                conv_impl=conv_impl, reducer=reducer)
         if remat:
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
-    def block(xs, block_name, names, strides):
-        s = new_stats[block_name]
-        for name, stride in zip(names, strides):
-            xs, mean, var = run_unit(xs, block_name, name, stride)
-            s[name] = _bn_update(s[name], mean, var, bn_momentum)
-        return xs
-
     # NHWC uint8 -> NCHW view (channels_last in memory): cuDNN's NHWC convs
     xs = [normalize_input(x, dtype).permute(0, 3, 1, 2) for x in shards]
-    xs = block(xs, "stem", ["bn0", "bn1"], [1, 1])
-    skips = [xs]
-    for i in range(1, L + 1):
-        if config.unet:
+    skips = []
+    for step in layer_plan(config):
+        if step.op == UNIT:
+            xs, mean, var = run_unit(xs, step)
+            s = new_stats[step.block]
+            s[step.bn] = _bn_update(s[step.bn], mean, var, bn_momentum)
+        elif step.op == KEEP_SKIP:
+            skips.append(xs)
+        elif step.op == CONCAT_SKIP:
+            xs = [torch.cat([x, skip], dim=1) for x, skip in zip(xs, skips.pop())]
+        elif step.op == POOL:
             with span("pool"):
                 xs = [max_pool2x2(x) for x in xs]
-            xs = block(xs, f"enc{i}", ["bn0", "bn1"], [1, 1])
-        else:
-            xs = block(xs, f"enc{i}", ["bn0", "bn1"], [2, 1])
-        if i < L:
-            skips.append(xs)
-    for i in range(L, 0, -1):
-        if config.unet:
+        elif step.op == LINEAR_UP:
             with span("conv_forward"):
-                xs = [_conv_transpose_train(x, t[f"dec{i}"]["up"], dtype, t[f"dec{i}"]["up_bias"])
+                xs = [_conv_transpose_train(x, t[step.block]["up"], dtype,
+                                            t[step.block]["up_bias"])
                       for x, t in zip(xs, trees)]
-        else:
-            xs = block(xs, f"dec{i}", ["bnu"], [2])
-        xs = [torch.cat([x, skip], dim=1) for x, skip in zip(xs, skips[i - 1])]
-        xs = block(xs, f"dec{i}", ["bn0", "bn1"] if config.unet else ["bn0"], [1, 1])
-    logits = []
-    with span("conv_forward"):
-        for x, t in zip(xs, trees):
-            # compute-dtype head, then the f32 bias promotes the logits to f32
-            out = _conv_train(x, t["head"]["w"], 1, dtype) + t["head"]["b"][:, None, None]
-            logits.append(out.to(torch.float32).permute(0, 2, 3, 1))
-    return (logits if reducer is not None else logits[0]), new_stats
-
-
-def _check_train_input(x: torch.Tensor, config: SegNetConfig) -> None:
-    if x.dim() != 4 or x.shape[-1] != config.in_channels:
-        raise ValueError(
-            f"expected input [N,H,W,{config.in_channels}] "
-            f"({'grayscale' if config.grayscale else 'RGB'}), got {tuple(x.shape)}"
-        )
-    align = 2**config.level_count
-    if x.shape[1] % align or x.shape[2] % align:
-        raise ValueError(
-            f"input H,W {x.shape[1]}x{x.shape[2]} must be multiples of "
-            f"{align} (= 2**level_count); round sizes up with "
-            f"recommended_input_dimension()"
-        )
+        else:  # HEAD
+            logits = []
+            with span("conv_forward"):
+                for x, t in zip(xs, trees):
+                    # compute-dtype head, then the f32 bias promotes the logits to f32
+                    out = _conv_train(x, t["head"]["w"], 1, dtype) + t["head"]["b"][:, None, None]
+                    logits.append(out.to(torch.float32).permute(0, 2, 3, 1))
+            return (logits if reducer is not None else logits[0]), new_stats
+    raise AssertionError("the plan ends in the head")  # pragma: no cover
 
 
 def fold_batchnorm(params: Params, bn_stats: Params, config: SegNetConfig) -> Params:
@@ -700,15 +663,16 @@ def fold_batchnorm(params: Params, bn_stats: Params, config: SegNetConfig) -> Pa
             a, torch.Tensor) else a.detach().to("cpu", torch.float32)
 
     folded: Params = {}
-    for block, conv, _shape in conv_layers(config):
-        if _linear_up(config, conv):
+    for step in _conv_steps(config):
+        block, conv = step.block, step.conv
+        if step.op == LINEAR_UP:
             folded.setdefault(block, {})[conv] = {
                 "w": t(params[block][conv]).numpy().copy(),
                 "b": t(params[block]["up_bias"]).numpy().copy()}
             continue
-        bn = params[block][_bn_name(conv)]
-        st = bn_stats[block][_bn_name(conv)]
-        scale = t(bn["gamma"]) / torch.sqrt(t(st["var"]) + _BN_EPS)
+        bn = params[block][step.bn]
+        st = bn_stats[block][step.bn]
+        scale = t(bn["gamma"]) / torch.sqrt(t(st["var"]) + BN_EPS)
         folded.setdefault(block, {})[conv] = {
             "w": (t(params[block][conv]) * scale).numpy(),
             "b": (t(bn["beta"]) - t(st["mean"]) * scale).numpy(),

@@ -1,18 +1,18 @@
-"""The training step's batch norm and ReLU as one operation, forward and
-backward: ``relu(_bn_train(h))`` of ``models/segnet.py``'s ``_unit`` with
-batch statistics, for one shard and no fold.
+"""The training step's batch norm and ReLU with batch statistics, forward
+and backward. ``models/segnet.py``'s ``_unit`` calls ``bn_relu_shards``,
+which picks the op below for one shard and ``bn_plain`` under sync BN.
 
 ``bn_relu(h, gamma, beta) -> (y, mean, var)`` takes the conv output ``h``
 ([N, C, H, W] in the compute dtype, bf16 or f32) and the layer's f32
 ``gamma`` and ``beta`` [C]; ``mean`` and ``var`` are the batch's f32
 statistics that ``_bn_update`` folds into the running ones. On CPU tensors
-it runs ``bn_relu_plain``, which is ``_bn_train`` and the ReLU themselves,
+it runs ``bn_relu_plain``, which is ``bn_plain`` and the ReLU themselves,
 and autograd over them is the plain backward. On CUDA tensors it runs the
 hand-written kernels of ``csrc/bn_relu.cu`` through a
 ``torch.autograd.Function`` (two launches forward, two backward), or
 raises: nothing falls back from a CUDA tensor to the plain version.
 
-The kernels keep ``_bn_train``'s arithmetic on the card (its source note
+The kernels keep ``bn_plain``'s arithmetic on the card (its source note
 lists each rounding point): f32 statistics of the compute-dtype values,
 var = max(E[h^2] - E[h]^2, 0), scale and shift rounded to the compute dtype
 once per channel, y = relu(T(T(h * scale) + shift)). The statistics are
@@ -40,7 +40,7 @@ import torch
 from annonet_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_EPS = 1e-5  # models/segnet.py _BN_EPS
+BN_EPS = 1e-5  # the batch norm's, in training and in segnet.fold_batchnorm
 # the kernels' limit: C / (16 / element size) 16-byte chunks a row at most
 # (C elements a row when C is not a multiple of the chunk)
 _MAX_CHUNKS = 256
@@ -59,11 +59,43 @@ _SCRATCH: Dict[Tuple[int, int], list] = {}
 _ROWS = ("mean", "var", "inv", "scale", "shift", "diff", "a", "b")
 
 
-def bn_relu_plain(h, gamma, beta):
-    """The eager unit: ``_bn_train`` of one shard, then the ReLU."""
-    from annonet_tpu_torch.models.segnet import _bn_train
+def bn_moments(h):
+    """[2, C] f32: the mean and mean square of NCHW ``h`` over (N, H, W), through
+    a [N, C, H * W] view, in whose autograd node the two moments' f32 gradients
+    are summed before they meet the normalisation's at ``h``."""
+    x32 = h.to(torch.float32).flatten(2)
+    return torch.stack([x32.mean(dim=(0, 2)), x32.square().mean(dim=(0, 2))])
 
-    (z,), mean, var = _bn_train([h], [gamma], [beta])
+
+def bn_plain(hs, gammas, betas, reducer=None):
+    """Batch norm of NCHW ``hs`` over (N, H, W), as the JAX package's
+    segnet.py _bn_train: f32 statistics of the compute-dtype activations,
+    var = max(E[h^2] - E[h]^2, 0), scale and shift rounded to the compute
+    dtype once per channel, the normalisation in the compute dtype. Returns
+    (outs, mean, var). Not F.batch_norm: its running statistics take the
+    unbiased variance.
+
+    ``hs``, ``gammas`` and ``betas`` are lists over the shards, one of each
+    without a ``reducer``. With one (sync BN, ``parallel/train.py``), each
+    shard's mean and mean square are averaged over every shard of the
+    mesh, its other processes' too (JAX's ``pmean`` under shard_map), and
+    each shard is normalised with those statistics on its own device."""
+    moments = [bn_moments(h) for h in hs]
+    moments = moments if reducer is None else reducer.mean(moments)
+    out, stats = [], None
+    for h, (mean, mean_sq), g, b in zip(hs, moments, gammas, betas):
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
+        inv = torch.rsqrt(var + BN_EPS)
+        scale = (inv * g).to(h.dtype)
+        shift = (b - mean * inv * g).to(h.dtype)
+        out.append(h * scale[:, None, None] + shift[:, None, None])
+        stats = stats or (mean, var)  # the first shard's, on the home device
+    return out, *stats
+
+
+def bn_relu_plain(h, gamma, beta):
+    """The eager unit: ``bn_plain`` of one shard, then the ReLU."""
+    (z,), mean, var = bn_plain([h], [gamma], [beta])
     return torch.relu(z), mean, var
 
 
@@ -84,10 +116,9 @@ def _closed_form(h, gamma, beta, dy, sums):
     """The closed form's terms in f32: (h, dz * scale, a, b, dgamma, dbeta),
     the sums of dz and dz * h taken in ``sums`` and rounded to f32."""
     x32 = h.to(torch.float32)
-    moments = x32.unflatten(1, (1, -1))
-    mean = moments.mean(dim=(0, 1, 3, 4))
-    diff = moments.square().mean(dim=(0, 1, 3, 4)) - mean.square()
-    inv = torch.rsqrt(torch.clamp(diff, min=0.0) + _EPS)
+    mean, mean_sq = bn_moments(h)
+    diff = mean_sq - mean.square()
+    inv = torch.rsqrt(torch.clamp(diff, min=0.0) + BN_EPS)
     scale = (inv * gamma).to(h.dtype)
     shift = (beta - mean * inv * gamma).to(h.dtype)
     z = h * scale[:, None, None] + shift[:, None, None]
@@ -102,7 +133,7 @@ def _closed_form(h, gamma, beta, dy, sums):
 def bn_relu_backward_plain(h, gamma, beta, dy):
     """The closed-form backward of ``bn_relu_plain`` in f32: (dh, dgamma,
     dbeta), dh = dz * scale + a + b * h with dz = dy where y > 0, from the
-    forward's terms as ``_bn_train`` computes them."""
+    forward's terms as ``bn_plain`` computes them."""
     x32, dz_scale, a, b, dgamma, dbeta = _closed_form(h, gamma, beta, dy, torch.float32)
     return dz_scale + a[:, None, None] + b[:, None, None] * x32, dgamma, dbeta
 
@@ -243,13 +274,24 @@ class _BnRelu(torch.autograd.Function):
 
 def bn_relu(h, gamma, beta):
     """relu(batch norm of ``h`` over (N, H, W) with batch statistics):
-    (y in ``h``'s dtype and layout, mean, var), as ``_bn_train`` and the
-    ReLU of ``models/segnet.py``'s ``_unit``."""
+    (y in ``h``'s dtype and layout, mean, var), as ``bn_relu_plain``."""
     _check(h, gamma, beta)
     if h.device.type == "cpu":
         return bn_relu_plain(h, gamma, beta)
     bn_relu.units += 1
     return _BnRelu.apply(h, gamma, beta)
+
+
+def bn_relu_shards(hs, gammas, betas, reducer=None):
+    """The unit's batch norm and ReLU over the shards ``hs`` (each with its
+    own gamma and beta): (ys, mean, var), the statistics the first
+    shard's. One shard without a ``reducer`` runs ``bn_relu`` (the kernels
+    on the card); with one, ``bn_plain`` over every shard of the mesh."""
+    if reducer is None:
+        y, mean, var = bn_relu(hs[0], gammas[0], betas[0])
+        return [y], mean, var
+    zs, mean, var = bn_plain(hs, gammas, betas, reducer)
+    return [torch.relu(z) for z in zs], mean, var
 
 
 bn_relu.launches = 0

@@ -39,7 +39,6 @@ import numpy as np
 import torch
 
 from annonet_tpu_torch import serialization
-from annonet_tpu_torch.models.folded_runtime import apply_train_folded, folded_training_applies
 from annonet_tpu_torch.models.segnet import (
     Params,
     SegNetConfig,
@@ -78,10 +77,6 @@ class TrainerConfig:
     remat: bool = False  # recompute each conv unit in the backward pass
     # the 3x3 convs' forward in int8 (straight-through; ops/int8_train.py)
     int8_forward: bool = False
-    # the forward on the width-folded layout (models/folded_runtime.py
-    # apply_train_folded) where it applies: not under remat, crop width a
-    # multiple of 8, RGB input
-    folded_training: bool = False
     # device losses are read back in batches of this size: with 1 every
     # step blocks on the device (reference-like); larger values keep steps
     # in flight while the plateau detector sees losses up to 2N-1 late
@@ -118,16 +113,9 @@ def _sgd(params: List[torch.Tensor], velocity: List[torch.Tensor],
 
 def train_forward(params, bn_stats, images, model_config: SegNetConfig,
                   trainer_config: TrainerConfig, bn_momentum: float, reducer=None):
-    """The training forward the config asks for, as the JAX step's
-    ``loss_fn`` picks it: folded (``apply_train_folded``) where
-    ``folded_training`` applies, else ``apply_train`` with the int8 conv
-    under ``int8_forward``. ``reducer``: the data-parallel forward over a
-    list of shards (``parallel/train.py``)."""
-    width = (images[0] if reducer is not None else images).shape[2]
-    if trainer_config.folded_training and folded_training_applies(
-            model_config, width, trainer_config.remat):
-        return apply_train_folded(params, bn_stats, images, model_config,
-                                  bn_momentum=bn_momentum, reducer=reducer)
+    """The training forward the config asks for: ``apply_train`` with the
+    int8 conv under ``int8_forward``. ``reducer``: the data-parallel forward
+    over a list of shards (``parallel/train.py``)."""
     return apply_train(
         params, bn_stats, images, model_config, bn_momentum=bn_momentum,
         remat=trainer_config.remat,
@@ -212,8 +200,6 @@ class Trainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         if trainer_config.int8_forward:
             require_segnet(model_config, "int8 training (--int8-training)")
-        if trainer_config.folded_training:
-            require_segnet(model_config, "folded training")
         self.model_config = model_config
         self.config = trainer_config
         params, bn_stats = init_state(model_config, seed)

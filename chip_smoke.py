@@ -186,8 +186,6 @@ Phases (any failure raises, and the exit code is then nonzero):
               bf16 on the card and on the CPU: 8 Q1-acc and 3 Q2-acc
               launches, each launch's int32 sums equal to its plain
               version on the same operands, the losses within 1e-2
- 11f. train_step_folded one folded training step (folded_training) in
-              f32 on the card against the CPU, at phase 11's f32 tolerance
  12. train     annonet_train in-process at the flagship's width and depth
               (--level-count 3: 192² crops), -b 128, 40 steps, the device
               image pool, -l -u -n 2 -o, brightness p 0.5, --deterministic-
@@ -2550,9 +2548,6 @@ def training_phases(device) -> tuple:
         print("[train_step_int8] one int8 straight-through step, card against CPU", flush=True)
         check_int8_step(device, data)
         elapsed()
-        print("[train_step_folded] one folded training step, card against CPU", flush=True)
-        check_folded_step(device, data)
-        elapsed()
         print(f"[train] annonet_train --level-count 3 -b {TRAIN_BATCH} --max-total-steps "
               f"{TRAIN_STEPS}, float validation, then resumed with int8 validation", flush=True)
         launches = train_cli_phase(work, data, validation, device)
@@ -2917,7 +2912,7 @@ def accuracy_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Data-parallel, multi-process, int8 and folded training
+# Data-parallel, multi-process and int8 training
 
 # the data-parallel phases' virtual mesh of the card, and the crops of the
 # 11m step (8 crops of 192², 4 a shard)
@@ -3371,26 +3366,6 @@ def check_int8_step(device, data: str) -> None:
           f"NHWC view free, no layout copy): {sum(layouts)} of {len(layouts)}", flush=True)
     if launches != INT8_TRAIN_LAUNCHES or same != len(calls) or gap > TRAIN_LOSS_RTOL:
         raise AssertionError("the card's int8 train step failed its checks")
-
-
-def check_folded_step(device, data: str) -> None:
-    """One folded training step (TrainerConfig(folded_training=True),
-    models/folded_runtime.py apply_train_folded) of the flagship in f32 on
-    the card against the CPU, 4 crops with the same draws: loss and every
-    update within TRAIN_F32_TOL, as phase 11's f32 step."""
-    from annonet_tpu_torch.train import Trainer, TrainerConfig
-
-    config = dataclasses.replace(flagship_config(), compute_dtype="float32")
-    runs = {d.type: one_step(Trainer(config, TrainerConfig(folded_training=True), seed=SEED,
-                                     device=d), data, 4)
-            for d in (device, torch.device("cpu"))}
-    (l_c, p_c, before), (l_h, p_h, _b) = runs["cuda"], runs["cpu"]
-    gaps = update_gaps(p_c, p_h, before)
-    loss_gap = abs(l_c - l_h) / abs(l_h)
-    print(f"  folded f32 step: loss card {l_c:.6f} CPU {l_h:.6f} (gap {loss_gap:.3e}); "
-          f"largest update gaps {worst_gaps(gaps)} (limit {TRAIN_F32_TOL})", flush=True)
-    if loss_gap > TRAIN_F32_TOL or max(gaps.values()) > TRAIN_F32_TOL:
-        raise AssertionError("the card's folded train step disagrees with the CPU's")
 
 
 def timed_train_run(work: str, data: str, tag: str, extra, steps: int, wrappers=None,

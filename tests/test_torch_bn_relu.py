@@ -1,6 +1,6 @@
 """The training unit's batch norm and ReLU op (``ops/bn_relu.py``) on the
 CPU: its closed-form backward against autograd over the eager unit
-(``_bn_train`` and the ReLU), its autograd glue with the two launches
+(``bn_plain`` and the ReLU), its autograd glue with the two launches
 replaced by the plain versions, the layout rules that choose the kernels'
 paths, and where ``apply_train`` engages it. The kernels themselves run in
 tests/test_torch_cuda.py on the card.
@@ -26,10 +26,9 @@ RTOL = 1e-5
 
 
 def _moments_diff(h):
-    """mean(h^2) - mean(h)^2 per channel, as ``_bn_train`` computes it."""
-    x32 = h.to(torch.float32).unflatten(1, (1, -1))
-    mean = x32.mean(dim=(0, 1, 3, 4))
-    return x32.square().mean(dim=(0, 1, 3, 4)) - mean.square()
+    """mean(h^2) - mean(h)^2 per channel, as ``bn_plain`` computes it."""
+    mean, mean_sq = op.bn_moments(h)
+    return mean_sq - mean.square()
 
 
 def _case(n, c, hh, ww, seed):
@@ -54,7 +53,7 @@ def _case(n, c, hh, ww, seed):
 
 def _autograd(h, gamma, beta, dy):
     h, gamma, beta = (t.clone().requires_grad_(True) for t in (h, gamma, beta))
-    (z,), _mean, _var = segnet._bn_train([h], [gamma], [beta])
+    (z,), _mean, _var = op.bn_plain([h], [gamma], [beta])
     torch.relu(z).backward(dy)
     return h.grad, gamma.grad, beta.grad
 
@@ -91,10 +90,9 @@ def test_closed_form_backward_in_bf16_matches_f32_autograd_of_the_same_values():
     got = op.bn_relu_backward_plain(xb, gamma, beta, dyb)
     x32 = xb.to(torch.float32).requires_grad_(True)
     g, b = gamma.clone().requires_grad_(True), beta.clone().requires_grad_(True)
-    moments = x32.unflatten(1, (1, -1))
-    mean = moments.mean(dim=(0, 1, 3, 4))
-    var = torch.clamp(moments.square().mean(dim=(0, 1, 3, 4)) - mean.square(), min=0.0)
-    inv = torch.rsqrt(var + segnet._BN_EPS)
+    mean, mean_sq = op.bn_moments(x32)
+    var = torch.clamp(mean_sq - mean.square(), min=0.0)
+    inv = torch.rsqrt(var + op.BN_EPS)
     scale, shift = inv * g, b - mean * inv * g
     # the forward's bf16 values with an identity gradient (straight through)
     sb = scale + (scale.to(torch.bfloat16).float() - scale).detach()
@@ -113,7 +111,7 @@ def test_bn_relu_on_the_cpu_is_the_eager_unit():
     for dtype in (torch.float32, torch.bfloat16):
         h = x.to(dtype)
         y, mean, var = op.bn_relu(h, gamma, beta)
-        (z,), mean0, var0 = segnet._bn_train([h], [gamma], [beta])
+        (z,), mean0, var0 = op.bn_plain([h], [gamma], [beta])
         assert y.dtype == dtype
         assert torch.equal(y, torch.relu(z)) and torch.equal(mean, mean0)
         assert torch.equal(var, var0)
@@ -217,24 +215,30 @@ def test_wrapper_checks_its_arguments():
         op.bn_relu(h.to(torch.int32), torch.ones(4), torch.zeros(4))
 
 
-def test_apply_train_runs_the_op_in_every_unit_without_a_reducer(monkeypatch):
-    """14 units in the flagship's depth (level 3); the data-parallel path
-    (a reducer) keeps _bn_train."""
+@pytest.mark.parametrize("topology,level_count,widths", [
+    ("segnet", 3, [4, 4, 8, 8, 16, 16, 32, 32, 16, 16, 8, 8, 4, 4]),
+    ("unet", 4, [4, 4, 8, 8, 16, 16, 32, 32, 64, 64, 32, 32, 16, 16, 8, 8, 4, 4]),
+])
+def test_apply_train_runs_the_op_in_every_unit_without_a_reducer(monkeypatch, topology,
+                                                                  level_count, widths):
+    """14 units in the flagship's depth (level 3), 18 in the U-Net's at
+    level 4; the data-parallel path (a reducer) keeps bn_plain."""
     calls = []
-    real = segnet.bn_relu
+    real = op.bn_relu
 
     def counting(*args):
         calls.append(args[0].shape[1])
         return real(*args)
 
-    monkeypatch.setattr(segnet, "bn_relu", counting)
-    config = segnet.SegNetConfig(class_count=3, level_count=3, base_width=4)
+    monkeypatch.setattr(op, "bn_relu", counting)
+    config = segnet.SegNetConfig(class_count=3, level_count=level_count, base_width=4,
+                                 topology=topology)
     params, stats = segnet.init_state(config, 0)
     p, s, _ = segnet.train_state_from_numpy(params, stats, None, "cpu")
     x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 16, 16, 3),
                                                            dtype=np.uint8))
     segnet.apply_train(p, s, x, config)
-    assert calls == [4, 4, 8, 8, 16, 16, 32, 32, 16, 16, 8, 8, 4, 4]
+    assert calls == widths
 
 
 def test_module_imports_and_runs_on_the_cpu_without_nvcc():

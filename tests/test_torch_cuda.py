@@ -1120,7 +1120,7 @@ def test_update_params_then_validation_launches_the_kernels(device):
 
 # ------------------------------------------- the training unit's BN + ReLU
 #
-# ops/bn_relu.py's kernels against the eager unit (_bn_train and the ReLU,
+# ops/bn_relu.py's kernels against the eager unit (bn_plain and the ReLU,
 # on the card) and the f32 closed-form backward. Values of h on a grid of
 # 1/8 in [-1, 1] make every f32 sum of these sizes exact in any order, so
 # the kernels' statistics are torch's and their scale and shift the eager
@@ -1299,9 +1299,9 @@ def _flagship_step(device, monkeypatch, seed: int):
     from annonet_tpu_torch.train import Trainer, TrainerConfig
 
     def refuse(*_args, **_kwargs):
-        raise AssertionError("the eager _bn_train ran on the card")
+        raise AssertionError("the eager bn_plain ran on the card")
 
-    monkeypatch.setattr(segnet, "_bn_train", refuse)
+    monkeypatch.setattr(op, "bn_plain", refuse)
     config = segnet.SegNetConfig(class_count=3, level_count=3, base_width=16)
     trainer = Trainer(config, TrainerConfig(), seed=seed, device=device)
     rng = np.random.default_rng(seed)

@@ -97,7 +97,8 @@ def test_init_state_has_the_jax_tree():
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("level_count,grayscale", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("level_count,grayscale",
+                         [(0, False), (1, False), (2, False), (2, True), (3, False)])
 def test_apply_train_matches_jax(level_count, grayscale, compute_dtype):
     config = SegNetConfig(class_count=3, level_count=level_count, grayscale=grayscale,
                           base_width=8, compute_dtype=compute_dtype)

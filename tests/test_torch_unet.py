@@ -282,19 +282,12 @@ def _refuse_folded_runtime(config):
     FoldedSegNet({}, config, 2, device="cpu")
 
 
-def _refuse_folded_training(config):
-    from annonet_tpu_torch.train import Trainer, TrainerConfig
-
-    Trainer(config, TrainerConfig(folded_training=True), device="cpu")
-
-
 def _refuse_pallas_conv(config):
     TiledInferer({}, config, device="cpu", use_pallas_conv=True)
 
 
 @pytest.mark.parametrize("path", [_refuse_int8_inference, _refuse_int8_training,
-                                  _refuse_folded_runtime, _refuse_folded_training,
-                                  _refuse_pallas_conv])
+                                  _refuse_folded_runtime, _refuse_pallas_conv])
 def test_paths_without_the_unet_refuse_it(path):
     with pytest.raises(ValueError, match="SegNet topology only"):
         path(_config("bfloat16"))
