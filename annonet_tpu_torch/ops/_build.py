@@ -80,16 +80,18 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I, _P,
     ],
-    # h, y, gamma, beta, buf, partial, max_blocks, ticket, rows, c, vec,
-    # bf16, device, stream
+    # h, y, gamma, beta, buf, partial, per_pass, max_blocks, blocks,
+    # cluster, tickets, rows, c, vec, bf16, device, stream
     "annonet_bn_relu_forward": [
-        _P, _P, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I64, _I, _I, _I, _I, _P,
     ],
-    # h, dy, ld_dy, dh, gamma, buf, dgamma, dbeta, partial, max_blocks,
-    # ticket, rows, c, vec, bf16, device, stream
+    # h, dy, ld_dy, dh, gamma, buf, dgamma, dbeta, partial, per_pass,
+    # max_blocks, blocks, cluster, tickets, rows, c, vec, bf16, device, stream
     "annonet_bn_relu_backward": [
-        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _P, _I64, _I, _I, _I, _I, _P,
+        _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I64, _I, _I, _I, _I, _P,
     ],
+    # backward, c, per_pass, cluster, vec, bf16, device
+    "annonet_bn_relu_clusters": [_I, _I, _I, _I, _I, _I, _I],
     # labels, out, ticket, counts, table, n, hw, k, class exponent, image
     # weight, vec, device, stream
     "annonet_label_weights": [

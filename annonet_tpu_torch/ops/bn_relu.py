@@ -28,11 +28,14 @@ decoder's concat hands its parts such slices); any other layout is copied
 to channels_last first, and counted in ``bn_relu.dy_copies``.
 
 Counters: ``bn_relu.units`` (forward calls on the card), ``bn_relu.launches``
-(kernel launches, forward and backward).
+(kernel launches, forward and backward), ``bn_relu.cluster_reductions``
+(reduction launches that combined their blocks' sums across a thread-block
+cluster; ``reduce_geometry``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -50,11 +53,23 @@ _MAX_CHUNKS = 256
 # wave; the forward's fastest at three (its apply kernel's occupancy).
 _FORWARD_BLOCKS_PER_SM = 3
 _BACKWARD_BLOCKS_PER_SM = 2
-# per (device, stream): [SMs, workspace, C] -- the workspace's first word
-# is the reductions' ticket (zeroed, and left zero by each launch), then
-# from byte 16 the partial sums [blocks, 2, C] of the widest C so far. A
-# stream's launches run in order, so they share it.
+# the kernels' launch geometry, which the library takes as it is given:
+# blocks of at most 256 threads (csrc/bn_relu.cu kThreads, its limit), each
+# thread of a reduction at least 32 rows, and the reductions' cluster sizes
+# tried, largest first (csrc/bn_relu.cu kMaxCluster, the largest). 2 is for grids that fill the card:
+# the bf16 backward reduction (127 registers a thread) holds 2 blocks an SM,
+# and an H100 holds 62 clusters of 4 of them, 248 blocks of its 264.
+_THREADS = 256
+_MIN_ROWS = 32
+_CLUSTERS = (16, 8, 4, 2)
+# per (device, stream): [SMs, workspace, C] -- the workspace's first 64
+# bytes are the reductions' 16 tickets (zeroed, and left zero by each
+# launch), then the clusters' partial sums [blocks, C, 2] f64 of the
+# widest C so far. A stream's launches run in order, so they share it.
 _SCRATCH: Dict[Tuple[int, int], list] = {}
+# per (device, backward, C, 16-byte chunks, bf16, cluster size): the
+# clusters of the reduction that the card holds at once
+_CAPACITY: Dict[tuple, int] = {}
 # rows of the kernels' per-channel buffer [8, C] f32 (csrc/bn_relu.cu Row)
 _ROWS = ("mean", "var", "inv", "scale", "shift", "diff", "a", "b")
 
@@ -142,7 +157,7 @@ def bn_relu_backward_terms(h, gamma, beta, dy):
     """What checks of the kernels' backward hold it to: (the largest of
     |dz * scale|, |a| and |b * h| at each element of dh, a [C], b [C]),
     with dh's coefficients a and b from sums taken in f64 and rounded to
-    f32, as the kernels' last block rounds its totals."""
+    f32, as the kernels' finishing blocks round their totals."""
     x32, dz_scale, a, b, _dgamma, _dbeta = _closed_form(h, gamma, beta, dy, torch.float64)
     largest = torch.maximum(dz_scale.abs(), (b[:, None, None] * x32).abs())
     return torch.maximum(largest, a.abs()[:, None, None]), a, b
@@ -199,19 +214,65 @@ def _vec(c: int, tensors, pitch: int = None) -> int:
     return int(c % chunk == 0 and aligned and (pitch is None or pitch % chunk == 0))
 
 
-def _scratch(h: torch.Tensor):
-    """(partial sums' pointer, the device's SMs, the ticket's pointer, the
-    stream) of ``h``'s device and current stream."""
+def rows_a_pass(c: int, chunk: int) -> int:
+    """The rows a block of the op's kernels walks at once, when each
+    thread reads ``chunk`` of a row's ``c`` channels at a time (16 bytes'
+    worth, or 1): as many as _THREADS threads hold. The library launches
+    blocks of this many rows' threads."""
+    return _THREADS // (c // chunk)
+
+
+def reduce_geometry(rows: int, c: int, chunk: int, max_blocks: int, capacity):
+    """(blocks, cluster, launched) of a reduction over ``rows`` rows of
+    ``c`` channels, ``chunk`` at a time: the logical grid, which fixes
+    each block's rows and so its sums (at least 32 rows a thread, at most
+    ``max_blocks`` blocks); the largest size of _CLUSTERS of which the
+    card holds the grid's clusters at once (``capacity(k)``: clusters of
+    k blocks resident together), else 1; and the blocks launched, the grid
+    rounded up to whole clusters (the extra ones walk no rows)."""
+    blocks = min(max_blocks, -(-rows // (rows_a_pass(c, chunk) * _MIN_ROWS)))
+    for k in _CLUSTERS:
+        clusters = -(-blocks // k)
+        if blocks >= k and clusters <= capacity(k):
+            return blocks, k, clusters * k
+    return blocks, 1, blocks
+
+
+def _capacity(index: int, backward: bool, c: int, chunk: int, bf16: int, k: int) -> int:
+    """The clusters of ``k`` blocks of the reduction that device ``index``
+    holds at once, as the library reports them (asked once a key)."""
+    key = (index, backward, c, chunk, bf16, k)
+    n = _CAPACITY.get(key)
+    if n is None:
+        n = _build.lib().annonet_bn_relu_clusters(int(backward), c, rows_a_pass(c, chunk), k,
+                                                  int(chunk > 1), bf16, index)
+        if n < 0:
+            _build.check(-n, "annonet_bn_relu_clusters")
+        _CAPACITY[key] = n
+    return n
+
+
+def _workspace(h: torch.Tensor, rows: int, vec: int, backward: bool):
+    """(partial sums' pointer, tickets' pointer, stream, rows a pass, the
+    second kernel's most blocks, the reduction's blocks and cluster) of
+    ``h``'s device and current stream; the geometry is ``reduce_geometry``
+    of the card's capacity for clusters."""
     index, c = h.device.index, h.shape[1]
     stream = torch._C._cuda_getCurrentRawStream(index)
     entry = _SCRATCH.get((index, stream))
     if entry is None or entry[2] < c:
         sms = torch.cuda.get_device_properties(h.device).multi_processor_count
         blocks = max(_FORWARD_BLOCKS_PER_SM, _BACKWARD_BLOCKS_PER_SM) * sms
-        work = torch.zeros(4 + blocks * 2 * c, dtype=torch.float32, device=h.device)
+        work = torch.zeros(8 + blocks * 2 * c, dtype=torch.float64, device=h.device)
         entry = _SCRATCH[(index, stream)] = [sms, work, c]
     sms, work, _c = entry
-    return work.data_ptr() + 16, sms, work.data_ptr(), stream
+    max_blocks = (_BACKWARD_BLOCKS_PER_SM if backward else _FORWARD_BLOCKS_PER_SM) * sms
+    chunk = 16 // h.element_size() if vec else 1
+    capacity = functools.partial(_capacity, index, backward, c, chunk,
+                                 int(h.dtype == torch.bfloat16))
+    blocks, cluster, _launched = reduce_geometry(rows, c, chunk, max_blocks, capacity)
+    return (work.data_ptr() + 64, work.data_ptr(), stream, rows_a_pass(c, chunk), max_blocks,
+            blocks, cluster)
 
 
 def _forward(h, gamma, beta):
@@ -221,13 +282,16 @@ def _forward(h, gamma, beta):
     rows = h.numel() // c
     y = torch.empty_like(h)
     buf = torch.empty((8, c), dtype=torch.float32, device=h.device)
-    partial, sms, ticket, stream = _scratch(h)
+    vec = _vec(c, (h, y))
+    partial, tickets, stream, per_pass, max_blocks, blocks, cluster = _workspace(
+        h, rows, vec, False)
     code = _build.lib().annonet_bn_relu_forward(
         h.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), buf.data_ptr(),
-        partial, _FORWARD_BLOCKS_PER_SM * sms, ticket, rows, c, _vec(c, (h, y)),
+        partial, per_pass, max_blocks, blocks, cluster, tickets, rows, c, vec,
         int(h.dtype == torch.bfloat16), h.device.index, stream)
     _build.check(code, "annonet_bn_relu_forward")
     bn_relu.launches += 2
+    bn_relu.cluster_reductions += int(cluster > 1)
     return y, buf
 
 
@@ -243,14 +307,16 @@ def _backward(h, gamma, buf, dy):
     dh = torch.empty_like(h)
     dgamma = torch.empty(c, dtype=torch.float32, device=h.device)
     dbeta = torch.empty(c, dtype=torch.float32, device=h.device)
-    partial, sms, ticket, stream = _scratch(h)
+    vec = _vec(c, (h, dy, dh), pitch)
+    partial, tickets, stream, per_pass, max_blocks, blocks, cluster = _workspace(
+        h, rows, vec, True)
     code = _build.lib().annonet_bn_relu_backward(
         h.data_ptr(), dy.data_ptr(), pitch, dh.data_ptr(), gamma.data_ptr(),
-        buf.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), partial,
-        _BACKWARD_BLOCKS_PER_SM * sms, ticket, rows, c, _vec(c, (h, dy, dh), pitch),
-        int(h.dtype == torch.bfloat16), h.device.index, stream)
+        buf.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), partial, per_pass, max_blocks,
+        blocks, cluster, tickets, rows, c, vec, int(h.dtype == torch.bfloat16), h.device.index, stream)
     _build.check(code, "annonet_bn_relu_backward")
     bn_relu.launches += 2
+    bn_relu.cluster_reductions += int(cluster > 1)
     return dh, dgamma, dbeta
 
 
@@ -295,5 +361,6 @@ def bn_relu_shards(hs, gammas, betas, reducer=None):
 
 
 bn_relu.launches = 0
+bn_relu.cluster_reductions = 0
 bn_relu.units = 0
 bn_relu.dy_copies = 0

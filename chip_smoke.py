@@ -62,6 +62,14 @@ Phases (any failure raises, and the exit code is then nonzero):
               unit's forward and autograd backward and its byte bound
               (the function's bytes: two passes forward, three
               backward; the two kernels' three and five beside it); then
+              the same checks at the U-Net cell's 18 units (batch 16 at
+              624², where the reductions combine across clusters of 16
+              and 2), with the op's four kernels alone (the L2 flushed
+              before each forward and backward, every launch of every
+              step held in the trace): each one's time a launch beside
+              its streaming floor (its passes over the unit's values at
+              the HBM rate), the forward and backward reductions' excess
+              over theirs printed a unit; then
               the training step's loss weights (ops/weighting.py,
               csrc/label_weights.cu; it replaces no TPU kernel) at the
               benchmark cells' batches (16 x 624² and 128 x 192²),
@@ -3025,14 +3033,20 @@ _BN_RELU_PATH = "annonet_tpu_torch/ops/bn_relu.py"
 
 def bn_relu_units(config, side: int):
     """(unit, C, side, its output gradient a slice of the decoder's concat)
-    of the training net's units at ``side``² crops, in forward order."""
-    from annonet_tpu_torch.models.segnet import conv_layers
+    of the training net's BN units at ``side``² crops, in forward order:
+    the layer plan's units, at the side its pools and stride-2 steps halve
+    and its up steps double (annonet's up units are BN units; the U-Net's
+    linear up layers are not)."""
+    from annonet_tpu_torch.models.segnet import POOL, UNIT, layer_plan
 
     out = []
-    for block, conv, shape in conv_layers(config):
-        if conv == "up" or (block.startswith("enc") and conv == "conv0"):
-            side = side * 2 if conv == "up" else side // 2
-        out.append((f"{block}/{conv}", shape[-1], side, conv == "up"))
+    for step in layer_plan(config):
+        if step.conv == "up":
+            side *= 2
+        elif step.op == POOL or step.stride == 2:
+            side //= 2
+        if step.op == UNIT:
+            out.append((f"{step.block}/{step.conv}", step.shape[-1], side, step.conv == "up"))
     return out
 
 
@@ -3053,29 +3067,36 @@ def bn_relu_bound(units, n: int, element_bytes: int = 2, passes=(2, 3)):
 BN_RELU_DESIGN_PASSES = (3, 5)
 
 
-def check_bn_relu(device, reps: int, generator) -> dict:
-    """The op at the flagship train step's 14 units (batch TRAIN_BATCH at
-    192², bf16; an up unit's output gradient its part of the concat's),
-    through ``bn_relu`` and autograd, on h = k/4, k in -2..2: every f32 sum
-    of these sizes is then exact in any order, so the statistics are
-    torch's and y is the eager unit's within one bf16 step. dh is held to
-    the f32 closed form within one bf16 step of its largest term at each
-    element (dh, dz * scale, a, b * h: where the ReLU passes nothing,
-    the batch statistics' terms alone), the coefficients a and b the
-    backward leaves in its buffer within 1e-5 of the closed form's from
-    f64 sums, dgamma and dbeta within 1e-4. Its kernels' device time
-    (``kernel_ms``) beside the eager unit's (autograd's backward) and the
-    byte bound. Returns {"bn_relu": tally, "forward": tally, "backward":
-    tally}."""
+def check_bn_relu(device, reps: int, generator, config, n: int, crop: int,
+                  kernel_reps: int = 0) -> dict:
+    """The op at ``config``'s BN units, batch ``n`` at ``crop``² crops,
+    bf16 (an up unit's output gradient its part of the concat's), through
+    ``bn_relu`` and autograd, on h = k/4, k in -2..2: every f32 sum of
+    these sizes is then exact in any order (the sums of h^2 in 16ths, about
+    2 a row, stay below 2^24 up to some 8 M rows), so the statistics must
+    equal torch's bit for bit, and y is the eager unit's within one bf16
+    step. dh is held to the f32 closed form within one bf16 step of its
+    largest term at each element (dh, dz * scale, a, b * h: where the ReLU
+    passes nothing, the batch statistics' terms alone), the coefficients a
+    and b the backward leaves in its buffer within 1e-5 of the closed
+    form's from f64 sums, dgamma and dbeta within 1e-4. With ``reps``, the
+    op's device time (``kernel_ms``) beside the eager unit's (autograd's
+    backward) and the byte bound; with ``kernel_reps``, each of its four
+    kernels alone (``bn_relu_kernel_times``) beside its streaming floor.
+    Returns {"bn_relu": tally, "forward": tally, "backward": tally}, and
+    with ``kernel_reps`` "kernels": {unit: {kernel: [ms a launch, floor
+    ms]}}."""
     from annonet_tpu_torch.ops import bn_relu as op
 
     def rel(got, want):
         return float(((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item())
 
-    dim = train_crop_dim(flagship_config())
+    units = bn_relu_units(config, crop)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device) if kernel_reps else None
     results: dict = {}
-    for unit, c, side, sliced in bn_relu_units(flagship_config(), dim):
-        shape = (TRAIN_BATCH, side, side, c)
+    kernels: dict = {}
+    for unit, c, side, sliced in units:
+        shape = (n, side, side, c)
         k = torch.randint(-2, 3, shape, generator=generator, device=device)
         h = (k.to(torch.float32) / 4).to(torch.bfloat16).permute(0, 3, 1, 2)
         del k
@@ -3084,12 +3105,15 @@ def check_bn_relu(device, reps: int, generator) -> dict:
         dy = torch.randn(shape[:3] + (2 * c if sliced else c,), generator=generator,
                          device=device).to(torch.bfloat16).permute(0, 3, 1, 2)[:, :c]
         hg, gg, bg = (t.detach().requires_grad_(True) for t in (h, gamma, beta))
+        launches = op.bn_relu.launches
         y, mean, var = op.bn_relu(hg, gg, bg)
         rows = op.saved_rows(y)
         dh, dgamma, dbeta = torch.autograd.grad(y, (hg, gg, bg), dy)
+        launches = op.bn_relu.launches - launches
         y0, mean0, var0 = op.bn_relu_plain(h, gamma, beta)
         torch.cuda.synchronize()
         stats_err = max(rel(mean, mean0), rel(var, var0))
+        stats_unequal = int((mean != mean0).sum() + (var != var0).sum())
         y = y.detach()
         y_err = float((y.float() - y0.float()).abs().max())
         y_tol = bf16_step(float(y0.float().abs().max()))
@@ -3127,31 +3151,132 @@ def check_bn_relu(device, reps: int, generator) -> dict:
             k_f = (k_f + kernel_ms(op_forward, reps)) / 2
             p_f = (p_f + kernel_ms(eager_forward, reps)) / 2
             del y1, y2, hp
-        b_f, b_b = bn_relu_bound([(unit, c, side, sliced)], TRAIN_BATCH)
-        print(f"  bn_relu {unit:12s} [{TRAIN_BATCH},{c},{side},{side}]: mean/var rel "
-              f"{stats_err:.2e}, y max|err| {y_err:.3e} (step {y_tol:.3e}; {unequal} unequal), "
-              f"dh max|err| {dh_err:.3e}, at most {dh_over:.3f} bf16 steps of its largest "
-              f"term there, a/b rel {coef_err:.2e}, dgamma/dbeta rel {g_err:.2e}; "
-              f"forward {k_f:.3f} ms (eager {p_f:.3f}, bound {b_f:.3f}), backward {k_b:.3f} "
-              f"ms (eager {p_b:.3f}, bound {b_b:.3f})", flush=True)
-        if (stats_err > 1e-6 or y_err > y_tol or dh_over > 1.0 or coef_err > 1e-5
-                or g_err > 1e-4):
-            raise AssertionError(f"bn_relu {unit}: off its eager unit or closed form")
+        b_f, b_b = bn_relu_bound([(unit, c, side, sliced)], n)
+        print(f"  bn_relu {unit:12s} [{n},{c},{side},{side}]: mean/var rel {stats_err:.2e} "
+              f"({stats_unequal} of {2 * c} unequal), y max|err| {y_err:.3e} (step "
+              f"{y_tol:.3e}; {unequal} unequal), dh max|err| {dh_err:.3e}, at most "
+              f"{dh_over:.3f} bf16 steps of its largest term there, a/b rel {coef_err:.2e}, "
+              f"dgamma/dbeta rel {g_err:.2e}; forward {k_f:.3f} ms (eager {p_f:.3f}, bound "
+              f"{b_f:.3f}), backward {k_b:.3f} ms (eager {p_b:.3f}, bound {b_b:.3f})",
+              flush=True)
+        if (stats_unequal or y_err > y_tol or dh_over > 1.0 or coef_err > 1e-5
+                or g_err > 1e-4 or launches != BN_RELU_UNIT_LAUNCHES):
+            raise AssertionError(f"bn_relu {unit}: off its eager unit or closed form, or "
+                                 f"{launches} launches")
+        if kernel_reps:
+            times = bn_relu_kernel_times(h, gamma, beta, dy, kernel_reps, flush)
+            per_pass = n * side * side * c * h.element_size() / HBM_BYTES_PER_S * 1e3
+            kernels[unit] = {kind: [sum(t) / len(t), BN_RELU_KERNEL_PASSES[kind] * per_pass]
+                             for kind, t in times.items()}
+            print(f"  bn_relu {unit:12s} {kernel_reps} steps whole in the trace: " + ", ".join(
+                f"{kind} {ms * 1e3:.1f} us (floor {floor * 1e3:.1f}, excess "
+                f"{(ms - floor) * 1e3:.1f})" for kind, (ms, floor) in kernels[unit].items()),
+                flush=True)
         tally(results, "forward", y_err, k_f, p_f, None, (b_f, "bytes"))
         tally(results, "backward", dh_err, k_b, p_b, None, (b_b, "bytes"))
         tally(results, "bn_relu", max(y_err, dh_err), k_f + k_b, p_f + p_b, None,
               (b_f + b_b, "bytes"))
         del h, dy, hg, rows, a, b
         torch.cuda.empty_cache()
-    units = bn_relu_units(flagship_config(), dim)
-    design = bn_relu_bound(units, TRAIN_BATCH, passes=BN_RELU_DESIGN_PASSES)
-    for name, r in results.items():
+    del flush
+    torch.cuda.empty_cache()
+    design = bn_relu_bound(units, n, passes=BN_RELU_DESIGN_PASSES)
+    for name, r in results.items() if reps else ():
         traffic = {"forward": design[0], "backward": design[1]}.get(name, sum(design))
-        print(f"  bn_relu {name:8s} over the 14 units: {r['ms']:.3f} ms, eager {r['plain_ms']:.3f}"
-              f" ms, bound {r['bound_ms']:.3f} ms ({r['bound_ms'] / r['ms']:.1%} of it); the "
-              f"two kernels' traffic at the memory's rate {traffic:.3f} ms "
+        print(f"  bn_relu {name:8s} over the {len(units)} units: {r['ms']:.3f} ms, eager "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_ms'] / r['ms']:.1%}"
+              f" of it); the two kernels' traffic at the memory's rate {traffic:.3f} ms "
               f"({traffic / r['ms']:.1%})", flush=True)
+    for kind in BN_RELU_KERNEL_PASSES if kernels else ():
+        ms = sum(k[kind][0] for k in kernels.values())
+        floor = sum(k[kind][1] for k in kernels.values())
+        print(f"  bn_relu {kind:15s} over the {len(units)} units: {ms:.3f} ms, floor {floor:.3f} "
+              f"ms ({floor / ms:.1%} of it), excess {(ms - floor) * 1e3 / len(units):.1f} us a "
+              f"launch", flush=True)
+    if kernels:
+        results["kernels"] = kernels
     return results
+
+
+# the U-Net benchmark cell's batch and crop side (unet.train_b16_c624)
+UNET_BATCH = 16
+UNET_CROP = 624
+# device cycles (about 50 ms on an H100) of a sleep that opens each traced
+# window of bn_relu_kernel_times: a trace may lose the device work of its
+# window's first milliseconds (seen on an H100, PERF.md)
+TRACE_LEAD_CYCLES = 100_000_000
+# the op's four kernels, by the key bn_relu_kernel_kind gives their
+# profiler names, and each one's passes over its unit's values: the forward
+# reduction reads h, the normalisation reads h and writes y, the backward
+# reduction reads h and dy, the input gradient reads both and writes dh
+BN_RELU_KERNEL_PASSES = {"reduce forward": 1, "apply": 2, "reduce backward": 2, "grad": 3}
+
+
+def unet_config():
+    """The U-Net cell's net (perfbench/configs/unet_bn_rgb.json): widths
+    64-1024, four levels, bf16."""
+    from annonet_tpu_torch.models.segnet import SegNetConfig
+
+    return SegNetConfig(class_count=3, level_count=4, base_width=64, topology="unet")
+
+
+def bn_relu_kernel_kind(name: str):
+    """The key of BN_RELU_KERNEL_PASSES that a kernel's name (a profiler
+    event's: ``...bn_reduce_kernel<__nv_bfloat16, 8, true>(...)``) belongs
+    to, or None for any other kernel."""
+    if "bn_relu_apply_kernel" in name:
+        return "apply"
+    if "bn_relu_grad_kernel" in name:
+        return "grad"
+    if "bn_reduce_kernel" in name:
+        args = name.split("bn_reduce_kernel", 1)[1].split(">", 1)[0]
+        return "reduce backward" if "true" in args else "reduce forward"
+    return None
+
+
+def bn_relu_kernel_times(h, gamma, beta, dy, reps: int, flush) -> dict:
+    """Each of the op's four kernels alone on one unit's ``h`` and ``dy``:
+    its durations a launch in ms, {kernel: [ms] * reps}, in a profiler trace
+    of ``reps`` steps of ``ops/bn_relu.py`` ``_forward`` and ``_backward``,
+    with ``flush`` zeroed before each so that each reduction reads its
+    inputs from device memory. The window opens with TRACE_LEAD_CYCLES of a
+    device sleep; it raises unless the trace holds every launch of every
+    step, in launch order, and says where the ones it lacks were lost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from annonet_tpu_torch.ops import bn_relu as op
+
+    def step():
+        flush.zero_()
+        _y, buf = op._forward(h, gamma, beta)
+        flush.zero_()
+        op._backward(h, gamma, buf, dy)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(TRACE_LEAD_CYCLES)
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    ops = [(bn_relu_kernel_kind(e.name), e) for e in device]
+    ops = [(kind, e) for kind, e in ops if kind is not None]
+    got, want = [kind for kind, _e in ops], list(BN_RELU_KERNEL_PASSES) * reps
+    if got != want:
+        lost = len(want) - len(got)
+        where = ("from the window's start" if got == want[lost:] else
+                 "at the window's end" if got == want[:len(got)] else "inside the window")
+        raise AssertionError(
+            f"bn_relu: the trace lost {lost} of the op's {len(want)} launches, {where}; it "
+            f"kept {len(device) - len(ops)} other device events of the window's "
+            f"{int(TRACE_LEAD_CYCLES > 0) + 2 * reps} (the lead sleep, then two flushes a step)")
+    times: dict = {kind: [] for kind in BN_RELU_KERNEL_PASSES}
+    for kind, e in ops:
+        times[kind].append(e.time_range.elapsed_us() / 1e3)
+    return times
 
 
 # the training step's loss weights (ops/weighting.py, csrc/label_weights.cu):
@@ -3575,7 +3700,13 @@ def main() -> int:
     print(f"[kernels] the training unit's BN + ReLU op at the train step's {BN_RELU_UNITS} "
           f"units: batch {TRAIN_BATCH} at {train_crop_dim(config)}², forward and backward",
           flush=True)
-    bn_relu_results = check_bn_relu(device, 5, gen)
+    bn_relu_results = check_bn_relu(device, 5, gen, config, TRAIN_BATCH,
+                                    train_crop_dim(config))
+    elapsed()
+    print(f"[kernels] the BN + ReLU op at the U-Net cell's "
+          f"{len(bn_relu_units(unet_config(), UNET_CROP))} units: batch {UNET_BATCH} at "
+          f"{UNET_CROP}², forward and backward, and its four kernels alone", flush=True)
+    check_bn_relu(device, 0, gen, unet_config(), UNET_BATCH, UNET_CROP, kernel_reps=10)
     elapsed()
     print("[kernels] the training step's loss weights at the benchmark cells' batches",
           flush=True)

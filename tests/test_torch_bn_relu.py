@@ -9,9 +9,11 @@ The closed form and autograd compute the same f32 function in another
 order, so each gradient is held within 1e-5 of its largest magnitude.
 """
 
+import math
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -203,6 +205,136 @@ def test_vector_path_needs_aligned_rows_of_whole_chunks():
     assert op._vec(12, (aligned.float(),)) == 1  # 12 f32 channels: 3 chunks
     assert op._vec(16, (aligned[1:],)) == 0  # not 16-byte aligned
     assert op._vec(16, (aligned,), pitch=36) == 0  # a pitch of 4.5 chunks
+
+
+# the reductions' launch geometry (ops/bn_relu.py reduce_geometry): (n, C,
+# side) of the U-Net cell's five widths at batch 16 of 624² crops, the
+# flagship cell's four at batch 128 of 192², and the U-Net's deep units at
+# the CUDA tests' batch of 2
+_GEOMETRY_SHAPES = [(16, 64, 624), (16, 128, 312), (16, 256, 156), (16, 512, 78),
+                    (16, 1024, 39), (128, 16, 192), (128, 32, 96), (128, 64, 48),
+                    (128, 128, 24), (2, 512, 78), (2, 1024, 39), (2, 64, 312)]
+_SMS = 132  # an H100 SXM's
+
+
+def _parent_grid(rows, c, chunk, max_blocks):
+    """The reduction's grid as csrc/bn_relu.cu computed it before its
+    clusters: blocks of (256 // lanes) * lanes threads, 32 rows a thread
+    at least, at most max_blocks."""
+    lanes = c // chunk
+    per_pass = ((256 // lanes) * lanes) // lanes
+    return min(max_blocks, math.ceil(rows / (per_pass * 32)))
+
+
+@pytest.mark.parametrize("per_sm", [op._FORWARD_BLOCKS_PER_SM, op._BACKWARD_BLOCKS_PER_SM],
+                         ids=["forward", "backward"])
+@pytest.mark.parametrize("element_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,c,side", _GEOMETRY_SHAPES)
+def test_reduce_geometry_keeps_the_logical_grid_in_whole_clusters(n, c, side, element_bytes,
+                                                                  per_sm):
+    """The logical grid is the formula's of before the clusters, so every
+    block's rows and sums are; the launch is a whole number of clusters,
+    fewer than one cluster over the grid; with room for every cluster the
+    largest size that the grid fills is taken; the same arguments give the
+    same geometry."""
+    rows, chunk, max_blocks = n * side * side, 16 // element_bytes, per_sm * _SMS
+    blocks, cluster, launched = op.reduce_geometry(rows, c, chunk, max_blocks, lambda k: 10**6)
+    assert blocks == _parent_grid(rows, c, chunk, max_blocks)
+    assert launched % cluster == 0 and blocks <= launched < blocks + cluster
+    assert cluster == max(k for k in (1, 2, 4, 8, 16) if k <= blocks)
+    assert op.reduce_geometry(rows, c, chunk, max_blocks, lambda k: 10**6) == (
+        blocks, cluster, launched)
+
+
+@pytest.mark.parametrize("capacity,want", [
+    ({16: 24, 8: 50, 4: 99, 2: 198}, 8),  # 25 clusters of 16 do not fit, 50 of 8 do
+    ({16: 25, 8: 50, 4: 99, 2: 198}, 16),
+    ({16: 0, 8: 49, 4: 99, 2: 198}, 4),
+    ({16: 0, 8: 0, 4: 98, 2: 198}, 2),
+    ({16: 0, 8: 0, 4: 0, 2: 197}, 1),     # none fits: the block's own finish
+])
+def test_reduce_geometry_takes_the_largest_cluster_the_card_holds(capacity, want):
+    """The U-Net stem's forward reduction (396 blocks, bf16): the largest
+    size whose clusters, the grid rounded up, the card holds at once."""
+    rows, max_blocks = 16 * 624 * 624, op._FORWARD_BLOCKS_PER_SM * _SMS
+    blocks, cluster, launched = op.reduce_geometry(rows, 64, 8, max_blocks, capacity.get)
+    assert (blocks, cluster) == (396, want)
+    assert launched == -(-396 // want) * want
+
+
+def test_the_bf16_backward_reductions_full_grid_takes_clusters_of_two():
+    """An H100's capacity for the bf16 backward reduction (2 blocks an SM;
+    cudaOccupancyMaxActiveClusters: 14, 30, 62 and 132 clusters of 16, 8, 4
+    and 2): its 264-block grid fits in clusters of 2 alone."""
+    h100 = {16: 14, 8: 30, 4: 62, 2: 132}.get
+    rows, max_blocks = 16 * 624 * 624, op._BACKWARD_BLOCKS_PER_SM * _SMS
+    assert op.reduce_geometry(rows, 64, 8, max_blocks, h100) == (264, 2, 264)
+
+
+@pytest.mark.parametrize("rows,blocks,cluster,launched", [
+    (16, 1, 1, 1), (1024, 1, 1, 1),      # one block: smaller than any cluster
+    (3 * 1024, 3, 2, 4),                 # 3 blocks: one more that walks no rows
+    (4500, 5, 4, 8),                     # 5 blocks: 3 more
+    (9 * 1024, 9, 8, 16), (17 * 1024, 17, 16, 32),
+])
+def test_reduce_geometry_of_small_grids(rows, blocks, cluster, launched):
+    """bf16 at 64 channels (32 rows a pass, 1024 a block): a grid of one
+    block keeps a cluster of one, and the capacity is asked only for
+    sizes that the grid fills."""
+    asked = []
+
+    def capacity(k):
+        asked.append(k)
+        return 10**6
+
+    assert op.reduce_geometry(rows, 64, 8, 396, capacity) == (blocks, cluster, launched)
+    assert all(k <= blocks for k in asked)
+
+
+def test_workspace_asks_the_cards_capacity_once_a_shape(monkeypatch):
+    """``_workspace`` with the library and the card stubbed (an H100's 132
+    SMs and its capacities for the bf16 reductions): the U-Net stem's
+    forward takes clusters of 16, its backward clusters of 2, each
+    capacity asked of the library once for a width and dtype, whatever the
+    rows, with the rows a pass that the launches take; the partial sums
+    start after the 16 tickets' 64 bytes."""
+    asked = []
+    capacity = {False: {16: 28, 8: 62, 4: 124, 2: 264}, True: {16: 14, 8: 30, 4: 62, 2: 132}}
+
+    class Lib:
+        def annonet_bn_relu_clusters(self, backward, c, per_pass, k, vec, bf16, index):
+            asked.append((backward, c, per_pass, k, vec, bf16))
+            return capacity[bool(backward)][k]
+
+    monkeypatch.setattr(op._build, "lib", Lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(multi_processor_count=_SMS))
+    monkeypatch.setattr(op, "_SCRATCH", {})
+    monkeypatch.setattr(op, "_CAPACITY", {})
+    h = torch.empty((1, 64, 1, 1), dtype=torch.bfloat16)
+    rows = 16 * 624 * 624
+    forward = op._workspace(h, rows, 1, False)
+    backward = op._workspace(h, rows, 1, True)
+    assert forward[2:] == (7, 32, 396, 396, 16) and backward[2:] == (7, 32, 264, 264, 2)
+    assert forward[0] == forward[1] + 64
+    assert op._workspace(h, rows, 1, True) == backward
+    # fewer rows: a smaller logical grid from the capacities already asked
+    assert op._workspace(h, 2 * 312 * 312, 1, False)[2:] == (7, 32, 396, 191, 16)
+    assert asked == [(0, 64, 32, 16, 1, 1), (1, 64, 32, 16, 1, 1), (1, 64, 32, 8, 1, 1),
+                     (1, 64, 32, 4, 1, 1), (1, 64, 32, 2, 1, 1)]
+
+
+@pytest.mark.parametrize("c,element_bytes,chunk,per_pass", [
+    (64, 2, 8, 32), (1024, 2, 8, 2), (16, 2, 8, 128), (64, 4, 4, 16), (1024, 4, 4, 1),
+    (24, 2, 1, 10), (256, 2, 1, 1),
+])
+def test_the_launches_take_their_blocks_from_rows_a_pass(c, element_bytes, chunk, per_pass):
+    """The rows a block walks at once, which the library multiplies by the
+    threads a row to size every kernel's blocks: whole rows of 16-byte
+    chunks or elements within 256 threads."""
+    assert op.rows_a_pass(c, chunk) == per_pass
+    assert 0 < per_pass * (c // chunk) <= 256 < (per_pass + 1) * (c // chunk)
 
 
 def test_wrapper_checks_its_arguments():

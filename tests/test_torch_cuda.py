@@ -1144,11 +1144,11 @@ def _steps(v: torch.Tensor, dtype) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(v)) - _MANTISSA[dtype])
 
 
-def _grid_h(shape, dtype, device, seed, offset: int = 0):
-    """A channels_last [N, C, H, W] tensor of k/8, k in -8..8; ``offset``
+def _grid_h(shape, dtype, device, seed, offset: int = 0, top: int = 8):
+    """A channels_last [N, C, H, W] tensor of k/8, k in -top..top; ``offset``
     elements past an aligned allocation."""
     n, c, h, w = shape
-    k = np.random.default_rng(seed).integers(-8, 9, (n, h, w, c))
+    k = np.random.default_rng(seed).integers(-top, top + 1, (n, h, w, c))
     flat = torch.empty(n * h * w * c + offset, dtype=dtype, device=device)
     nhwc = flat[offset:].view(n, h, w, c)
     nhwc.copy_(torch.from_numpy(k / 8.0).to(dtype))
@@ -1243,6 +1243,41 @@ def test_bn_relu_at_ragged_sizes(device, n, c, h, w, offset, dtype):
     _check_bn_relu(x, gamma, beta, dy.contiguous(memory_format=torch.channels_last))
 
 
+# (n, c, h, w): the U-Net cell's deepest units (512 channels at 78², 1024 at
+# 39²) and one of 64 channels at 312², batch 16: the reductions' widest
+# cluster combines and finishes
+_BN_UNET = [(16, 512, 78, 78), (16, 1024, 39, 39), (16, 64, 312, 312)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,h,w", _BN_UNET)
+def test_bn_relu_at_the_unet_cells_deep_units(device, n, c, h, w, dtype):
+    """h = k/8 with k in -2..2, so that torch's f32 sums over up to 1.56 M
+    rows stay exact too (sums of h^2 in 64ths below 2^24 of them)."""
+    x = _grid_h((n, c, h, w), dtype, device, seed=c + h, top=2)
+    gamma, beta = _bn_params(c, device, seed=c + 2)
+    g = torch.Generator(device=device).manual_seed(h)
+    dy = torch.randn((n, h, w, c), generator=g, device=device).to(dtype).permute(0, 3, 1, 2)
+    _check_bn_relu(x, gamma, beta, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,h,w,clustered", [(1, 64, 4, 4, False), (1, 64, 50, 90, True)])
+def test_bn_relu_on_grids_of_a_few_blocks(device, n, c, h, w, clustered, dtype):
+    """One block (a cluster of one: the block finishes alone), and 5 (bf16)
+    or 9 (f32) blocks, launched as two clusters with blocks that walk no
+    rows: both reductions counted as clustered or not."""
+    from annonet_tpu_torch.ops import bn_relu as op
+
+    x = _grid_h((n, c, h, w), dtype, device, seed=w)
+    gamma, beta = _bn_params(c, device, seed=w)
+    g = torch.Generator(device=device).manual_seed(w)
+    dy = torch.randn((n, h, w, c), generator=g, device=device).to(dtype).permute(0, 3, 1, 2)
+    before = op.bn_relu.cluster_reductions
+    _check_bn_relu(x, gamma, beta, dy)
+    assert op.bn_relu.cluster_reductions - before == (2 if clustered else 0)
+
+
 def test_bn_relu_copies_an_output_gradient_of_another_layout_once(device):
     from annonet_tpu_torch.ops import bn_relu as op
 
@@ -1260,16 +1295,18 @@ def test_bn_relu_copies_an_output_gradient_of_another_layout_once(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_bn_relu_is_deterministic(device, dtype):
-    """Two runs on random values (sums not exact), 8 crops of the stem's
-    shape: every output bit-identical."""
+@pytest.mark.parametrize("n,c,hh,ww", [(8, 16, 192, 192), *_BN_UNET, (1, 64, 50, 90)])
+def test_bn_relu_is_deterministic(device, n, c, hh, ww, dtype):
+    """Two runs on random values (sums not exact): 8 crops of the
+    flagship stem's shape, the U-Net cell's deep units, a grid of a few
+    blocks; every output bit-identical."""
     from annonet_tpu_torch.ops import bn_relu as op
 
     g = torch.Generator(device=device).manual_seed(9)
-    h = (torch.randn((8, 192, 192, 16), generator=g, device=device) * 2 + 0.3).to(dtype)
+    h = (torch.randn((n, hh, ww, c), generator=g, device=device) * 2 + 0.3).to(dtype)
     h = h.permute(0, 3, 1, 2)
-    dy = torch.randn((8, 192, 192, 16), generator=g, device=device).to(dtype).permute(0, 3, 1, 2)
-    gamma, beta = _bn_params(16, device, seed=9)
+    dy = torch.randn((n, hh, ww, c), generator=g, device=device).to(dtype).permute(0, 3, 1, 2)
+    gamma, beta = _bn_params(c, device, seed=9)
     runs = []
     for _ in range(2):
         hg, gg, bg = (t.detach().requires_grad_(True) for t in (h, gamma, beta))
@@ -1320,6 +1357,34 @@ def test_train_step_runs_the_op_in_its_14_units(device, monkeypatch):
     """14 units, 4 launches each, every output gradient read in place."""
     counts, _ = _flagship_step(device, monkeypatch, seed=0)
     assert counts == (14, 56, 0)
+
+
+@pytest.mark.parametrize("topology,levels,width,n,dim,units", [
+    ("unet", 4, 64, 2, 624, 18),     # the U-Net cell's net, batch 2 of its crops
+    ("segnet", 3, 16, 16, 192, 14),  # the flagship cell's, batch 16 of its crops
+])
+def test_every_reduction_of_a_cells_step_combines_across_a_cluster(
+        device, topology, levels, width, n, dim, units):
+    """bn_relu.cluster_reductions counts both reductions of every unit of
+    a train step of the benchmark cells' nets at their crop sides: 36 in
+    the U-Net's, 28 in the flagship's (every grid fills a cluster)."""
+    from annonet_tpu_torch.data.crop import CropOptions
+    from annonet_tpu_torch.models import segnet
+    from annonet_tpu_torch.ops import bn_relu as op
+    from annonet_tpu_torch.train import Trainer, TrainerConfig
+
+    config = segnet.SegNetConfig(class_count=3, level_count=levels, base_width=width,
+                                 topology=topology)
+    trainer = Trainer(config, TrainerConfig(), seed=0, device=device)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (n, dim, dim, 3), dtype=np.uint8)
+    labels = rng.integers(0, 3, (n, dim, dim)).astype(np.uint16)
+    before = (op.bn_relu.units, op.bn_relu.launches, op.bn_relu.cluster_reductions)
+    loss = trainer.train_step_crops(images, labels, CropOptions(dim=dim))
+    assert np.isfinite(loss)
+    counts = tuple(a - b for a, b in zip(
+        (op.bn_relu.units, op.bn_relu.launches, op.bn_relu.cluster_reductions), before))
+    assert counts == (units, 4 * units, 2 * units)
 
 
 def test_train_step_with_the_op_is_deterministic(device, monkeypatch):

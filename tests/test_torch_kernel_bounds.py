@@ -201,6 +201,39 @@ def test_bn_relu_design_traffic_is_three_and_five_passes():
     assert bwd == pytest.approx(1.6339, rel=1e-4)
 
 
+def test_unet_bn_units_and_their_kernels_floors():
+    """The U-Net cell's 18 BN units (its linear up layers have none) at
+    batch 16 of 624² crops: widths 64-1024 at sides 624 to 39 and back,
+    3,040,247,808 values; a pass over them is 1.815 ms at 3.35 TB/s, so
+    the four kernels' streaming floors (1, 2, 2 and 3 passes) are 1.815,
+    3.630, 3.630 and 5.445 ms."""
+    units = cs.bn_relu_units(cs.unet_config(), cs.UNET_CROP)
+    assert [(c, side) for _unit, c, side, _sliced in units] == [
+        (64, 624), (64, 624), (128, 312), (128, 312), (256, 156), (256, 156), (512, 78),
+        (512, 78), (1024, 39), (1024, 39), (512, 78), (512, 78), (256, 156), (256, 156),
+        (128, 312), (128, 312), (64, 624), (64, 624)]
+    assert not any(sliced for *_rest, sliced in units)
+    values = sum(cs.UNET_BATCH * c * side * side for _unit, c, side, _sliced in units)
+    assert values == 3_040_247_808
+    per_pass = values * 2 / cs.HBM_BYTES_PER_S * 1e3
+    floors = {kind: passes * per_pass for kind, passes in cs.BN_RELU_KERNEL_PASSES.items()}
+    assert floors == pytest.approx({"reduce forward": 1.8151, "apply": 3.6301,
+                                    "reduce backward": 3.6301, "grad": 5.4452}, rel=1e-4)
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void annonet::(anonymous namespace)::bn_reduce_kernel<__nv_bfloat16, 8, false>"
+     "(__nv_bfloat16 const*, __nv_bfloat16 const*, long, long, int, int, int)", "reduce forward"),
+    ("void annonet::(anonymous namespace)::bn_reduce_kernel<float, 4, true>(float const*)",
+     "reduce backward"),
+    ("void annonet::(anonymous namespace)::bn_relu_apply_kernel<float, 1>(float const*)", "apply"),
+    ("void annonet::(anonymous namespace)::bn_relu_grad_kernel<__nv_bfloat16, 8>(int)", "grad"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", None),
+])
+def test_bn_relu_kernel_kind_reads_the_profiler_names(name, kind):
+    assert cs.bn_relu_kernel_kind(name) == kind
+
+
 def test_label_weights_bounds_count_the_labels_and_the_weights():
     """The loss weights at the U-Net cell's batch (16 x 624², 6,230,016
     pixels): the function reads 4-byte labels and writes 4-byte weights,
